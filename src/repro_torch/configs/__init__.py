@@ -1,0 +1,7 @@
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                      SSMConfig, reduced)
+from repro_torch.configs.registry import (ALL_ARCHS, get_config,
+                                          get_reduced_config)
+
+__all__ = ["MLAConfig", "ModelConfig", "MoEConfig", "SSMConfig", "reduced",
+           "ALL_ARCHS", "get_config", "get_reduced_config"]

@@ -1,0 +1,81 @@
+"""Plain PyTorch versions of the port's kernels (the allclose targets).
+
+Port of ``repro.kernels.ref`` for the two kernels of this slice, in the
+kernels' public layout. Each is what ``repro_torch.kernels.ops`` runs for a
+tensor on the CPU, and what ``chip_smoke.py`` holds the CUDA kernel against
+on the card. Masked scores use the reference's ``-1e30`` sentinel and get a
+weight of exactly 0, and the normaliser is ``max(l, 1e-30)``, as in the
+kernels: a row with no visible key comes out as zeros.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _masked_softmax_av(s: torch.Tensor, mask: torch.Tensor,
+                       v: torch.Tensor, eq: str) -> torch.Tensor:
+    """exp-normalise f32 scores ``s`` over the last axis where ``mask``,
+    weights exactly 0 elsewhere, then contract with ``v`` by ``eq``."""
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    return torch.einsum(eq, p / torch.clamp(l, min=1e-30), v)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        scale: float = 1.0,
+                        kv_len: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """q (B, S, H, D); k, v (B, T, Hkv, D); kv_len (B,) -> (B, S, H, D).
+
+    Full-matrix attention. Query head h reads KV head ``h // (H // Hkv)``;
+    keys at or past ``kv_len[b]`` are masked."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bshd,bthd->bhst", q.float(), kf) * scale
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (q_pos >= k_pos)
+    if window:
+        mask = mask & ((q_pos - k_pos) < window)
+    mask = mask[None, None]
+    if kv_len is not None:
+        mask = mask & (k_pos[0][None, None, None, :]
+                       < kv_len.long()[:, None, None, None])
+    out = _masked_softmax_av(s, mask, vf, "bhst,bthd->bshd")
+    return out.to(q.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, lengths: torch.Tensor, *,
+                     scale: float = 1.0,
+                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, H, D); cache (B, Skv, Hkv, D); lengths (B,) -> (B, H, D).
+
+    Keys at or past ``lengths[b]`` are masked; ``active`` (B,) bool forces
+    a slot's length to 0, and a slot with length 0 gets zeros."""
+    B, H, D = q.shape
+    Skv, Hkv = cache_k.shape[1], cache_k.shape[2]
+    lengths = lengths.long()
+    if active is not None:
+        lengths = torch.where(active, lengths, torch.zeros_like(lengths))
+    g = H // Hkv
+    kf = cache_k.float().repeat_interleave(g, dim=2)
+    vf = cache_v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bhd,bthd->bht", q.float(), kf) * scale
+    pos = torch.arange(Skv, device=q.device)
+    mask = (pos[None, :] < lengths[:, None])[:, None, :]
+    out = _masked_softmax_av(s, mask, vf, "bht,bthd->bhd")
+    return out.to(q.dtype)

@@ -1,0 +1,4 @@
+from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import Transformer
+
+__all__ = ["build_model", "Transformer"]

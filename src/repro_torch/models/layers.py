@@ -1,0 +1,128 @@
+"""Shared building blocks: dtypes, norms, embeddings, RoPE, MLPs.
+
+Port of ``repro.models.layers`` as plain functions on tensors. Parameters
+keep the reference's layouts (``tok`` (V_pad, d), MLP ``up``/``gate``
+(d, f) and ``down`` (f, d)), so a weight carried across from the JAX
+package needs no transpose. Rounding follows the reference step by step:
+norms compute in f32 and cast back, RoPE casts cos and sin to the
+activation dtype before multiplying, and logits are computed in the compute
+dtype and then cast to the logit dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dt(name: str) -> torch.dtype:
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"dtype {name!r} is not supported by the port "
+                         f"(takes {sorted(_DTYPES)})") from None
+
+
+def pdt(cfg) -> torch.dtype:
+    return dt(cfg.param_dtype)
+
+
+def cdt(cfg) -> torch.dtype:
+    return dt(cfg.compute_dtype)
+
+
+def normal_init(shape, fan_in: int, dtype: torch.dtype,
+                generator: torch.Generator,
+                device: torch.device) -> torch.Tensor:
+    """The reference's init scheme: standard normal x fan_in^-0.5, drawn in
+    f32 and cast (``layers.normal_init``). Draws differ from JAX's."""
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * fan_in ** -0.5).to(dtype)
+
+
+# ---------------------------------------------------------------- norms ----
+def apply_norm(x: torch.Tensor, scale: torch.Tensor, cfg,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RMSNorm (or LayerNorm when ``cfg.norm == "layernorm"`` and a bias is
+    given), in f32 whatever the compute dtype, cast back to x's dtype."""
+    xf = x.float()
+    if cfg.norm == "layernorm" and bias is not None:
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mean) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * scale.float() + bias.float()
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * scale.float()
+    return y.to(x.dtype)
+
+
+def rms_norm_heads(x: torch.Tensor, scale: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """Qwen3-style per-head q/k RMSNorm over the head_dim axis."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+# ----------------------------------------------------------- embeddings ----
+def embed(tok: torch.Tensor, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """tok (V_pad, d); tokens (...) int -> (..., d) in the compute dtype."""
+    return F.embedding(tokens.long(), tok).to(cdt(cfg))
+
+
+def unembed(tok: torch.Tensor, x: torch.Tensor, cfg,
+            w_unembed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Tied (``tok.T``) or untied (``w_unembed`` (d, V_pad)) unembedding.
+    Logits over the padded vocab, computed in the compute dtype and cast to
+    ``cfg.logit_dtype``."""
+    c = cdt(cfg)
+    w = tok.t() if w_unembed is None else w_unembed
+    logits = torch.matmul(x.to(c), w.to(c))
+    return logits.to(dt(cfg.logit_dtype))
+
+
+# --------------------------------------------------------------- rope ------
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
+    """positions (...,) int -> cos, sin of shape (..., dim // 2), f32."""
+    half = dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D); cos, sin (..., S, D/2) broadcast over heads."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# --------------------------------------------------------------- MLPs ------
+def apply_mlp(x: torch.Tensor, up: torch.Tensor, down: torch.Tensor, cfg,
+              gate: Optional[torch.Tensor] = None,
+              activation: Optional[str] = None) -> torch.Tensor:
+    """SwiGLU (``gate`` given), squared ReLU or GELU MLP in the compute
+    dtype; ``up``/``gate`` (d, f), ``down`` (f, d)."""
+    act = activation or cfg.activation
+    c = cdt(cfg)
+    xc = x.to(c)
+    h_up = torch.matmul(xc, up.to(c))
+    if act == "swiglu":
+        h = F.silu(torch.matmul(xc, gate.to(c))) * h_up
+    elif act == "squared_relu":
+        r = F.relu(h_up)
+        h = r * r
+    else:  # gelu, tanh-approximated as jax.nn.gelu's default
+        h = F.gelu(h_up, approximate="tanh")
+    return torch.matmul(h, down.to(c))

@@ -1,0 +1,38 @@
+"""Model registry: ``ModelConfig`` -> a built model on a device.
+
+Port of ``repro.models.registry.build_model`` for the dense family.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch import device as devices
+from repro_torch.models.transformer import Transformer
+from repro_torch.weights import StateDict, init_params
+
+
+def build_model(cfg, *, device: Union[str, torch.device] = "cuda",
+                params: Optional[StateDict] = None,
+                seed: int = 0) -> Transformer:
+    """Build ``cfg``'s model on ``device`` (the card unless ``"cpu"`` is
+    asked for; raises when there is no card). Weights are ``params`` (a
+    state dict, e.g. from ``repro_torch.weights.from_jax_params``), whose
+    tensors become the parameters without a copy when they already have
+    the device and dtype; else the port's own init from ``seed``."""
+    dev = devices.resolve(device)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; the port builds the "
+            f"dense family so far")
+    with torch.device("meta"):
+        model = Transformer(cfg, "meta")
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = init_params(cfg, gen, dev)
+    params = {k: v.to(dev) for k, v in params.items()}
+    model.load_state_dict(params, strict=True, assign=True)
+    return model

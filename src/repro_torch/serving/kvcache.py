@@ -1,0 +1,52 @@
+"""Slot-cache helpers for continuous batching.
+
+Port of the slot-cache part of ``repro.serving.kvcache``. The port's cache
+has one layout, ``{"k", "v"}`` of shape (L, slots, cache_len, Hkv, D), so
+the batch axis needs no discovery (the reference's ``batch_axes``): helpers
+take one layer's (slots, cache_len, Hkv, D) tensor and work in place.
+
+* ``merge_slots`` writes a prefill wave's rows into their slots. The
+  reference built a whole (slots, cache_len) wave cache and merged it; the
+  port writes the wave's valid rows straight into the slot cache, so no
+  second cache is ever allocated. Positions past the wave's bucket keep
+  their old content (the reference zeroed them); every read masks them.
+* ``select_slots`` keeps masked rows bit for bit: the megastep's decode
+  writes go through it, so free slots are untouched without the
+  reference's post-loop restore of the whole cache.
+* ``capacity_bytes`` is the allocated cache, what device memory pays.
+
+The paged pool (``repro.serving.paged``) comes in a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+
+def merge_slots(dst: torch.Tensor, src: torch.Tensor,
+                slots: Optional[torch.Tensor] = None) -> None:
+    """Write ``src`` (n, S, ...) into ``dst`` (B, S_cache, ...) positions
+    [0, S), in place: row i goes to slot ``slots[i]`` for i < len(slots);
+    rows past ``len(slots)`` are padding and are not written. With
+    ``slots`` None, row i goes to slot i (the reference's whole-batch
+    prefill)."""
+    S = src.shape[1]
+    if slots is None:
+        dst[:src.shape[0], :S] = src.to(dst.dtype)
+    else:
+        dst[slots, :S] = src[:slots.shape[0]].to(dst.dtype)
+
+
+def select_slots(old: torch.Tensor, new: torch.Tensor,
+                 active: torch.Tensor) -> torch.Tensor:
+    """Per-slot select over the leading (slot) axis: rows where ``active``
+    take ``new``, the rest keep ``old`` bit for bit."""
+    mask = active.reshape((-1,) + (1,) * (old.dim() - 1))
+    return torch.where(mask, new.to(old.dtype), old)
+
+
+def capacity_bytes(cache: Dict[str, torch.Tensor]) -> int:
+    """Allocated bytes of the whole cache, however much context is live."""
+    return sum(t.numel() * t.element_size() for t in cache.values())

@@ -1,0 +1,79 @@
+"""Boundaries of the PyTorch port: it imports nothing of JAX or of the JAX
+package, and its entry points refuse to run on the CPU unless asked to."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_reduced_config  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serving import InferenceEngine  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax", "repro"), \
+            f"{path.name} imports {name}"
+
+
+def test_port_file_list_is_complete():
+    names = {p.name for p in PORT_FILES}
+    assert {"engine.py", "attention.py", "transformer.py", "ops.py",
+            "build.py", "weights.py", "chip_smoke.py"} <= names
+
+
+def test_every_kernel_has_its_source():
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").exists()
+        assert build.library_path(name) == build.library_path(name)
+        assert build.library_path(name).parent == build.BUILD_DIR
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced_config("smollm2-1.7b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg, device="cuda")
+    model = build_model(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngine(model)
+    eng = InferenceEngine(model, device="cpu", slots=1, cache_len=16)
+    assert eng.device.type == "cpu"
+
+
+def test_engine_refuses_a_model_on_another_device():
+    model = build_model(get_reduced_config("smollm2-1.7b"), device="cpu")
+    with pytest.raises(ValueError):
+        InferenceEngine(model, device="meta")
+
+
+def test_unported_architectures_name_their_slice():
+    from repro_torch.configs import get_config
+    with pytest.raises(NotImplementedError, match="port slice"):
+        get_config("zamba2-7b")
+    with pytest.raises(KeyError):
+        get_config("no-such-model")

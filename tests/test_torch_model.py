@@ -1,0 +1,229 @@
+"""The port's dense decoder against the JAX reference: the reduced
+smollm2-1.7b (f32) initialised by the reference and carried across by
+repro_torch.weights.from_jax_params; logits through forward, prefill and
+decode_step within 2e-4, with use_kernels on and off."""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_reduced_config as jax_config  # noqa: E402
+from repro.models import build_model as jax_build  # noqa: E402
+from repro_torch.configs import get_reduced_config  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.weights import from_jax_params, init_params  # noqa: E402
+
+TOL = 2e-4
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    cfg = jax_config("smollm2-1.7b")
+    params = jax_build(cfg).init(jax.random.PRNGKey(0))
+    return cfg, params, jax.device_get(params)
+
+
+def _pair(jax_side, use_kernels):
+    jcfg, params, params_np = jax_side
+    jcfg = dataclasses.replace(jcfg, use_kernels=use_kernels)
+    tcfg = get_reduced_config("smollm2-1.7b", use_kernels=use_kernels)
+    tmodel = build_model(tcfg, device="cpu",
+                         params=from_jax_params(params_np, tcfg, "cpu"))
+    return jax_build(jcfg), params, tmodel
+
+
+def _toks(B, S, vocab, seed=1):
+    return np.random.RandomState(seed).randint(0, vocab, size=(B, S)).astype(
+        np.int32)
+
+
+def _err(a, b):
+    return float(np.max(np.abs(np.asarray(a) - b.numpy())))
+
+
+def test_weight_bridge_layouts(jax_side):
+    jcfg, _, params_np = jax_side
+    tcfg = get_reduced_config("smollm2-1.7b")
+    state = from_jax_params(params_np, tcfg, "cpu")
+    model = build_model(tcfg, device="cpu", params=state)
+    assert set(state) == set(model.state_dict())
+    L = tcfg.n_layers
+    for i in range(L):
+        np.testing.assert_array_equal(
+            state[f"layers.{i}.attn.wq"].numpy(),
+            params_np["layers"]["attn"]["wq"][i])
+        np.testing.assert_array_equal(
+            state[f"layers.{i}.mlp.down"].numpy(),
+            params_np["layers"]["mlp"]["down"][i])
+    assert state["layers.0.attn.wo"].shape == (
+        tcfg.n_heads, tcfg.resolved_head_dim, tcfg.d_model)
+    assert state["embed.tok"].shape == (tcfg.padded_vocab, tcfg.d_model)
+    # the port's own init draws the same shapes and dtypes
+    own = init_params(tcfg, torch.Generator().manual_seed(0),
+                      torch.device("cpu"))
+    assert {k: v.shape for k, v in own.items()} == \
+        {k: v.shape for k, v in state.items()}
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_forward_matches_reference(jax_side, use_kernels):
+    jm, params, tm = _pair(jax_side, use_kernels)
+    toks = _toks(2, 16, tm.cfg.vocab_size)
+    exp, _ = jm.forward(params, {"tokens": jnp.asarray(toks)})
+    out = tm.forward(torch.from_numpy(toks))
+    assert out.shape == (2, 16, tm.cfg.padded_vocab)
+    assert _err(exp, out) < TOL
+
+
+def test_forward_with_lengths_matches_reference(jax_side):
+    jm, params, tm = _pair(jax_side, False)
+    toks = _toks(2, 16, tm.cfg.vocab_size)
+    lengths = np.array([16, 9], np.int32)
+    exp, _ = jm.forward(params, {"tokens": jnp.asarray(toks),
+                                 "lengths": jnp.asarray(lengths)})
+    out = tm.forward(torch.from_numpy(toks), torch.from_numpy(lengths))
+    assert _err(exp, out) < TOL
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_prefill_and_decode_match_reference(jax_side, use_kernels):
+    jm, params, tm = _pair(jax_side, use_kernels)
+    B, S, cache_len = 2, 16, 64
+    toks = _toks(B, S, tm.cfg.vocab_size)
+    lengths = np.array([10, 16], np.int32)
+    jcache = jm.init_cache(B, cache_len, jnp.float32)
+    exp, jcache = jm.prefill(params, jnp.asarray(toks), jnp.asarray(lengths),
+                             jcache)
+    tcache = tm.init_cache(B, cache_len, torch.float32)
+    out = tm.prefill(torch.from_numpy(toks), torch.from_numpy(lengths),
+                     tcache)
+    assert _err(exp, out) < TOL
+    # the cache holds the same K/V at every valid position
+    jk = np.asarray(jcache["layers"][0])
+    for b, n in enumerate(lengths):
+        assert float(np.max(np.abs(jk[:, b, :n]
+                                   - tcache["k"][:, b, :n].numpy()))) < TOL
+
+    nxt = np.array([[5], [9]], np.int32)
+    exp, jcache = jm.decode_step(params, jnp.asarray(nxt),
+                                 jnp.asarray(lengths), jcache)
+    out = tm.decode_step(torch.from_numpy(nxt), torch.from_numpy(lengths),
+                         tcache)
+    assert out.shape == (B, tm.cfg.padded_vocab)
+    assert _err(exp, out) < TOL
+    jv = np.asarray(jcache["layers"][1])
+    for b, n in enumerate(lengths):
+        assert float(np.max(np.abs(jv[:, b, n]
+                                   - tcache["v"][:, b, n].numpy()))) < TOL
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_prefill_decode_matches_forward(use_kernels):
+    """Port copy of test_models_consistency.test_prefill_decode_matches_
+    forward, on the port's own init."""
+    cfg = get_reduced_config("smollm2-1.7b", use_kernels=use_kernels)
+    model = build_model(cfg, device="cpu", seed=0)
+    B, S = 2, 16
+    toks = torch.from_numpy(_toks(B, S, cfg.vocab_size)).long()
+    full = model.forward(toks)
+    cache = model.init_cache(B, 64, torch.float32)
+    lengths = torch.tensor([10, 16], dtype=torch.int32) - 1
+    lg = model.prefill(toks, lengths, cache)
+    assert float((lg[0] - full[0, 8]).abs().max()) < 2e-3
+    assert float((lg[1] - full[1, 14]).abs().max()) < 2e-3
+    nxt = torch.stack([toks[0, 9], toks[1, 15]])[:, None]
+    lg = model.decode_step(nxt, lengths, cache)
+    assert float((lg[0] - full[0, 9]).abs().max()) < 2e-3
+    assert float((lg[1] - full[1, 15]).abs().max()) < 2e-3
+
+
+def test_prefill_writes_only_given_slots():
+    """A padded wave writes its valid rows into their slots and nothing
+    else: padding rows and other slots keep their cache bit for bit."""
+    cfg = get_reduced_config("smollm2-1.7b")
+    model = build_model(cfg, device="cpu", seed=0)
+    cache = model.init_cache(4, 32, torch.float32)
+    for t in cache.values():
+        t.normal_(generator=torch.Generator().manual_seed(3))
+    before = {k: v.clone() for k, v in cache.items()}
+    toks = torch.from_numpy(_toks(4, 8, cfg.vocab_size)).long()
+    lengths = torch.tensor([8, 5, 0, 0], dtype=torch.int32)
+    model.prefill(toks, lengths, cache, slots=torch.tensor([3, 1]))
+    ref_cache = model.init_cache(2, 32, torch.float32)
+    model.prefill(toks[:2], lengths[:2], ref_cache)
+    for name in ("k", "v"):
+        for src, dst in ((0, 3), (1, 1)):
+            assert torch.equal(cache[name][:, dst, :8],
+                               ref_cache[name][:, src, :8])
+        assert torch.equal(cache[name][:, dst, 8:], before[name][:, dst, 8:])
+        for free in (0, 2):
+            assert torch.equal(cache[name][:, free], before[name][:, free])
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_decode_inactive_rows_leave_cache_untouched(use_kernels):
+    cfg = get_reduced_config("smollm2-1.7b", use_kernels=use_kernels)
+    model = build_model(cfg, device="cpu", seed=0)
+    cache = model.init_cache(3, 32, torch.float32)
+    for t in cache.values():
+        t.normal_(generator=torch.Generator().manual_seed(4))
+    before = {k: v.clone() for k, v in cache.items()}
+    toks = torch.tensor([[5], [6], [7]])
+    lengths = torch.tensor([4, 0, 9], dtype=torch.int32)
+    active = torch.tensor([True, False, True])
+    lg = model.decode_step(toks, lengths, cache, active=active)
+    assert torch.isfinite(lg).all()
+    for name in ("k", "v"):
+        assert torch.equal(cache[name][:, 1], before[name][:, 1])
+        assert not torch.equal(cache[name][:, 0, 4], before[name][:, 0, 4])
+        assert torch.equal(cache[name][:, 0, 5:], before[name][:, 0, 5:])
+
+
+@pytest.mark.parametrize("variant", [
+    dict(qk_norm=True), dict(norm="layernorm", activation="gelu"),
+    dict(tie_embeddings=False, activation="squared_relu", n_kv_heads=2)])
+def test_dense_variants_match_reference(variant):
+    """The dense family's other switches (per-head q/k norm, LayerNorm,
+    GELU and squared-ReLU MLPs, untied unembedding, GQA) through the bridge
+    and forward/prefill/decode, against the reference."""
+    jcfg = jax_config("smollm2-1.7b", **variant)
+    tcfg = get_reduced_config("smollm2-1.7b", **variant)
+    jm = jax_build(jcfg)
+    params = jm.init(jax.random.PRNGKey(1))
+    tm = build_model(tcfg, device="cpu", params=from_jax_params(
+        jax.device_get(params), tcfg, "cpu"))
+    toks = _toks(2, 12, tcfg.vocab_size, seed=2)
+    exp, _ = jm.forward(params, {"tokens": jnp.asarray(toks)})
+    assert _err(exp, tm.forward(torch.from_numpy(toks))) < TOL
+    lengths = np.array([12, 7], np.int32)
+    jcache = jm.init_cache(2, 32, jnp.float32)
+    exp, jcache = jm.prefill(params, jnp.asarray(toks), jnp.asarray(lengths),
+                             jcache)
+    tcache = tm.init_cache(2, 32, torch.float32)
+    out = tm.prefill(torch.from_numpy(toks), torch.from_numpy(lengths),
+                     tcache)
+    assert _err(exp, out) < TOL
+    nxt = np.array([[3], [4]], np.int32)
+    exp, _ = jm.decode_step(params, jnp.asarray(nxt), jnp.asarray(lengths),
+                            jcache)
+    out = tm.decode_step(torch.from_numpy(nxt), torch.from_numpy(lengths),
+                         tcache)
+    assert _err(exp, out) < TOL
+
+
+def test_config_copy_matches_reference():
+    """The port's ModelConfig is the reference's field for field: the same
+    arch id gives the same fields and the same key() in both packages."""
+    from repro.configs import get_config as jax_get
+    from repro_torch.configs import get_config
+    for full, red in ((jax_get("smollm2-1.7b"), get_config("smollm2-1.7b")),
+                      (jax_config("smollm2-1.7b"),
+                       get_reduced_config("smollm2-1.7b"))):
+        assert dataclasses.asdict(full) == dataclasses.asdict(red)
+        assert full.key() == red.key()
