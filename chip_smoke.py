@@ -7,19 +7,31 @@ Phases (any failure exits non-zero; no phase swallows an exception):
   1. card     - the card's name and power limit, torch and CUDA versions;
   2. build    - nvcc builds the hand-written kernels from csrc/;
   3. kernels  - each kernel against its plain PyTorch version on the card,
-                at the main-path shapes and a few sweep shapes, with times
-                beside the least time the card could take (bound_ms) and
-                a PyTorch library call computing the same function;
+                at the main-path shapes and a few sweep shapes (the paged
+                decode over scattered pages, page sizes 7 and 16, GQA, a
+                poisoned TRASH page; the prefill with per-row query
+                offsets), with times beside the least time the card could
+                take (bound_ms) and a PyTorch library call computing the
+                same function;
   4. serve    - full-width SmolLM2-1.7B (seeded random weights, bf16)
-                through the slot-cache InferenceEngine with the kernels:
-                (a) fact verification, 4 prompt templates x 64 claims,
-                one token each; (b) 16 long prompts of 64-500 tokens, 64
-                new tokens each. Launch counts must show both kernels ran;
-                the same mixes through a use_kernels=False engine over the
-                same weights must agree; torch.profiler then reads the
+                with the kernels: (a) fact verification, 4 prompt templates
+                x 64 claims, one token each, and (b) 16 long prompts of
+                64-500 tokens, 64 new tokens each, through the slot-cache
+                engine; (c) mix (b) through the paged pool; (d) few-shot
+                fact verification, 64 claims behind one shared 448-token
+                preamble, 8 new tokens each, through the paged pool with
+                prefix sharing and without it. Each path runs with the
+                launch counts set to 0 and must show its kernels ran; (a)-
+                (c) through use_kernels=False engines over the same
+                weights must agree; (c) must give (b)'s tokens and (d)'s
+                shared run its cold run's; torch.profiler then reads the
                 device busy share and heaviest kernels of each mix;
   5. pcm      - a context's cold build, its demote to pinned host memory
-                and its restore, after which (b) decodes identically.
+                and its restore, after which (b) decodes identically; then
+                the paged sharing engine of (d) demoted (weights and live
+                pages only), restored and run on (d) again (every wave
+                hits, same tokens), and a template of it cloned into a
+                twin that serves (c) with the same tokens and no build.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -45,6 +57,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import HashTokenizer, fever  # noqa: E402
+from repro_torch.data.tokenizer import BOS, LABEL_TOKENS  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import InferenceEngine, Request  # noqa: E402
@@ -62,6 +75,10 @@ BF16_FLOPS = 989e12
 
 ENGINE_KW = dict(slots=16, cache_len=1024, prefill_buckets=(32, 128, 512),
                  megastep=8, cache_dtype=torch.bfloat16)
+# the paged pool: 64-token pages, the default num_pages (16 slots x 16
+# pages = 256, the slot cache's bytes)
+PAGED_KW = dict(ENGINE_KW, paged=True, page_size=64)
+PREAMBLE_LEN = 448                       # 7 pages of 64
 
 
 def log(msg: str) -> None:
@@ -117,25 +134,33 @@ def phase_build() -> dict:
 
 
 # ---------------------------------------------------------- 3. kernels ----
-def attention_bound(B, S, H, Hkv, D, kv_len, causal, window, elt):
+def attention_bound(B, S, H, Hkv, D, kv_len, causal, window, elt,
+                    q_offset=None):
     """Least bytes and FLOPs of prefill attention on these inputs: q read
     and out written once, only the K/V rows below kv_len read once, 4*D
-    FLOPs per visible (query, key) pair."""
+    FLOPs per visible (query, key) pair (query row i of batch row b at
+    position q_offset[b] + i)."""
     pairs = 0
-    q = np.arange(S)
-    for n in kv_len:
+    offs = np.zeros(B, int) if q_offset is None else np.asarray(q_offset)
+    for n, off in zip(kv_len, offs):
+        q = off + np.arange(S)
         hi = np.minimum(q + 1, n) if causal else np.full(S, n)
         lo = np.maximum(0, q - window + 1) if window else np.zeros(S, int)
         pairs += int(np.maximum(0, hi - lo).sum())
     flops = 4.0 * D * H * pairs
     nbytes = (2 * B * S * H * D + 2 * int(np.sum(kv_len)) * Hkv * D) * elt
-    nbytes += 4 * B
+    nbytes += 4 * B * (1 if q_offset is None else 2)
     return nbytes, flops
 
 
-def decode_bound(B, H, Hkv, D, lengths, elt):
+def decode_bound(B, H, Hkv, D, lengths, elt, page=0):
+    """Least bytes and FLOPs of one decode step: q read and out written
+    once, each live key's K/V row read once (and, paged, each live page's
+    table entry), 4*D FLOPs per (head, live key)."""
     live = int(np.sum(lengths))
     nbytes = (2 * B * H * D + 2 * live * Hkv * D) * elt + 4 * B
+    if page:
+        nbytes += 4 * int(np.sum(-(-np.asarray(lengths) // page)))
     flops = 4.0 * D * H * live
     return nbytes, flops
 
@@ -161,14 +186,18 @@ def phase_kernels() -> dict:
     rows = {}
 
     # --- flash_attention ---------------------------------------------------
-    def attn_case(B, S, T, H, Hkv, D, dtype, causal, window, kv_len):
-        q = randn(rng, (B, S, H, D), dtype)
-        k = randn(rng, (B, T, Hkv, D), dtype)
-        v = randn(rng, (B, T, Hkv, D), dtype)
+    def attn_case(B, S, T, H, Hkv, D, dtype, causal, window, kv_len,
+                  q_offset=None, gen=rng):
+        q = randn(gen, (B, S, H, D), dtype)
+        k = randn(gen, (B, T, Hkv, D), dtype)
+        v = randn(gen, (B, T, Hkv, D), dtype)
         kl = (None if kv_len is None else
               torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
         scale = D ** -0.5
         kw = dict(causal=causal, window=window, scale=scale, kv_len=kl)
+        if q_offset is not None:
+            kw["q_offset"] = torch.tensor(q_offset, dtype=torch.int32,
+                                          device="cuda")
         out = ops.flash_attention(q, k, v, **kw)
         sync()
         exp = ref.flash_attention_ref(q, k, v, **kw)
@@ -212,6 +241,45 @@ def phase_kernels() -> dict:
     check("flash_attention ragged S 200 non-causal f32 kv_len [200,77]", err,
           torch.float32)
 
+    # per-row query offsets: the shared-prefix tail prefill of mix (d), 16
+    # tails of a 32 bucket at offsets ~450 over a 512-position page view
+    # (its own generator, so that the other cases draw what they drew
+    # before this case existed)
+    B, S, T = 16, 32, 512
+    rng_off = np.random.RandomState(1)
+    offs = rng_off.randint(440, 466, size=B)
+    offs[:2] = (0, 449)
+    kv_len = offs + rng_off.randint(1, S + 1, size=B)
+    kv_len[0] = S
+    q, k, v, kl, kw, err = attn_case(B, S, T, H, H, D, torch.bfloat16, True,
+                                     0, kv_len.tolist(), offs.tolist(),
+                                     gen=rng_off)
+    off_err = check("flash_attention q_offset (16,32 over 512,32,64) bf16 "
+                    "tails at offsets 0..465", err, torch.bfloat16)
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), iters=50)
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw))
+    qpos = kw["q_offset"][:, None] + torch.arange(S, device="cuda")[None]
+    kpos = torch.arange(T, device="cuda")
+    mask = ((kpos[None, None, :] <= qpos[:, :, None])
+            & (kpos[None, None, :] < kl[:, None, None]))[:, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=kw["scale"]), iters=50)
+    nbytes, flops = attention_bound(B, S, H, H, D, kv_len, True, 0, 2,
+                                    q_offset=offs)
+    bms, by = bound_ms(nbytes, flops)
+    log(f"[kernels] flash_attention q_offset: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    rows["flash_attention"]["q_offset"] = dict(
+        max_abs_err=off_err, ms=ms, plain_ms=plain, bound_ms=bms,
+        bound_by=by, library_ms=lib)
+    del q, k, v, mask, qt, kt, vt
+    *_, err = attn_case(3, 40, 300, 8, 2, 128, torch.float32, True, 0,
+                        [30, 117, 290], [0, 77, 250], gen=rng_off)
+    check("flash_attention q_offset GQA (3,40 over 300,8/2,128) f32", err,
+          torch.float32)
+
     # --- flash_decode ------------------------------------------------------
     def dec_case(B, H, Hkv, D, Skv, dtype, lengths, active=None):
         q = randn(rng, (B, H, D), dtype)
@@ -236,6 +304,7 @@ def phase_kernels() -> dict:
     B, H, D, Skv = 16, 32, 64, 1024
     lengths = rng.randint(2, Skv, size=B)
     lengths[:3] = (0, 1, Skv)
+    dec_lengths = lengths
     q, ck, cv, ln, kw, err = dec_case(B, H, H, D, Skv, torch.bfloat16,
                                       lengths.tolist())
     main_err = check("flash_decode main (16,32,64) Skv 1024 bf16 lengths "
@@ -267,6 +336,81 @@ def phase_kernels() -> dict:
                        active=[True, False, True, False])
     check("flash_decode active mask (4,8/2,64) Skv 256 f32", err,
           torch.float32, "(inactive rows exact zeros)")
+
+    # --- paged_flash_decode -----------------------------------------------
+    def paged_case(B, H, Hkv, D, P, n, num_pages, dtype, lengths,
+                   poison=False):
+        """Pools of num_pages + 1 pages (the last is TRASH), each slot's
+        live pages scattered over the pool, columns past them TRASH."""
+        q = randn(rng, (B, H, D), dtype)
+        kp = randn(rng, (num_pages + 1, P, Hkv, D), dtype)
+        vp = randn(rng, (num_pages + 1, P, Hkv, D), dtype)
+        if poison:
+            kp[num_pages] = 1e4
+            vp[num_pages] = 1e4
+        pt = np.full((B, n), num_pages, np.int32)
+        ids = iter(rng.permutation(num_pages))
+        for b, ln in enumerate(lengths):
+            for j in range(-(-ln // P)):
+                pt[b, j] = next(ids)
+        pt = torch.as_tensor(pt, device="cuda")
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        kw = dict(scale=D ** -0.5)
+        out = ops.paged_flash_decode(q, kp, vp, pt, ln, **kw)
+        sync()
+        exp = ref.paged_decode_ref(q, kp, vp, pt, ln, **kw)
+        err = float((out.float() - exp.float()).abs().max())
+        zero = ln == 0
+        if zero.any() and float(out[zero].abs().max()) != 0.0:
+            raise AssertionError("paged_flash_decode: empty slots are not "
+                                 "exact zeros")
+        if not torch.isfinite(out).all():
+            raise AssertionError("paged_flash_decode: non-finite output")
+        return q, kp, vp, pt, ln, kw, err
+
+    # the flash_decode main case's lengths, so the two kernels do the same
+    # work and differ only by the page-table indirection
+    B, H, D, P, n = 16, 32, 64, 64, 16
+    lengths = dec_lengths
+    q, kp, vp, pt, ln, kw, err = paged_case(B, H, H, D, P, n, 256,
+                                            torch.bfloat16, lengths.tolist())
+    main_err = check("paged_flash_decode main (16,32,64) P 64 n 16 bf16 "
+                     "lengths with 0/1/1024, scattered pages", err,
+                     torch.bfloat16)
+    ms = time_ms(lambda: ops.paged_flash_decode(q, kp, vp, pt, ln, **kw),
+                 iters=50)
+    plain = time_ms(lambda: ref.paged_decode_ref(q, kp, vp, pt, ln, **kw))
+    pos = torch.arange(n * P, device="cuda")
+    mask = (pos[None, :] < ln[:, None])[:, None, None, :]
+    flat = pt.reshape(-1).long()
+
+    def library():
+        kk = kp.index_select(0, flat).reshape(B, n * P, H, D).transpose(1, 2)
+        vv = vp.index_select(0, flat).reshape(B, n * P, H, D).transpose(1, 2)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kk, vv, attn_mask=mask, scale=kw["scale"])
+    lib = time_ms(library, iters=50)
+    nbytes, flops = decode_bound(B, H, H, D, lengths, 2, page=P)
+    bms, by = bound_ms(nbytes, flops)
+    log(f"[kernels] paged_flash_decode main: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, gather+SDPA {lib:.4f} ms, bound {bms:.4f} ms "
+        f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    rows["paged_flash_decode"] = dict(
+        name="paged_flash_decode", route="cuda",
+        source="src/repro_torch/csrc/paged_flash_decode.cu",
+        replaces="src/repro/kernels/decode_attention.py:216",
+        max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=bms,
+        bound_by=by, library_ms=lib)
+    del q, kp, vp, mask
+
+    for P, n, dtype, (H, Hkv), lens in (
+            (7, 5, torch.float32, (8, 2), [35, 17, 1, 0]),
+            (16, 4, torch.float32, (32, 8), [64, 33, 0, 5]),
+            (16, 6, torch.bfloat16, (16, 2), [96, 50, 16, 0])):
+        *_, err = paged_case(4, H, Hkv, 64, P, n, 6 * n, dtype, lens,
+                             poison=True)
+        check(f"paged_flash_decode P {P} n {n} ({H}/{Hkv} heads) "
+              f"{str(dtype)[6:]} lengths {lens}, poisoned TRASH", err, dtype)
     return rows
 
 
@@ -284,6 +428,26 @@ def long_prompts(vocab: int):
     return [rng.randint(8, vocab, size=int(n)).tolist() for n in lens]
 
 
+def fewshot_prompts(tok):
+    """Mix (d), few-shot fact verification: claims 64-127, each rendered
+    with DEFAULT_PROMPT behind one shared preamble of exactly 448 tokens
+    (7 pages): BOS, a run of seeded tokens standing for the task's
+    instructions, then 16 labelled claims (0-15) rendered with
+    DEFAULT_PROMPT and each followed by its label token."""
+    shots = []
+    for c in fever.claim_batch(range(16)):
+        shots += tok.encode(fever.render_prompt(c), add_bos=False)
+        shots.append(LABEL_TOKENS[c.label])
+    fill = PREAMBLE_LEN - 1 - len(shots)
+    if fill < 0:
+        raise AssertionError(f"16 shots take {len(shots)} tokens")
+    rng = np.random.RandomState(1)
+    preamble = [BOS] + rng.randint(8, tok.vocab_size, size=fill).tolist() \
+        + shots
+    return [preamble + tok.encode(fever.render_prompt(c), add_bos=False)
+            for c in fever.claim_batch(range(64, 128))]
+
+
 def serve(engine, prompts, max_new, label):
     st0 = dict(engine.stats.as_dict())
     reqs = [engine.submit(Request(prompt=list(p), max_new_tokens=max_new,
@@ -296,7 +460,8 @@ def serve(engine, prompts, max_new, label):
     st = engine.stats.as_dict()
     d = {k: st[k] - st0[k] for k in ("prefill_tokens", "decode_tokens",
                                      "prefill_batches", "decode_steps",
-                                     "decode_seconds")}
+                                     "decode_seconds", "prefix_hits",
+                                     "cow_copies")}
     prefill_s = wall - d["decode_seconds"]
     rates = dict(requests=len(reqs), wall_s=wall,
                  requests_per_s=len(reqs) / wall,
@@ -306,7 +471,10 @@ def serve(engine, prompts, max_new, label):
                  decode_tok_per_s=(d["decode_tokens"] / d["decode_seconds"]
                                    if d["decode_seconds"] else None),
                  prefill_waves=d["prefill_batches"],
-                 decode_steps=d["decode_steps"])
+                 decode_steps=d["decode_steps"],
+                 ttft_s=float(np.mean([r.ttft_seconds for r in reqs])))
+    if engine.stats.decode_path == "paged":
+        rates.update(prefix_hits=d["prefix_hits"], cow_copies=d["cow_copies"])
     log(f"[serve] {label}: {json.dumps(rates)}")
     for r in reqs:
         lg = r.first_logits
@@ -316,6 +484,50 @@ def serve(engine, prompts, max_new, label):
         if not 1 <= len(r.generated) <= max_new:
             raise AssertionError(f"{label}: {len(r.generated)} tokens")
     return reqs, rates
+
+
+def serve_rounds(engine, prompts, max_new, label, size=16):
+    """Mix (d) in rounds of one wave each (16 slots): the first round of
+    a fresh sharing engine is cold, the later ones hit its prefix cache."""
+    reqs, rounds = [], []
+    for i in range(0, len(prompts), size):
+        r, rates = serve(engine, prompts[i:i + size], max_new,
+                         f"{label} round {i // size + 1}")
+        reqs += r
+        rounds.append(rates)
+    return reqs, rounds
+
+
+def run_path(engine, label, fn):
+    """Drive one main path with every launch count set to 0 just before,
+    and hold the counts read just after against the path: each layer
+    launches the prefill kernel once per wave and its engine's decode
+    kernel once per decode step, and nothing else launches."""
+    st0 = dict(engine.stats.as_dict())
+    ops.reset_launches()
+    out = fn()
+    launches = dict(ops.LAUNCHES)
+    st = engine.stats.as_dict()
+    n_layers = engine.cfg.n_layers
+    decode_kernel = ("paged_flash_decode"
+                     if engine.stats.decode_path == "paged"
+                     else "flash_decode")
+    expect = {name: 0 for name in launches}
+    expect["flash_attention"] = n_layers * (st["prefill_batches"]
+                                            - st0["prefill_batches"])
+    expect[decode_kernel] = n_layers * (st["decode_steps"]
+                                        - st0["decode_steps"])
+    log(f"[serve] {label} launches {launches}; expected {expect} "
+        f"(n_layers x prefill waves, n_layers x decode steps)")
+    if launches != expect or launches["flash_attention"] <= 0 \
+            or launches[decode_kernel] <= 0:
+        raise AssertionError(f"{label}: kernel launch counts do not match "
+                             f"the path")
+    return out, launches
+
+
+def tokens(reqs):
+    return [r.generated for r in reqs]
 
 
 def compare(label, kern, plain, vocab):
@@ -365,44 +577,122 @@ def profile_mix(engine, prompts, max_new, label) -> dict:
     return out
 
 
+def free(*engines) -> None:
+    """Hand the engines' KV stores back to the card before the next engine
+    takes its own (each holds 3.2 GB at these shapes)."""
+    for e in engines:
+        e.cache = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_serve() -> dict:
     cfg = dataclasses.replace(get_config("smollm2-1.7b"), use_kernels=True)
     model = build_model(cfg, device="cuda", seed=0)
+    plain_model = build_model(dataclasses.replace(cfg, use_kernels=False),
+                              device="cuda", params=dict(model.state_dict()))
     engine = InferenceEngine(model, device="cuda", **ENGINE_KW)
     log(f"[serve] smollm2-1.7b full width: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {sum(p.numel() for p in model.parameters())} "
-        f"params bf16; engine {ENGINE_KW}")
+        f"params bf16; engine {ENGINE_KW}; paged {PAGED_KW}")
     facts, longs = fact_prompts(), long_prompts(cfg.vocab_size)
-    # warm the allocator and cuBLAS outside the counted run
+    # warm the allocator and cuBLAS outside the counted runs
     engine.generate([[2, 5]], max_new_tokens=2)
+    out = {"launches": {}}
 
-    ops.reset_launches()
-    st0 = dict(engine.stats.as_dict())
-    fk, rates_a = serve(engine, facts, 1, "(a) fact verification")
-    lk, rates_b = serve(engine, longs, 64, "(b) long prompts")
-    launches = dict(ops.LAUNCHES)
-    st = engine.stats.as_dict()
-    waves = st["prefill_batches"] - st0["prefill_batches"]
-    steps = st["decode_steps"] - st0["decode_steps"]
-    expect = {"flash_attention": cfg.n_layers * waves,
-              "flash_decode": cfg.n_layers * steps}
-    log(f"[serve] launches {launches}; expected {expect} "
-        f"(n_layers x prefill waves, n_layers x decode steps)")
-    if any(launches[k] <= 0 for k in launches) or launches != expect:
-        raise AssertionError("kernel launch counts do not match the path")
-
-    plain_model = build_model(dataclasses.replace(cfg, use_kernels=False),
-                              device="cuda", params=dict(model.state_dict()))
+    # (a) + (b): the slot cache
+    (fk, rates_a, lk, rates_b), out["launches"]["ab"] = run_path(
+        engine, "(a)+(b) slot cache", lambda: (
+            *serve(engine, facts, 1, "(a) fact verification"),
+            *serve(engine, longs, 64, "(b) long prompts")))
     plain = InferenceEngine(plain_model, device="cuda", **ENGINE_KW)
     fp, _ = serve(plain, facts, 1, "(a) plain path")
     lp, _ = serve(plain, longs, 64, "(b) plain path")
-    err_a = compare("(a)", fk, fp, cfg.vocab_size)
-    err_b = compare("(b)", lk, lp, cfg.vocab_size)
-    out = dict(rates_a=rates_a, rates_b=rates_b, launches=launches,
-               expected_launches=expect, logits_err_a=err_a,
-               logits_err_b=err_b, long_tokens=[r.generated for r in lk])
+    out.update(rates_a=rates_a, rates_b=rates_b,
+               logits_err_a=compare("(a)", fk, fp, cfg.vocab_size),
+               logits_err_b=compare("(b)", lk, lp, cfg.vocab_size),
+               long_tokens=tokens(lk))
+    free(plain)
     out["profile_a"] = profile_mix(engine, facts, 1, "(a) kernels")
     out["profile_b"] = profile_mix(engine, longs, 64, "(b) kernels")
+    free(engine)
+
+    # (c): mix (b) through the paged pool
+    pg = InferenceEngine(model, device="cuda", prefix_sharing=False,
+                         **PAGED_KW)
+    pg.generate([[2, 5]], max_new_tokens=2)
+    (ck, rates_c), out["launches"]["c"] = run_path(
+        pg, "(c) paged pool", lambda: serve(pg, longs, 64, "(c) paged pool"))
+    same = tokens(ck) == tokens(lk)
+    log(f"[serve] (c) paged tokens identical to the slot cache's (b): "
+        f"{same}")
+    if not same:
+        raise AssertionError("(c): the paged pool decodes differently from "
+                             "the slot cache")
+    plain_pg = InferenceEngine(plain_model, device="cuda",
+                               prefix_sharing=False, **PAGED_KW)
+    cp, _ = serve(plain_pg, longs, 64, "(c) plain path")
+    out.update(rates_c=rates_c,
+               logits_err_c=compare("(c)", ck, cp, cfg.vocab_size),
+               paged_tokens=tokens(ck))
+    free(plain_pg)
+    out["profile_c"] = profile_mix(pg, longs, 64, "(c) kernels")
+    free(pg)
+
+    # (d): few-shot fact verification, with and without prefix sharing
+    fs = fewshot_prompts(HashTokenizer(cfg.vocab_size))
+    sh = InferenceEngine(model, device="cuda", **PAGED_KW)
+    if sh.prefix_fallback is not None:
+        raise AssertionError(f"(d): sharing is off: {sh.prefix_fallback}")
+    sh.generate([[2, 5]], max_new_tokens=2)
+    sh.drop_prefix_cache()
+    (dk, rounds), out["launches"]["d"] = run_path(
+        sh, "(d) prefix sharing", lambda: serve_rounds(sh, fs, 8,
+                                                       "(d) sharing"))
+    cold = InferenceEngine(model, device="cuda", prefix_sharing=False,
+                           **PAGED_KW)
+    dc, cold_rounds = serve_rounds(cold, fs, 8, "(d) no sharing")
+    free(cold)
+    hits = sum(r["prefix_hits"] for r in rounds)
+    cows = sum(r["cow_copies"] for r in rounds)
+    computed = sum(r["prefill_tokens"] for r in rounds)
+    computed_cold = sum(r["prefill_tokens"] for r in cold_rounds)
+    gap = max(float((a.first_logits - b.first_logits).abs().max())
+              for a, b in zip(dk, dc))
+    same_first = sum(a.generated[0] == b.generated[0] for a, b in zip(dk, dc))
+    same = tokens(dk) == tokens(dc)
+    ttft_cold = rounds[0]["ttft_s"]
+    ttft_hit = float(np.mean([r["ttft_s"] for r in rounds[1:]]))
+    log(f"[serve] (d) prompts {min(map(len, fs))}-{max(map(len, fs))} "
+        f"tokens; prefix hits {hits}, COW copies {cows}; prefill tokens "
+        f"computed {computed} vs {computed_cold} cold "
+        f"({computed / computed_cold:.3f}x); TTFT cold wave "
+        f"{ttft_cold * 1e3:.1f} ms, hit waves {ttft_hit * 1e3:.1f} ms "
+        f"({ttft_cold / ttft_hit:.2f}x)")
+    log(f"[serve] (d) shared vs cold: tokens identical {same}; first tokens "
+        f"equal {same_first}/{len(fs)}; first-token logits max-abs gap "
+        f"{gap:.6f} ({'bitwise equal' if gap == 0 else 'not bitwise'})")
+    sh._alloc.check(sh._prefix_cache.pages())
+    held = sum(len(sh._alloc.owned(s)) for s in range(sh.slots))
+    log(f"[serve] (d) after the run: refcounts check out; slot-held pages "
+        f"{held}; live pages {sh._alloc.live_pages} = prefix-cache pages "
+        f"{len(sh._prefix_cache.pages())}")
+    if not same:
+        raise AssertionError("(d): shared prefill decodes differently from "
+                             "cold prefill")
+    if hits < 48 or cows < 1 or computed > 0.35 * computed_cold or held:
+        raise AssertionError("(d): prefix sharing did not do its work")
+    out.update(rounds_d=rounds, rounds_d_cold=cold_rounds, prefix_hits=hits,
+               cow_copies=cows, prefill_tokens_d=computed,
+               prefill_tokens_d_cold=computed_cold, ttft_cold_s=ttft_cold,
+               ttft_hit_s=ttft_hit, logits_gap_d=gap,
+               fewshot_tokens=tokens(dk))
+    prof = InferenceEngine(model, device="cuda", **PAGED_KW)
+    out["profile_d"] = profile_mix(prof, fs, 8, "(d) kernels, sharing")
+    free(prof)
+    out["sharing_engine"] = sh
+    out["fewshot"] = fs
+    out["longs"] = longs
     return out
 
 
@@ -445,8 +735,74 @@ def phase_pcm(long_tokens) -> dict:
     log(f"[pcm] (b) after restore identical to the serve phase: {same}")
     if not same:
         raise AssertionError("restored context decodes differently")
+    free(engine)
     return dict(cold_build_s=cold_s, offload_s=offload_s,
-                restore_s=restore_s, bytes_moved=moved, freed_bytes=freed)
+                restore_s=restore_s, bytes_moved=moved, freed_bytes=freed,
+                cache_bytes=cache_bytes)
+
+
+def phase_pcm_paged(eng, fewshot, fewshot_tokens, longs, paged_tokens,
+                    slot_cache_bytes) -> dict:
+    """Demote the sharing engine of (d): only the weights and the live
+    pages move. Restore it, run (d) again (every wave hits its own prefix
+    cache) and then clone a template of it into a twin that serves (c)."""
+    snap = eng.snapshot()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in eng.model.parameters())
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    host = eng.offload_device_state()
+    offload_s = time.monotonic() - t0
+    freed = before - torch.cuda.memory_allocated()
+    pages = sum(t.numel() * t.element_size() for t in host["cache"].values())
+    moved = pages + sum(t.numel() * t.element_size()
+                        for t in host["params"].values())
+    log(f"[pcm] paged sharing engine: offload {offload_s:.3f} s, "
+        f"{moved / 1e9:.3f} GB to pinned host = weights "
+        f"{weight_bytes / 1e9:.3f} + {snap['live_pages']} live pages of "
+        f"{eng.num_pages} {pages / 1e9:.3f} GB (the slot cache ships "
+        f"{slot_cache_bytes / 1e9:.3f} GB); device memory freed "
+        f"{freed / 1e9:.3f} GB")
+    if pages != snap["live_bytes"] or moved != weight_bytes + pages:
+        raise AssertionError("paged offload moved more than the weights "
+                             "and the live pages")
+    if freed < weight_bytes + snap["capacity_bytes"]:
+        raise AssertionError("paged offload did not free the weights and "
+                             "the pool")
+    t0 = time.monotonic()
+    eng.restore_device_state(host)
+    restore_s = time.monotonic() - t0
+    log(f"[pcm] paged restore {restore_s:.3f} s "
+        f"({moved / restore_s / 1e9:.2f} GB/s)")
+    st0 = eng.stats.as_dict()
+    again, rounds = serve_rounds(eng, fewshot, 8, "(d) after restore")
+    hits = eng.stats.prefix_hits - st0["prefix_hits"]
+    same = tokens(again) == fewshot_tokens
+    log(f"[pcm] (d) after restore: prefix hits {hits}/{len(fewshot)}, "
+        f"tokens identical {same}")
+    if not same or hits != len(fewshot):
+        raise AssertionError("restored sharing engine decodes differently "
+                             "or misses its prefix cache")
+
+    t0 = time.monotonic()
+    tpl = eng.export_template()
+    clone = eng.clone_offloaded()
+    clone.restore_device_state(tpl)
+    clone_s = time.monotonic() - t0
+    tpl_pages = sum(t.numel() for t in tpl["cache"].values())
+    outs = clone.generate(longs, max_new_tokens=64)
+    same = outs == paged_tokens
+    log(f"[pcm] template export + clone + restore {clone_s:.3f} s "
+        f"({tpl_pages} page elements shipped); clone builds "
+        f"{clone.stats.compiles}; (c) on the clone identical: {same}")
+    if not same or clone.stats.compiles or tpl_pages:
+        raise AssertionError("the template clone differs, ships pages or "
+                             "builds kernels")
+    free(clone, eng)
+    return dict(offload_s=offload_s, restore_s=restore_s, bytes_moved=moved,
+                page_bytes=pages, live_pages=snap["live_pages"],
+                freed_bytes=freed, rounds_after_restore=rounds,
+                clone_s=clone_s)
 
 
 def main() -> int:
@@ -464,13 +820,25 @@ def main() -> int:
     report["build"] = {k: v for k, v in phase_build().items()
                        if k != "ptxas"}
     rows = phase_kernels()
-    report["serve"] = phase_serve()
-    gc.collect()
-    torch.cuda.empty_cache()
-    report["pcm"] = phase_pcm(report["serve"].pop("long_tokens"))
-    kernels = [dict(row, launches=report["serve"]["launches"][name])
-               for name, row in rows.items()]
+    serve_out = phase_serve()
+    sharing = serve_out.pop("sharing_engine")
+    fewshot, longs = serve_out.pop("fewshot"), serve_out.pop("longs")
+    report["serve"] = serve_out
+    report["pcm"] = phase_pcm(serve_out.pop("long_tokens"))
+    report["pcm_paged"] = phase_pcm_paged(
+        sharing, fewshot, serve_out.pop("fewshot_tokens"), longs,
+        serve_out.pop("paged_tokens"), report["pcm"]["cache_bytes"])
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = []
+    for name, row in rows.items():
+        row = dict(row, launches=sum(run[name] for run in
+                                     serve_out["launches"].values()))
+        kernels.append({k: row[k] for k in keys})
     report["kernels"] = kernels
+    report["flash_attention_q_offset"] = rows["flash_attention"]["q_offset"]
+    if any(k["launches"] <= 0 for k in kernels):
+        raise AssertionError("a kernel of the path never launched")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -2,10 +2,14 @@
 //
 // Replaces the TPU kernel `flash_attention_bhsd` (`_flash_kernel`) of
 // src/repro/kernels/flash_attention.py. It computes the same function, with
-// two extensions that put it on the serving path:
+// three extensions that put it on the serving path:
 //   * per-row valid key counts `kv_len` (B,), so the engine's right-padded
 //     prefill waves run here (the reference sends them to the XLA blockwise
 //     path, models/attention.py:228);
+//   * per-row query offsets `q_offset` (B,): query row i of batch row b sits
+//     at position q_offset[b] + i, so the tail-only prefill of a prompt
+//     whose prefix K/V is shared from the page pool runs here (the
+//     reference's blockwise path with a (B,) q_offset, attention.py:289);
 //   * GQA by head index: query head h reads KV head h / (H / Hkv), so the
 //     narrow K/V are never repeated in memory.
 //
@@ -17,11 +21,14 @@
 // walks the KV tiles in a loop (the TPU kernel's sequential grid axis). The
 // loop starts at the sliding window's first visible key and stops at the
 // causal limit of the tile's last row and at kv_len[b], so fully masked
-// tiles are never loaded. The online softmax keeps (m, l, acc) in registers
-// with the reference's -1e30 sentinel and max(l, 1e-30); masked scores get a
-// weight of exactly 0, so a row with no visible key comes out as zeros,
-// never NaN. Ragged S and T are masked here, so neither needs to be a
-// multiple of a tile.
+// tiles are never loaded. Key tiles are anchored at position 0 whatever the
+// query offset, and a fully masked tile leaves a row's state unchanged bit
+// for bit (m stays, corr == 1, p == 0): a tail prefilled with q_offset
+// gets exactly the rows a whole-prompt prefill of the same K/V gets. The
+// online softmax keeps (m, l, acc) in registers with the reference's -1e30
+// sentinel and max(l, 1e-30); masked scores get a weight of exactly 0, so a
+// row with no visible key comes out as zeros, never NaN. Ragged S and T are
+// masked here, so neither needs to be a multiple of a tile.
 //
 // What bounds it on the H100: at the main-path shape (S = 512, D = 64,
 // causal) the function needs ~128 FLOP per byte, under the card's ~295, so
@@ -54,7 +61,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
-                       const int* __restrict__ kv_len, T* __restrict__ out,
+                       const int* __restrict__ kv_len,
+                       const int* __restrict__ q_offset, T* __restrict__ out,
                        int S, int T_, int H, int Hkv, int causal, int window,
                        float scale) {
   constexpr int DP = D + 1;
@@ -76,10 +84,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
 
   const int t_lim = kv_len != nullptr ? max(0, min(kv_len[b], T_)) : T_;
+  const int qoff = q_offset != nullptr ? q_offset[b] : 0;
   int t_end = t_lim;
-  if (causal) t_end = min(t_end, min(q0 + kBQ, S));
+  if (causal) t_end = min(t_end, qoff + min(q0 + kBQ, S));
   int t_begin = 0;
-  if (window > 0) t_begin = max(0, q0 - window + 1);
+  if (window > 0) t_begin = max(0, qoff + q0 - window + 1);
   t_begin = (t_begin / kBK) * kBK;
 
   const long long q_row_stride = (long long)H * D;
@@ -138,7 +147,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int qpos = q0 + ty * 4 + r;
+      const int qpos = qoff + q0 + ty * 4 + r;
       bool vis[4];
       float mx = kNegInf;
 #pragma unroll
@@ -203,9 +212,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_len, void* out, int B, int S, int T_, int H,
-                   int Hkv, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   const int* kv_len, const int* q_offset, void* out, int B,
+                   int S, int T_, int H, int Hkv, int causal, int window,
+                   float scale, cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   auto kernel = flash_attention_kernel<T, D>;
   cudaError_t err = repro::allow_smem(kernel, smem);
@@ -213,30 +222,30 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_len, static_cast<T*>(out), S, T_, H, Hkv,
-      causal, window, scale);
+      static_cast<const T*>(v), kv_len, q_offset, static_cast<T*>(out), S, T_,
+      H, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
 // head_dim is a template argument: 16, 32, 64 or 128
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
-                     const int* kv_len, void* out, int B, int S, int T_,
-                     int H, int Hkv, int D, int causal, int window,
-                     float scale, cudaStream_t st) {
+                     const int* kv_len, const int* q_offset, void* out,
+                     int B, int S, int T_, int H, int Hkv, int D, int causal,
+                     int window, float scale, cudaStream_t st) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, kv_len, out, B, S, T_, H, Hkv, causal,
-                           window, scale, st);
+      return launch<T, 16>(q, k, v, kv_len, q_offset, out, B, S, T_, H, Hkv,
+                           causal, window, scale, st);
     case 32:
-      return launch<T, 32>(q, k, v, kv_len, out, B, S, T_, H, Hkv, causal,
-                           window, scale, st);
+      return launch<T, 32>(q, k, v, kv_len, q_offset, out, B, S, T_, H, Hkv,
+                           causal, window, scale, st);
     case 64:
-      return launch<T, 64>(q, k, v, kv_len, out, B, S, T_, H, Hkv, causal,
-                           window, scale, st);
+      return launch<T, 64>(q, k, v, kv_len, q_offset, out, B, S, T_, H, Hkv,
+                           causal, window, scale, st);
     case 128:
-      return launch<T, 128>(q, k, v, kv_len, out, B, S, T_, H, Hkv, causal,
-                            window, scale, st);
+      return launch<T, 128>(q, k, v, kv_len, q_offset, out, B, S, T_, H, Hkv,
+                            causal, window, scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -245,10 +254,12 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (B, S, H, D); k, v (B, T, Hkv, D); kv_len (B,) int32 or null;
-// out (B, S, H, D). Returns the CUDA error code of the launch (0 = success).
+// q_offset (B,) int32 or null; out (B, S, H, D). Returns the CUDA error code
+// of the launch (0 = success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const int* kv_len,
-                                   void* out, int B, int S, int T, int H,
+                                   const int* q_offset, void* out, int B,
+                                   int S, int T, int H,
                                    int Hkv, int D, int causal, int window,
                                    float scale, int dtype, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
@@ -256,11 +267,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == REPRO_BF16)
-    err = launch_d<__nv_bfloat16>(q, k, v, kv_len, out, B, S, T, H, Hkv, D,
-                                  causal, window, scale, st);
+    err = launch_d<__nv_bfloat16>(q, k, v, kv_len, q_offset, out, B, S, T, H,
+                                  Hkv, D, causal, window, scale, st);
   else if (dtype == REPRO_F32)
-    err = launch_d<float>(q, k, v, kv_len, out, B, S, T, H, Hkv, D, causal,
-                          window, scale, st);
+    err = launch_d<float>(q, k, v, kv_len, q_offset, out, B, S, T, H, Hkv, D,
+                          causal, window, scale, st);
   else
     return cudaErrorInvalidValue;
   return static_cast<int>(err);

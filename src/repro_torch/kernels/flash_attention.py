@@ -2,10 +2,10 @@
 
 Port of ``repro.kernels.flash_attention`` (the Pallas ``flash_attention_bhsd``).
 The kernel is ``csrc/flash_attention.cu``: causal, sliding-window or full
-attention with per-row valid key counts and GQA by head index, in the
-reference's public (B, S, H, D) layout. This wrapper checks what the kernel
-takes, allocates the output and launches on PyTorch's current stream; it
-never falls back to another implementation.
+attention with per-row valid key counts, per-row query offsets and GQA by
+head index, in the reference's public (B, S, H, D) layout. This wrapper
+checks what the kernel takes, allocates the output and launches on
+PyTorch's current stream; it never falls back to another implementation.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -33,8 +33,17 @@ def _lib():
     return lib
 
 
+def _check_rows(name: str, x: Optional[torch.Tensor], q: torch.Tensor
+                ) -> None:
+    if x is not None and (x.dtype != torch.int32 or x.shape != q.shape[:1]
+                          or x.device != q.device or not x.is_contiguous()):
+        raise ValueError(f"flash_attention kernel: {name} must be a "
+                         f"contiguous (B,) int32 tensor on q's device")
+
+
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 kv_len: Optional[torch.Tensor]) -> None:
+                 kv_len: Optional[torch.Tensor],
+                 q_offset: Optional[torch.Tensor] = None) -> None:
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel: q, k, v must be on one "
                          "CUDA device")
@@ -55,22 +64,19 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel: q, k, v must be "
                          "contiguous")
-    if kv_len is not None and (kv_len.dtype != torch.int32
-                               or kv_len.shape != (B,)
-                               or kv_len.device != q.device
-                               or not kv_len.is_contiguous()):
-        raise ValueError("flash_attention kernel: kv_len must be a "
-                         "contiguous (B,) int32 tensor on q's device")
+    _check_rows("kv_len", kv_len, q)
+    _check_rows("q_offset", q_offset, q)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int, scale: float,
-                         kv_len: Optional[torch.Tensor] = None
+                         kv_len: Optional[torch.Tensor] = None,
+                         q_offset: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """q (B, S, H, D); k, v (B, T, Hkv, D); kv_len (B,) int32 or None ->
-    (B, S, H, D) in q's dtype. Launches the kernel; raises on a refused
-    launch."""
-    check_inputs(q, k, v, kv_len)
+    """q (B, S, H, D); k, v (B, T, Hkv, D); kv_len, q_offset (B,) int32 or
+    None -> (B, S, H, D) in q's dtype. Launches the kernel; raises on a
+    refused launch."""
+    check_inputs(q, k, v, kv_len, q_offset)
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -78,7 +84,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_len.data_ptr() if kv_len is not None else None, out.data_ptr(),
+        kv_len.data_ptr() if kv_len is not None else None,
+        q_offset.data_ptr() if q_offset is not None else None, out.data_ptr(),
         B, S, T, H, Hkv, D, int(bool(causal)), int(window), float(scale),
         _DTYPES[q.dtype], stream)
     build.check(lib, "flash_attention", code)

@@ -19,10 +19,12 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import flash_decode_cuda
+from repro_torch.kernels.decode_attention import (flash_decode_cuda,
+                                                  paged_flash_decode_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0,
+                            "paged_flash_decode": 0}
 
 
 def reset_launches() -> None:
@@ -40,15 +42,19 @@ def _on_cpu(x: torch.Tensor, name: str) -> bool:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, scale: float = 1.0,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B, S, H, D); k, v (B, T, Hkv, D); kv_len (B,) -> (B, S, H, D).
+                    kv_len: Optional[torch.Tensor] = None,
+                    q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, S, H, D); k, v (B, T, Hkv, D); kv_len (B,); q_offset (B,) ->
+    (B, S, H, D). Query row i of batch row b sits at position
+    ``q_offset[b] + i``.
 
     Rows whose queries see no key (``kv_len[b] == 0``) come out as zeros."""
     if _on_cpu(q, "flash_attention"):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       scale=scale, kv_len=kv_len)
+                                       scale=scale, kv_len=kv_len,
+                                       q_offset=q_offset)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                               scale=scale, kv_len=kv_len)
+                               scale=scale, kv_len=kv_len, q_offset=q_offset)
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -67,5 +73,20 @@ def flash_decode(q: torch.Tensor, cache_k: torch.Tensor,
     return out
 
 
-__all__ = ["flash_attention", "flash_decode", "LAUNCHES", "reset_launches",
-           "ref"]
+def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_table: torch.Tensor,
+                       lengths: torch.Tensor, *,
+                       scale: float = 1.0) -> torch.Tensor:
+    """q (B, H, D); k/v_pages (NP+1, P, Hkv, D); page_table (B, n);
+    lengths (B,) -> (B, H, D). A slot of length 0 gets zeros."""
+    if _on_cpu(q, "paged_flash_decode"):
+        return ref.paged_decode_ref(q, k_pages, v_pages, page_table, lengths,
+                                    scale=scale)
+    out = paged_flash_decode_cuda(q, k_pages, v_pages, page_table, lengths,
+                                  scale=scale)
+    LAUNCHES["paged_flash_decode"] += 1
+    return out
+
+
+__all__ = ["flash_attention", "flash_decode", "paged_flash_decode",
+           "LAUNCHES", "reset_launches", "ref"]

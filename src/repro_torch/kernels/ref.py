@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
-Port of ``repro.kernels.ref`` for the two kernels of this slice, in the
+Port of ``repro.kernels.ref`` for the port's kernels so far, in the
 kernels' public layout. Each is what ``repro_torch.kernels.ops`` runs for a
 tensor on the CPU, and what ``chip_smoke.py`` holds the CUDA kernel against
 on the card. Masked scores use the reference's ``-1e30`` sentinel and get a
@@ -31,28 +31,34 @@ def _masked_softmax_av(s: torch.Tensor, mask: torch.Tensor,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         scale: float = 1.0,
-                        kv_len: Optional[torch.Tensor] = None
+                        kv_len: Optional[torch.Tensor] = None,
+                        q_offset: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """q (B, S, H, D); k, v (B, T, Hkv, D); kv_len (B,) -> (B, S, H, D).
+    """q (B, S, H, D); k, v (B, T, Hkv, D); kv_len (B,); q_offset (B,) ->
+    (B, S, H, D).
 
     Full-matrix attention. Query head h reads KV head ``h // (H // Hkv)``;
-    keys at or past ``kv_len[b]`` are masked."""
+    keys at or past ``kv_len[b]`` are masked. Query row i of batch row b
+    sits at position ``q_offset[b] + i`` (0 + i without it): the tail of a
+    prompt whose first ``q_offset[b]`` keys are already in ``k``/``v``."""
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
     kf = k.float().repeat_interleave(g, dim=2)
     vf = v.float().repeat_interleave(g, dim=2)
     s = torch.einsum("bshd,bthd->bhst", q.float(), kf) * scale
-    q_pos = torch.arange(S, device=q.device)[:, None]
-    k_pos = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    q_pos = torch.arange(S, device=q.device)[None, :, None]        # (1,S,1)
+    if q_offset is not None:
+        q_pos = q_pos + q_offset.long()[:, None, None]             # (B,S,1)
+    k_pos = torch.arange(T, device=q.device)[None, None, :]
+    mask = torch.ones((1, S, T), dtype=torch.bool, device=q.device)
     if causal:
         mask = mask & (q_pos >= k_pos)
     if window:
         mask = mask & ((q_pos - k_pos) < window)
-    mask = mask[None, None]
+    mask = mask[:, None]
     if kv_len is not None:
-        mask = mask & (k_pos[0][None, None, None, :]
+        mask = mask & (k_pos[0, 0][None, None, None, :]
                        < kv_len.long()[:, None, None, None])
     out = _masked_softmax_av(s, mask, vf, "bhst,bthd->bshd")
     return out.to(q.dtype)
@@ -79,3 +85,25 @@ def flash_decode_ref(q: torch.Tensor, cache_k: torch.Tensor,
     mask = (pos[None, :] < lengths[:, None])[:, None, :]
     out = _masked_softmax_av(s, mask, vf, "bht,bthd->bhd")
     return out.to(q.dtype)
+
+
+def _gather_pages(pages: torch.Tensor, page_table: torch.Tensor
+                  ) -> torch.Tensor:
+    """(NP+1, P, ...) + (B, n) -> contiguous (B, n*P, ...)."""
+    B, n = page_table.shape
+    P = pages.shape[1]
+    return pages[page_table.reshape(-1).long()].reshape(
+        (B, n * P) + pages.shape[2:])
+
+
+def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, page_table: torch.Tensor,
+                     lengths: torch.Tensor, *,
+                     scale: float = 1.0) -> torch.Tensor:
+    """q (B, H, D); k/v_pages (NP+1, P, Hkv, D); page_table (B, n);
+    lengths (B,) -> (B, H, D). Gather through the table, then
+    ``flash_decode_ref``: key t of slot b is ``pages[pt[b, t // P], t % P]``
+    and keys at or past ``lengths[b]`` are masked."""
+    k = _gather_pages(k_pages, page_table)
+    v = _gather_pages(v_pages, page_table)
+    return flash_decode_ref(q, k, v, lengths, scale=scale)

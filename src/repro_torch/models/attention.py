@@ -6,20 +6,24 @@ keep the reference's einsum layouts (``wq`` (d, H, hd), ``wk``/``wv``
 reshaped view.
 
 With ``cfg.use_kernels`` prefill attention goes to the flash-attention
-kernel (also for the engine's padded waves: per-row ``kv_len`` is the
-kernel's own argument) and decode attention to the flash-decode kernel,
-through ``repro_torch.kernels.ops``. Without it, the ports of the
-reference's XLA paths run: ``blockwise_attention`` for prefill and
-``grouped_attention_narrow`` for decode.
+kernel (also for the engine's padded waves and for the tail-only prefill
+of prefix sharing: per-row ``kv_len`` and ``q_offset`` are the kernel's own
+arguments) and decode attention to the flash-decode kernels (slot cache or
+paged pool), through ``repro_torch.kernels.ops``. Without it, the ports of
+the reference's XLA paths run: ``blockwise_attention`` for prefill and
+``grouped_attention_narrow`` for decode (over the gathered pages, for the
+paged pool).
 
 Cache writes are in place (the reference rebuilt the cache arrays), and
-only the rows of active slots are written.
+only the rows of active slots are written: into their own slot, or into
+their own pages through the page table, with every masked write aimed at
+the pool's TRASH page.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -84,14 +88,15 @@ def write_cache_row(cache: torch.Tensor, new_row: torch.Tensor,
 # ------------------------------------------------- blockwise prefill core --
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool, window: int = 0,
-                        q_offset: int = 0,
+                        q_offset: Union[int, torch.Tensor] = 0,
                         kv_len: Optional[torch.Tensor] = None,
                         chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention over KV chunks; never builds (S, T) for the
     whole T. q (B,S,H,D); k, v (B,T,H,D), same head count (callers repeat
-    GQA KV). ``q_offset`` shifts query positions; ``kv_len`` (B,) masks
-    padding keys. Rows with no visible key come out as the reference's do
-    (a uniform average), finite."""
+    GQA KV). ``q_offset`` shifts query positions: an int for every row, or
+    a (B,) tensor per row (the shared-prefix tail prefill); ``kv_len`` (B,)
+    masks padding keys. Rows with no visible key come out as the
+    reference's do (a uniform average), finite."""
     B, S, H, D = q.shape
     T = k.shape[1]
     chunk = min(chunk, T)
@@ -103,7 +108,12 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kv_len = torch.full((B,), T, dtype=torch.int32, device=q.device)
         T = T + pad
     dev = q.device
-    q_pos = torch.arange(S, device=dev) + q_offset
+    per_row = isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1
+    if per_row:
+        q_pos = q_offset.long()[:, None] + torch.arange(S, device=dev)
+    else:
+        q_pos = torch.arange(S, device=dev) + q_offset          # (S,)
+    qp = q_pos[..., :, None]                         # (S,1) or (B,S,1)
     qf = q.float() * scale
     acc = torch.zeros((B, S, H, D), dtype=torch.float32, device=dev)
     m = torch.full((B, S, H), NEG_INF, dtype=torch.float32, device=dev)
@@ -114,12 +124,14 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v_i = v[:, c0:c0 + chunk].float()
         s = torch.einsum("bshd,bchd->bshc", qf, k_i)
         k_pos = c0 + torch.arange(chunk, device=dev)
-        mask = torch.ones((S, chunk), dtype=torch.bool, device=dev)
+        mask = torch.ones(qp.shape[:-1] + (chunk,), dtype=torch.bool,
+                          device=dev)
         if causal:
-            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+            mask = mask & (qp >= k_pos)
         if window:
-            mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
-        s = torch.where(mask[None, :, None, :], s, neg)
+            mask = mask & ((qp - k_pos) < window)
+        mask = mask if per_row else mask[None]                  # (B|1,S,C)
+        s = torch.where(mask[:, :, None, :], s, neg)
         if kv_len is not None:
             valid = k_pos[None, :] < kv_len.long()[:, None]        # (B,C)
             s = torch.where(valid[:, None, None, :], s, neg)
@@ -151,6 +163,64 @@ def attend_prefill(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                                   _repeat_kv(v, cfg.n_heads), scale=scale,
                                   causal=True, window=layer_window,
                                   kv_len=kv_len)
+    return _out_proj(out, p.wo, cdt(cfg)), (k, v)
+
+
+def _merge_rows(view: torch.Tensor, tail: torch.Tensor,
+                starts: torch.Tensor) -> torch.Tensor:
+    """Overlay freshly computed tail rows onto a gathered cache view.
+
+    view (B, L, ...) holds per-row cache content (shared prefix pages plus
+    whatever the row's private pages hold); tail (B, Tb, ...) holds new
+    values for logical positions [start, start + Tb). Row b of the result
+    equals view outside that span and tail inside it: prefix positions pass
+    through bit for bit, which keeps the shared prefill exact."""
+    B, L = view.shape[:2]
+    Tb = tail.shape[1]
+    pos = torch.arange(L, device=view.device)[None, :]            # (1, L)
+    st = starts.long()[:, None]
+    idx = torch.clamp(pos - st, 0, Tb - 1)                       # (B, L)
+    idxe = idx.reshape((B, L) + (1,) * (tail.dim() - 2)).expand(
+        (B, L) + tail.shape[2:])
+    gathered = torch.gather(tail.to(view.dtype), 1, idxe)
+    in_tail = (pos >= st) & (pos < st + Tb)
+    return torch.where(in_tail.reshape((B, L) + (1,) * (view.dim() - 2)),
+                       gathered, view)
+
+
+def attend_prefill_shared(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+                          starts: torch.Tensor, kv_len: torch.Tensor,
+                          view_k: torch.Tensor, view_v: torch.Tensor
+                          ) -> Tuple[torch.Tensor,
+                                     Tuple[torch.Tensor, torch.Tensor]]:
+    """Tail-only prefill attention for page-level prefix sharing.
+
+    x (B,Tb,d) embeds only the unshared tail tokens of each row;
+    ``positions`` (B,Tb) are their absolute positions (starts[b] + i);
+    view_k/view_v (B,L,Hkv,D) are the rows' cache views gathered through
+    the page table, already holding the shared prefix K/V. Computes q/k/v
+    for the tail, merges the tail K/V into the view at each row's offset,
+    and runs causal attention with per-row query offsets over the merged
+    K/V, masked to ``kv_len``: masked keys weigh exactly 0, so a row's
+    output is what a whole-prompt prefill of it gives. With
+    ``cfg.use_kernels`` that is the flash-attention kernel with
+    ``q_offset=starts`` (the reference sends this to its blockwise path).
+
+    Returns (y (B,Tb,d), the tail's narrow (k, v) (B,Tb,Hkv,D)): the caller
+    writes the tail into the row's pages (the reference returned the merged
+    view and scattered it back whole)."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    mk = _merge_rows(view_k, k, starts)
+    mv = _merge_rows(view_v, v, starts)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if cfg.use_kernels:
+        out = kops.flash_attention(q, mk, mv, causal=True, scale=scale,
+                                   kv_len=kv_len.to(torch.int32),
+                                   q_offset=starts.to(torch.int32))
+    else:
+        out = blockwise_attention(q, _repeat_kv(mk, cfg.n_heads),
+                                  _repeat_kv(mv, cfg.n_heads), scale=scale,
+                                  causal=True, q_offset=starts, kv_len=kv_len)
     return _out_proj(out, p.wo, cdt(cfg)), (k, v)
 
 
@@ -205,4 +275,103 @@ def attend_decode(p, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
         valid = pos[None, :] <= lengths.long()[:, None]
         out = grouped_attention_narrow(q * scale, cache_k, cache_v,
                                        valid)[:, :1]
+    return _out_proj(out, p.wo, c)
+
+
+# ------------------------------------------------------------ paged pool ----
+def _paged_write_span(pages: torch.Tensor, kv: torch.Tensor,
+                      page_table: torch.Tensor,
+                      starts: Optional[torch.Tensor] = None) -> None:
+    """Write a prefill's K or V into the pool, in place: kv (B, S, Hkv, D)
+    row b at logical positions ``starts[b] + i`` (``i`` without starts),
+    through the row's page table (B, n). Positions in columns that name the
+    TRASH page, or past the table's n * P, land in TRASH (index NP), so
+    padding rows, whose table rows are all TRASH, write nothing live."""
+    B, S = kv.shape[:2]
+    n = page_table.shape[1]
+    P = pages.shape[1]
+    trash = pages.shape[0] - 1
+    pos = torch.arange(S, device=kv.device)[None, :]
+    if starts is not None:
+        pos = pos + starts.long()[:, None]                          # (B, S)
+    col = pos // P
+    inside = col < n
+    dest = page_table.long().gather(
+        1, torch.clamp(col, max=n - 1).expand(B, S))
+    dest = torch.where(inside, dest, trash)
+    pages[dest, (pos % P).expand(B, S)] = kv.to(pages.dtype)
+
+
+def _paged_write_row(pages: torch.Tensor, new_row: torch.Tensor,
+                     page_table: torch.Tensor, lengths: torch.Tensor,
+                     active: torch.Tensor) -> None:
+    """Write one token per slot into the pool at logical position
+    ``lengths``, in place. pages (NP+1, P, ...); page_table (B, n); new_row
+    (B, ...).
+
+    Inactive slots write into the TRASH page (index NP): their stale page
+    table may name pages another slot now owns, so they never write through
+    it. The clamp mirrors ``attend_decode``'s ``min(lengths, cache - 1)``
+    with cache = n * P, so an at-capacity slot overwrites its last position
+    instead of escaping its reservation."""
+    B, n = page_table.shape
+    P = pages.shape[1]
+    trash = pages.shape[0] - 1
+    wpos = torch.clamp(lengths.long(), max=n * P - 1)
+    rows = torch.arange(B, device=pages.device)
+    dest = torch.where(active, page_table[rows, wpos // P].long(), trash)
+    pages[dest, wpos % P] = new_row.to(pages.dtype)
+
+
+def _paged_gather(pages: torch.Tensor, page_table: torch.Tensor
+                  ) -> torch.Tensor:
+    """(NP+1, P, ...) + (B, n) -> contiguous view (B, n*P, ...)."""
+    B, n = page_table.shape
+    P = pages.shape[1]
+    return pages[page_table.reshape(-1).long()].reshape(
+        (B, n * P) + pages.shape[2:])
+
+
+def paged_attend_decode(p, x: torch.Tensor, cfg, *, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, page_table: torch.Tensor,
+                        lengths: torch.Tensor,
+                        active: torch.Tensor) -> torch.Tensor:
+    """One-token GQA decode against the paged pool.
+
+    x (B,1,d); k/v_pages (NP+1, P, Hkv, D), written in place; page_table
+    (B, n) int32 (a column slice of the engine's table is fine); lengths
+    (B,); active (B,) bool (inactive slots write into TRASH and their
+    outputs are garbage the caller discards). Returns y (B,1,d).
+
+    With ``cfg.use_kernels`` attention runs in the paged flash-decode
+    kernel, which reads the pages in place through the table; otherwise
+    the pages are gathered into a contiguous view and scored by the slot
+    cache's ``grouped_attention_narrow``."""
+    c = cdt(cfg)
+    q = _proj(x, p.wq, c)
+    k_new = _proj(x, p.wk, c)
+    v_new = _proj(x, p.wv, c)
+    if cfg.qk_norm:
+        q = rms_norm_heads(q, p.q_norm, cfg.norm_eps)
+        k_new = rms_norm_heads(k_new, p.k_norm, cfg.norm_eps)
+    cos, sin = rope_cos_sin(lengths[:, None], q.shape[-1], cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k_new = apply_rope(k_new, cos, sin)
+
+    _paged_write_row(k_pages, k_new[:, 0], page_table, lengths, active)
+    _paged_write_row(v_pages, v_new[:, 0], page_table, lengths, active)
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    cap = page_table.shape[1] * k_pages.shape[1]
+    if cfg.use_kernels:
+        n_valid = torch.where(active, torch.clamp(lengths + 1, max=cap),
+                              0).to(torch.int32)
+        out = kops.paged_flash_decode(q[:, 0].contiguous(), k_pages,
+                                      v_pages, page_table, n_valid,
+                                      scale=scale)[:, None]
+    else:
+        kv = _paged_gather(k_pages, page_table)
+        vv = _paged_gather(v_pages, page_table)
+        pos = torch.arange(cap, device=kv.device)
+        valid = pos[None, :] <= lengths.long()[:, None]
+        out = grouped_attention_narrow(q * scale, kv, vv, valid)[:, :1]
     return _out_proj(out, p.wo, c)

@@ -2,16 +2,18 @@
 
 Port of ``repro.models.transformer.build_decoder`` for ``family="dense"``
 as ``nn.Module``s. ``Transformer`` has the methods of the reference's
-``Model`` record: ``init_cache``, ``forward``, ``prefill`` and
-``decode_step`` (``init`` is ``repro_torch.weights.init_params``). Layers
+``Model`` record: ``init_cache``, ``forward``, ``prefill``,
+``prefill_shared``, ``decode_step`` and ``decode_paged`` (``init`` is
+``repro_torch.weights.init_params``). Layers
 are a ``ModuleList`` instead of a stacked scan; parameter names follow the
 reference's pytree paths (``layers.{i}.attn.wq`` is ``layers/attn/wq[i]``).
 
 The KV cache is ``{"k": (L, B, S, Hkv, D), "v": ...}``: the reference's
-``{"layers": (k, v)}`` with the same stacked layer axis. ``prefill`` and
-``decode_step`` update it in place and return only the logits, where the
-reference returned a new cache. Parameters never require gradients: this
-slice serves.
+``{"layers": (k, v)}`` with the same stacked layer axis; the paged pool is
+the same dict built as ``init_cache(num_pages + 1, page_size)``, pages
+where the slots were. The methods update the cache in place and return
+only the logits, where the reference returned a new cache. Parameters
+never require gradients: the port serves.
 """
 
 from __future__ import annotations
@@ -90,10 +92,28 @@ class DenseBlock(nn.Module):
         x = x + a
         return x + self.mlp(self.ln2(x)), kv
 
+    def prefill_shared(self, x, *, positions, starts, kv_len, view_k,
+                       view_v):
+        """``prefill`` over tail tokens only, attending over the row's
+        gathered page view; returns (x, the tail's narrow (k, v))."""
+        a, kv = attn.attend_prefill_shared(
+            self.attn, self.ln1(x), self.cfg, positions=positions,
+            starts=starts, kv_len=kv_len, view_k=view_k, view_v=view_v)
+        x = x + a
+        return x + self.mlp(self.ln2(x)), kv
+
     def decode(self, x, *, lengths, cache_k, cache_v, active):
         x = x + attn.attend_decode(self.attn, self.ln1(x), self.cfg,
                                    cache_k=cache_k, cache_v=cache_v,
                                    lengths=lengths, active=active)
+        return x + self.mlp(self.ln2(x))
+
+    def decode_paged(self, x, *, lengths, k_pages, v_pages, page_table,
+                     active):
+        x = x + attn.paged_attend_decode(
+            self.attn, self.ln1(x), self.cfg, k_pages=k_pages,
+            v_pages=v_pages, page_table=page_table, lengths=lengths,
+            active=active)
         return x + self.mlp(self.ln2(x))
 
 
@@ -152,23 +172,57 @@ class Transformer(nn.Module):
                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
 
     def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor,
-                cache: Cache,
-                slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cache: Cache, slots: Optional[torch.Tensor] = None,
+                page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Prefill right-padded prompts. tokens (B,S); lengths (B,) valid
         counts. Each layer's K/V for positions [0, S) is written in place:
-        row i into cache row ``slots[i]`` for i < len(slots) (rows past it
-        are padding and write nothing), or into row i when ``slots`` is
-        None. Returns the logits at position ``lengths - 1``, (B, V_pad)."""
+        into the slot cache, row i into cache row ``slots[i]`` for i <
+        len(slots) (rows past it are padding and write nothing), or into
+        row i when ``slots`` is None; or, with ``page_table`` (B, n), into
+        the paged pool through row i's table (padding rows' tables are all
+        TRASH). Returns the logits at position ``lengths - 1``, (B, V_pad).
+        """
         B, S = tokens.shape
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = torch.arange(S, device=tokens.device)
         for i, blk in enumerate(self.layers):
             x, (k, v) = blk.prefill(x, positions=positions, kv_len=lengths)
-            merge_slots(cache["k"][i], k, slots)
-            merge_slots(cache["v"][i], v, slots)
+            if page_table is None:
+                merge_slots(cache["k"][i], k, slots)
+                merge_slots(cache["v"][i], v, slots)
+            else:
+                attn._paged_write_span(cache["k"][i], k, page_table)
+                attn._paged_write_span(cache["v"][i], v, page_table)
         x = self.final_norm(x)
         last = x[torch.arange(B, device=x.device),
                  torch.clamp(lengths.long() - 1, min=0)]
+        return self._logits(last)
+
+    def prefill_shared(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                       starts: torch.Tensor, cache: Cache,
+                       page_table: torch.Tensor) -> torch.Tensor:
+        """Tail-only prefill over the paged pool. ``tokens`` (B,Tb) holds
+        prompt[starts:] per row; the pool already holds each row's first
+        ``starts`` positions in the pages ``page_table`` (B, n) names (a
+        partially shared boundary page copied into the row's own page
+        beforehand). Each layer gathers the rows' views, attends the tail
+        over them and writes the tail's K/V into the pages at positions
+        [starts, starts + Tb), in place. Logits come from logical position
+        ``lengths - 1``, which is tail index ``lengths - starts - 1``."""
+        B, Tb = tokens.shape
+        x = embed(self.embed.tok, tokens, self.cfg)
+        positions = starts.long()[:, None] + torch.arange(
+            Tb, device=tokens.device)[None, :]
+        for i, blk in enumerate(self.layers):
+            x, (k, v) = blk.prefill_shared(
+                x, positions=positions, starts=starts, kv_len=lengths,
+                view_k=attn._paged_gather(cache["k"][i], page_table),
+                view_v=attn._paged_gather(cache["v"][i], page_table))
+            attn._paged_write_span(cache["k"][i], k, page_table, starts)
+            attn._paged_write_span(cache["v"][i], v, page_table, starts)
+        x = self.final_norm(x)
+        last = x[torch.arange(B, device=x.device),
+                 torch.clamp(lengths.long() - starts.long() - 1, min=0)]
         return self._logits(last)
 
     def decode_step(self, tokens: torch.Tensor, lengths: torch.Tensor,
@@ -181,4 +235,18 @@ class Transformer(nn.Module):
         for i, blk in enumerate(self.layers):
             x = blk.decode(x, lengths=lengths, cache_k=cache["k"][i],
                            cache_v=cache["v"][i], active=active)
+        return self._logits(self.final_norm(x))[:, 0]
+
+    def decode_paged(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                     cache: Cache, page_table: torch.Tensor,
+                     active: torch.Tensor) -> torch.Tensor:
+        """One token per row against the paged pool: tokens (B,1) at
+        position ``lengths``, written through ``page_table`` (B, n), the
+        one table every layer shares, for rows where ``active`` (inactive
+        rows write into TRASH). Returns logits (B, V_pad)."""
+        x = embed(self.embed.tok, tokens, self.cfg)
+        for i, blk in enumerate(self.layers):
+            x = blk.decode_paged(x, lengths=lengths, k_pages=cache["k"][i],
+                                 v_pages=cache["v"][i],
+                                 page_table=page_table, active=active)
         return self._logits(self.final_norm(x))[:, 0]

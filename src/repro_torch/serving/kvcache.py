@@ -15,7 +15,7 @@ take one layer's (slots, cache_len, Hkv, D) tensor and work in place.
   reference's post-loop restore of the whole cache.
 * ``capacity_bytes`` is the allocated cache, what device memory pays.
 
-The paged pool (``repro.serving.paged``) comes in a later slice.
+The paged pool is ``repro_torch.serving.paged``.
 """
 
 from __future__ import annotations

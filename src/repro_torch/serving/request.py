@@ -2,7 +2,7 @@
 
 Port of ``repro.serving.request``: the same fields and metrics, plus
 ``keep_logits``/``first_logits``, which hand a request its first-token
-logits (the paged pool's ``prefix_tokens`` comes with that slice)."""
+logits."""
 
 from __future__ import annotations
 
@@ -45,6 +45,10 @@ class Request:
     # (never preempts running decodes) — the reference's front door maps
     # SLOClass.INTERACTIVE here
     priority: int = 0
+    # prompt tokens whose K/V came from the prefix cache instead of being
+    # prefilled (0 on a miss or without sharing): the per-request half of
+    # EngineStats.prefix_tokens_reused
+    prefix_tokens: int = 0
     # first-token logits: when keep_logits is set, the engine copies the
     # request's f32 logits row (padded vocab) to the host at its prefill
     # wave's sync (used to hold one engine against another)
@@ -110,6 +114,19 @@ class EngineStats:
     # decode_step calls run (a megastep runs up to K of them); each runs
     # every layer's decode attention once
     decode_steps: int = 0
+    # the decode storage the engine resolved to at construction: "paged"
+    # (page pool behind a page table) or "full" (the slot cache)
+    decode_path: str = "full"
+    # page-pool occupancy as of the most recent megastep (paged path only)
+    live_pages: int = 0
+    # page-level prefix sharing: admissions that hit the prefix cache,
+    # prompt tokens whose prefill was skipped because their K/V pages were
+    # already resident, and copy-on-write page copies (the boundary-page
+    # copy of a shared prefill and the decode-append copy before a
+    # megastep)
+    prefix_hits: int = 0
+    prefix_tokens_reused: int = 0
+    cow_copies: int = 0
 
     @property
     def decode_tokens_per_second(self) -> float:
@@ -122,4 +139,9 @@ class EngineStats:
                     prefill_batches=self.prefill_batches,
                     megasteps=self.megasteps, compiles=self.compiles,
                     decode_seconds=self.decode_seconds,
-                    decode_steps=self.decode_steps)
+                    decode_steps=self.decode_steps,
+                    decode_path=self.decode_path,
+                    live_pages=self.live_pages,
+                    prefix_hits=self.prefix_hits,
+                    prefix_tokens_reused=self.prefix_tokens_reused,
+                    cow_copies=self.cow_copies)

@@ -1,5 +1,6 @@
 """The port on the card: each hand-written CUDA kernel against its plain
-PyTorch version, and the engine with kernels against the engine without.
+PyTorch version, and the engines (slot cache, paged pool with prefix
+sharing) with kernels against the same engines without.
 
 Every test here needs an NVIDIA card and skips without one (the kernels
 have no CPU mode). The file imports nothing of JAX, so it also runs where
@@ -100,3 +101,106 @@ def test_cuda_engine_kernels_match_plain_and_restore(cuda):
     assert all(t.is_pinned() for t in host["params"].values())
     eng.restore_device_state(host)
     assert eng.generate(ps, 8) == with_kernels
+
+
+def _paged_pool(seed, B, npages, num_pages, page, Hkv, D, dev, dtype):
+    """Random K and V pools of num_pages + 1 pages and a table giving each
+    slot npages distinct pages, scattered across the pool."""
+    rng = np.random.RandomState(seed)
+    kp = _rand(seed + 1, (num_pages + 1, page, Hkv, D), dev, dtype)
+    vp = _rand(seed + 2, (num_pages + 1, page, Hkv, D), dev, dtype)
+    ids = rng.permutation(num_pages)[:B * npages].reshape(B, npages)
+    return kp, vp, torch.as_tensor(ids.astype(np.int32), device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page,npages", [(8, 4), (16, 2), (32, 3), (7, 5),
+                                         (64, 16)])
+@pytest.mark.parametrize("H,Hkv", [(8, 2), (32, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_flash_decode_matches_plain(cuda, page, npages, H, Hkv,
+                                               dtype):
+    B, D = 4, 64
+    kp, vp, pt = _paged_pool(1, B, npages, 2 * B * npages, page, Hkv, D,
+                             cuda, dtype)
+    q = _rand(0, (B, H, D), cuda, dtype)
+    cap = npages * page
+    lengths = torch.tensor([cap, (cap // 2) | 1, 1, 0], dtype=torch.int32,
+                           device=cuda)
+    before = ops.LAUNCHES["paged_flash_decode"]
+    out = ops.paged_flash_decode(q, kp, vp, pt, lengths, scale=D ** -0.5)
+    assert ops.LAUNCHES["paged_flash_decode"] == before + 1
+    exp = ref.paged_decode_ref(q, kp, vp, pt, lengths, scale=D ** -0.5)
+    assert float((out.float() - exp.float()).abs().max()) < TOL[dtype]
+    assert float(out[3].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_paged_flash_decode_table_slice_and_trash(cuda):
+    """A column slice of a wider table is read through its row stride; a
+    TRASH page past the live columns is never read; a table whose rows are
+    not contiguous is refused."""
+    B, H, Hkv, D, page, npages = 3, 8, 2, 64, 16, 6
+    num_pages = 2 * B * npages
+    kp, vp, pt = _paged_pool(5, B, npages, num_pages, page, Hkv, D, cuda,
+                             "float32")
+    q = _rand(0, (B, H, D), cuda, "float32")
+    lengths = torch.tensor([20, 2 * page, 1], dtype=torch.int32, device=cuda)
+    wide = torch.full((B, 2 * npages), num_pages, dtype=torch.int32,
+                      device=cuda)
+    wide[:, :npages] = pt
+    kp[num_pages] = 1e4
+    vp[num_pages] = 1e4
+    sliced = wide[:, :3]
+    assert not sliced.is_contiguous()
+    out = ops.paged_flash_decode(q, kp, vp, sliced, lengths, scale=0.125)
+    exp = ref.paged_decode_ref(q, kp, vp, pt[:, :3].contiguous(), lengths,
+                               scale=0.125)
+    assert float((out - exp).abs().max()) < TOL["float32"]
+    with pytest.raises(ValueError):
+        ops.paged_flash_decode(q, kp, vp, wide.t().contiguous().t()[:, :3],
+                               lengths, scale=0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 64), (8, 2, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_q_offset_matches_plain(cuda, H, Hkv, D, dtype):
+    """Tail rows at per-row query offsets over a longer K/V (the shared
+    prefill), with kv_len, against the plain version."""
+    B, S, T = 3, 40, 300
+    q = _rand(0, (B, S, H, D), cuda, dtype)
+    k = _rand(1, (B, T, Hkv, D), cuda, dtype)
+    v = _rand(2, (B, T, Hkv, D), cuda, dtype)
+    q_offset = torch.tensor([0, 77, 250], dtype=torch.int32, device=cuda)
+    kv_len = torch.tensor([30, 117, 290], dtype=torch.int32, device=cuda)
+    kw = dict(causal=True, scale=D ** -0.5, kv_len=kv_len, q_offset=q_offset)
+    out = ops.flash_attention(q, k, v, **kw)
+    exp = ref.flash_attention_ref(q, k, v, **kw)
+    assert float((out.float() - exp.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_paged_sharing_engine_kernels_match_plain(cuda):
+    """Reduced smollm2 in f32, paged pool with prefix sharing: greedy output
+    with the kernels equals the plain path's and the unshared engine's, the
+    prefix cache hits, and every page comes back."""
+    cfg = get_reduced_config("smollm2-1.7b", use_kernels=True)
+    model = build_model(cfg, device=cuda, seed=0)
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                        device=cuda, params=dict(model.state_dict()))
+    rng = np.random.RandomState(0)
+    prefix = list(rng.randint(8, cfg.vocab_size, size=21))
+    ps = [prefix + list(rng.randint(8, cfg.vocab_size, size=3 + i % 5))
+          for i in range(7)]
+    kw = dict(device=cuda, slots=2, cache_len=64, prefill_buckets=(16, 32),
+              megastep=4, paged=True, page_size=8)
+    eng = InferenceEngine(model, **kw)
+    with_kernels = eng.generate(ps, 10)
+    assert eng.stats.prefix_hits >= 4 and eng.stats.cow_copies >= 1
+    assert with_kernels == InferenceEngine(plain, **kw).generate(ps, 10)
+    assert with_kernels == InferenceEngine(
+        model, prefix_sharing=False, **kw).generate(ps, 10)
+    eng._alloc.check(eng._prefix_cache.pages())
+    eng.drop_prefix_cache()
+    assert eng._alloc.free_pages == eng.num_pages

@@ -1,8 +1,11 @@
-"""The port's slot-cache InferenceEngine: greedy output equal to the JAX
-engine's on the same weights and prompts (reduced smollm2-1.7b, f32, CPU),
-and the reference's internal invariants re-asserted inside the port:
-megastep parity, batching invariance, drain == continuous admission, and
-offload/restore/continue bit for bit."""
+"""The port's InferenceEngine, slot cache and paged pool: greedy output
+equal to the JAX engine's on the same weights and prompts (reduced
+smollm2-1.7b, f32, CPU), and the reference's internal invariants
+re-asserted inside the port: megastep parity, batching invariance, drain ==
+continuous admission, offload/restore/continue bit for bit, paged ==
+slot cache, prefix-shared == cold, and the page pool's bookkeeping
+(tests/test_serving.py's paged tests, tests/test_prefix.py's engine
+tests)."""
 
 import pytest
 
@@ -17,7 +20,8 @@ from repro.serving import InferenceEngine as JaxEngine  # noqa: E402
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.data import HashTokenizer, fever  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.serving import InferenceEngine, Request  # noqa: E402
+from repro_torch.serving import (InferenceEngine, Request,  # noqa: E402
+                                 RequestState)
 from repro_torch.serving.sampler import sample  # noqa: E402
 from repro_torch.weights import from_jax_params  # noqa: E402
 
@@ -56,8 +60,11 @@ def engine(model, **kw):
 def jax_greedy(smol):
     jmodel, params, _ = smol
     e = JaxEngine(jmodel, params, **ENGINE)
+    pe = JaxEngine(jmodel, params, **ENGINE, megastep=4, paged=True,
+                   page_size=8, prefix_sharing=False)
     return {"tokens8": e.generate(prompts(9), max_new_tokens=8),
-            "facts": e.generate(fact_prompts(), max_new_tokens=1)}
+            "facts": e.generate(fact_prompts(), max_new_tokens=1),
+            "paged8": pe.generate(prompts(9), max_new_tokens=8)}
 
 
 @pytest.mark.parametrize("K", [1, 4])
@@ -194,8 +201,8 @@ def test_rejections(smol):
         eng.submit(Request(prompt=list(range(99))))
     with pytest.raises(ValueError):
         eng.submit(Request(prompt=[3], stop_tokens=(1, 2, 3, 4, 5)))
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(model, device="cpu", paged=True)
+    with pytest.raises(ValueError):
+        InferenceEngine(model, device="cpu", paged=True, page_size=0)
     with pytest.raises(ValueError):
         InferenceEngine(model, device="cpu", admission="eager")
 
@@ -237,3 +244,338 @@ def test_sampler_temperature_draws_the_softmax_distribution():
     freq = torch.bincount(hot.long(), minlength=3).float() / n
     exp = torch.tensor([0.01, 0.04, 0.49]) / 0.54
     assert torch.allclose(freq, exp, atol=0.015)
+
+
+# ----------------------------------------------------------- paged pool ----
+def paged(model, **kw):
+    """tests/test_serving.py's _paged_engine: unshared paged semantics
+    (sharing keeps pages past a request's end, so it is off here)."""
+    kw = {**ENGINE, "megastep": 4, "paged": True, "page_size": 8,
+          "prefix_sharing": False, **kw}
+    return InferenceEngine(model, device="cpu", **kw)
+
+
+def shared_prompts(n, prefix_len=18, seed=0, vocab=512):
+    """n prompts sharing a prefix that ends mid-page for page_size 8."""
+    rng = np.random.RandomState(seed)
+    prefix = list(rng.randint(8, vocab, size=prefix_len))
+    return [prefix + list(rng.randint(8, vocab, size=3 + (i % 5)))
+            for i in range(n)]
+
+
+def sharing(model, *, on=True, slots=2, num_pages=None, megastep=4):
+    """tests/test_prefix.py's paged_engine."""
+    return InferenceEngine(model, device="cpu", slots=slots, cache_len=64,
+                           prefill_buckets=(16,), megastep=megastep,
+                           paged=True, page_size=8, num_pages=num_pages,
+                           prefix_sharing=on)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_paged_greedy_matches_reference_paged_engine(smol, jax_greedy, K):
+    eng = paged(smol[2], megastep=K)
+    assert eng.snapshot()["decode_path"] == "paged"
+    assert eng.generate(prompts(9), max_new_tokens=8) == jax_greedy["paged8"]
+    assert eng._alloc.free_pages == eng.num_pages
+
+
+@pytest.mark.parametrize("K", [1, 8])
+def test_paged_vs_slot_greedy_parity(smol, K):
+    """test_serving.py:363 — the paged pool generates the slot cache's
+    greedy tokens, mid-stream stop-token exits included, and returns every
+    page at the end."""
+    model = smol[2]
+    ps = prompts(9, seed=7)
+    base, _ = _with_stops(model, ps, (1,), 1)
+    stop = next(t for out in base for t in out[1:])
+    want, _ = _with_stops(model, ps, (1, stop), K)
+    pg = paged(model, megastep=K)
+    assert pg._paged and pg.paged_fallback is None
+    rs = [pg.submit(Request(prompt=list(p), max_new_tokens=12,
+                            stop_tokens=(1, stop))) for p in ps]
+    pg.run_to_completion()
+    assert [r.generated for r in rs] == want
+    assert any(r.generated[-1] == stop and len(r.generated) < 12
+               for r in rs), "stop never fired — test is vacuous"
+    assert pg.stats.decode_path == "paged"
+    assert pg._alloc.free_pages == pg.num_pages
+    assert pg._alloc.live_pages == 0
+
+
+def test_paged_free_pages_untouched(smol):
+    """test_serving.py:424 — pages nobody owns are bit for bit untouched by
+    prefill and decode: masked writes land in TRASH."""
+    pg = paged(smol[2], slots=2, cache_len=32, prefill_buckets=(16,),
+               megastep=2)
+    for t in pg.cache.values():
+        t.fill_(3.25)
+    req = pg.submit(Request(prompt=list(prompts(1, seed=11)[0]),
+                            max_new_tokens=12))
+    pg.step()
+    owned = set(pg._alloc.owned(req.slot))
+    assert owned, "request should hold pages mid-stream"
+    pg.run_to_completion()
+    untouched = sorted(set(range(pg.num_pages)) - owned)
+    for t in pg.cache.values():
+        assert bool((t[:, untouched] == 3.25).all())
+
+
+def test_paged_pool_exhaustion_serializes_admission(smol):
+    """test_serving.py:449 — when the pool cannot hold another lifetime
+    reservation the queue head waits, and every request still completes
+    with the unconstrained output."""
+    model = smol[2]
+    ps = prompts(4, seed=9)
+    want = paged(model).generate(ps, max_new_tokens=8)
+    tight = paged(model, num_pages=4)
+    reqs = [tight.submit(Request(prompt=list(p), max_new_tokens=8))
+            for p in ps]
+    seen = 0
+    while tight.has_work():
+        tight.step()
+        seen = max(seen, len(tight.active))
+    assert [r.generated for r in reqs] == want
+    assert seen == 1, "a 4-page pool must serialize admission"
+    with pytest.raises(ValueError, match="pages"):
+        tight.submit(Request(prompt=list(range(8, 48)), max_new_tokens=8))
+
+
+def test_paged_capacity_vs_live_bytes(smol):
+    """test_serving.py:471 — live_bytes is the exact live pages, up and
+    back down to zero; capacity is the pool."""
+    pg = paged(smol[2])
+    s0 = pg.snapshot()
+    assert s0["decode_path"] == "paged" and s0["live_bytes"] == 0
+    # 2 layers x (k, v) x 32 pages x 8 tokens x 4 heads x 16 x 4 bytes
+    assert s0["capacity_bytes"] == s0["cache_bytes"] == 2 * 2 * 32 * 8 * \
+        4 * 16 * 4
+    for p in prompts(2, seed=13):
+        pg.submit(Request(prompt=list(p), max_new_tokens=8))
+    pg.step()
+    s1 = pg.snapshot()
+    assert 0 < s1["live_bytes"] < s1["capacity_bytes"]
+    assert s1["live_pages"] == pg._alloc.live_pages > 0
+    assert pg.stats.live_pages > 0
+    pg.run_to_completion()
+    assert pg.snapshot()["live_bytes"] == 0
+
+
+def test_paged_offload_restore_midstream(smol):
+    """test_serving.py:498 — the snapshot carries live pages only, and
+    decode continues bit-identically."""
+    model = smol[2]
+    ps = prompts(6, seed=19)
+    want = paged(model, slots=3).generate(ps, max_new_tokens=12)
+    eng = paged(model, slots=3)
+    for p in ps:
+        eng.submit(Request(prompt=list(p), max_new_tokens=12))
+    done = list(eng.step()) + list(eng.step())
+    assert eng.active, "offload must happen mid-stream"
+    cap = eng.snapshot()["capacity_bytes"]
+    host = eng.offload_device_state()
+    assert eng.offloaded
+    live = sum(t.numel() * t.element_size() for t in host["cache"].values())
+    assert 0 < live < cap, "the snapshot ships live pages only"
+    assert host["_paged_live_ids"].size == eng._alloc.live_pages
+    assert host["cache"]["k"].shape[1] == eng._alloc.live_pages
+    eng.restore_device_state(host)
+    done += eng.run_to_completion()
+    got = [r.generated for r in sorted(done, key=lambda r: r.request_id)]
+    assert got == want
+    assert eng.stats.compiles == 0
+
+
+@pytest.mark.parametrize("paged_pool", [True, False])
+def test_template_export_and_clone_parity(smol, paged_pool):
+    """test_serving.py:529 — a paged template ships no pages and an
+    all-TRASH table; the restored clone generates what the donor does,
+    builds nothing, and leaves the donor serving (both cache kinds)."""
+    model = smol[2]
+    ps = prompts(5, seed=23)
+    donor = paged(model) if paged_pool else engine(model, megastep=4)
+    want = donor.generate(ps, max_new_tokens=6)
+    tpl = donor.export_template()
+    if paged_pool:
+        assert tpl["cache"]["k"].numel() == 0
+        assert tpl["_paged_live_ids"].size == 0
+        assert bool((tpl["page_table"] == donor.trash).all())
+    clone = donor.clone_offloaded()
+    assert clone.offloaded and clone.model is not donor.model
+    clone.restore_device_state(tpl)
+    assert clone.generate(ps, max_new_tokens=6) == want
+    assert clone.stats.compiles == 0
+    assert donor.generate(ps[:2], max_new_tokens=6) == want[:2]
+    if paged_pool:
+        assert clone._alloc.live_pages == 0
+
+
+def test_paged_more_sessions_than_slot_capacity(smol):
+    """test_serving.py:551 — at the pool bytes of a 2-slot slot cache the
+    paged engine holds 8 short sessions at once."""
+    model = smol[2]
+    slot = engine(model, slots=2, prefill_buckets=(16,), megastep=4)
+    pg = paged(model, slots=8, prefill_buckets=(16,), num_pages=16)
+    assert pg.snapshot()["capacity_bytes"] == \
+        slot.snapshot()["capacity_bytes"]
+    for p in prompts(8, seed=29):
+        pg.submit(Request(prompt=list(p), max_new_tokens=2))
+    peak = 0
+    while pg.has_work():
+        pg.step()
+        peak = max(peak, pg.stats.live_pages)
+    assert peak >= 8 and pg.stats.completed == 8
+
+
+# ------------------------------------------------------- prefix sharing ----
+def test_shared_sessions_bit_identical_to_cold(smol):
+    """test_prefix.py:164 — later sessions hit the cache, prefill only
+    their tails and produce exactly the unshared engine's tokens; their
+    first-token logits are bit for bit the cold prefill's."""
+    model = smol[2]
+    ps = shared_prompts(6)
+    base = sharing(model, on=False)
+    eng = sharing(model)
+    assert eng.prefix_fallback is None, eng.prefix_fallback
+    rb = [base.submit(Request(prompt=list(p), max_new_tokens=12,
+                              keep_logits=True)) for p in ps]
+    rs = [eng.submit(Request(prompt=list(p), max_new_tokens=12,
+                             keep_logits=True)) for p in ps]
+    base.run_to_completion()
+    eng.run_to_completion()
+    assert [r.generated for r in rs] == [r.generated for r in rb]
+    for a, b in zip(rs, rb):
+        assert torch.equal(a.first_logits, b.first_logits)
+    assert eng.stats.prefix_hits >= 4
+    assert eng.stats.prefix_tokens_reused >= 4 * 16
+    assert sum(r.prefix_tokens for r in rs) == eng.stats.prefix_tokens_reused
+    assert eng.stats.cow_copies >= 1
+    assert eng.stats.prefill_tokens < base.stats.prefill_tokens / 2
+    s = eng.snapshot()
+    assert s["prefix_cache"]["hits"] == eng.stats.prefix_hits
+    eng._alloc.check(eng._prefix_cache.pages())
+
+
+def test_hit_mid_page_then_decode_matches_cold(smol):
+    """A hit that ends mid-page, then 8 decoded tokens, against a cold run.
+    The hit's fresh boundary page must hold the shared positions before
+    the boundary as well as the tail: written in place, the tail alone
+    would leave them stale and decode would read them."""
+    model = smol[2]
+    rng = np.random.RandomState(31)
+    prefix = list(rng.randint(8, 512, size=21))         # 21 = 2 pages + 5
+    a = prefix + list(rng.randint(8, 512, size=6))
+    b = prefix + list(rng.randint(8, 512, size=4))
+    want = sharing(model, on=False).generate([b], max_new_tokens=8)
+    eng = sharing(model)
+    eng.generate([a], max_new_tokens=8)
+    shared = eng._prefix_cache.match(list(b))[1]      # a's first 3 pages
+    r = eng.submit(Request(prompt=list(b), max_new_tokens=8))
+    eng.step()
+    assert r.prefix_tokens == 21 and eng.stats.cow_copies >= 1
+    owned = eng._alloc.owned(r.slot)
+    assert owned[:2] == shared[:2] and owned[2] != shared[2]
+    for t in eng.cache.values():                  # positions 16..20
+        assert torch.equal(t[:, owned[2], :5], t[:, shared[2], :5])
+    eng.run_to_completion()
+    assert [r.generated] == want and len(r.generated) == 8
+
+
+def test_mixed_wave_cold_and_hit_rows(smol):
+    """test_prefix.py:187 — a wave mixing hits with cold rows stays
+    bit-identical."""
+    model = smol[2]
+    ps = shared_prompts(5, seed=3)
+    want = sharing(model, on=False, slots=4).generate(ps, max_new_tokens=10)
+    eng = sharing(model, slots=4)
+    first = eng.submit(Request(prompt=list(ps[0]), max_new_tokens=10))
+    eng.run_to_completion()
+    rest = [eng.submit(Request(prompt=list(p), max_new_tokens=10))
+            for p in ps[1:]]
+    eng.run_to_completion()
+    assert [first.generated] + [r.generated for r in rest] == want
+    assert eng.stats.prefix_hits == 4
+
+
+def test_offload_restore_carries_sharing(smol):
+    """test_prefix.py:215 — a mid-stream offload of a sharing engine ships
+    each shared page once with its refcount; the restore resumes
+    bit-identically and the prefix cache keeps serving hits."""
+    model = smol[2]
+    ps = shared_prompts(4, seed=8)
+    want = sharing(model).generate(ps, max_new_tokens=12)
+    eng = sharing(model)
+    reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=12))
+            for p in ps[:2]]
+    eng.step()
+    host = eng.offload_device_state()
+    live = [int(p) for p in host["_paged_live_ids"]]
+    assert len(set(live)) == len(live)
+    assert any(int(r) > 1 for r in host["_paged_refcounts"])
+    eng.restore_device_state(host)
+    while eng.has_work():
+        eng.step()
+    later = [eng.submit(Request(prompt=list(p), max_new_tokens=12))
+             for p in ps[2:]]
+    eng.run_to_completion()
+    assert [r.generated for r in reqs + later] == want
+    assert eng.stats.prefix_hits >= 2
+    eng._alloc.check(eng._prefix_cache.pages())
+
+
+def test_cancel_releases_pages_and_pool_recovers(smol):
+    """test_prefix.py:247 — cancelling queued and active requests returns
+    every reserved page; the pool recovers to fully free."""
+    eng = sharing(smol[2], on=False, num_pages=10)
+    ps = shared_prompts(4, seed=11)
+    for p in ps:
+        eng.submit(Request(prompt=list(p), max_new_tokens=12))
+    eng.step()
+    assert len(eng.active) == 2 and len(eng.queue) == 2
+    assert eng._alloc.free_pages == 0
+    queued = next(iter(eng.queue))
+    assert eng.cancel(queued) and queued.state is RequestState.CANCELLED
+    held = eng._alloc.live_pages
+    assert eng.cancel(next(iter(eng.active.values())))
+    assert eng._alloc.live_pages < held
+    eng.run_to_completion()
+    assert eng._alloc.free_pages == 10 and eng._alloc.live_pages == 0
+    assert len(eng.generate([ps[0]], max_new_tokens=12)[0]) >= 1
+    assert eng._alloc.free_pages == 10
+
+
+def test_cancel_with_sharing_keeps_cache_consistent(smol):
+    """test_prefix.py:276 — cancelling a mid-flight hit keeps the refcount
+    invariant; dropping the cache frees the pool; output unchanged."""
+    model = smol[2]
+    eng = sharing(model, num_pages=16)
+    ps = shared_prompts(3, seed=13)
+    eng.generate([ps[0]], max_new_tokens=8)
+    r = eng.submit(Request(prompt=list(ps[1]), max_new_tokens=8))
+    eng.step()
+    assert eng.cancel(r)
+    eng._alloc.check(eng._prefix_cache.pages())
+    assert eng.drop_prefix_cache() > 0
+    eng._alloc.check(eng._prefix_cache.pages())
+    assert eng._alloc.free_pages == 16
+    assert eng.generate([ps[2]], max_new_tokens=8) == \
+        sharing(model, on=False).generate([ps[2]], max_new_tokens=8)
+
+
+def test_sharing_resolution_rules(smol):
+    """prefix_sharing resolves as the reference's does: off unless paged,
+    off when the cache dtype differs from the compute dtype or the page
+    size does not divide 1024."""
+    model = smol[2]
+    assert sharing(model).prefix_fallback is None
+    assert "disabled" in sharing(model, on=False).prefix_fallback
+    assert engine(model).prefix_fallback is None
+    narrow = InferenceEngine(model, device="cpu", slots=2, cache_len=64,
+                             paged=True, page_size=8,
+                             cache_dtype=torch.bfloat16)
+    assert narrow._prefix_cache is None and "dtype" in narrow.prefix_fallback
+    odd = InferenceEngine(model, device="cpu", slots=2, cache_len=64,
+                          paged=True, page_size=7)
+    assert odd._prefix_cache is None and "1024" in odd.prefix_fallback
+    short = InferenceEngine(model, device="cpu", slots=2, cache_len=8,
+                            paged=True)
+    assert not short._paged and short.paged_fallback

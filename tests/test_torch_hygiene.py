@@ -61,8 +61,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert model.device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngine(model, paged=True)
     eng = InferenceEngine(model, device="cpu", slots=1, cache_len=16)
     assert eng.device.type == "cpu"
+    eng = InferenceEngine(model, device="cpu", slots=1, cache_len=16,
+                          paged=True, page_size=4)
+    assert eng.device.type == "cpu" and eng.page_table.device.type == "cpu"
 
 
 def test_engine_refuses_a_model_on_another_device():

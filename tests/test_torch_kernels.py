@@ -3,8 +3,10 @@ package's: on the CPU the port runs its kernels' plain versions, the
 reference its Pallas kernels in interpret mode. Same shape and dtype sweeps
 and tolerances as tests/test_kernels.py, plus the port's extensions
 (per-row kv_len, GQA by head index) against the reference's blockwise
-attention. The CUDA kernels themselves are held against the plain versions
-on the card in tests/test_torch_cuda.py."""
+attention, per-row query offsets against the reference's blockwise
+attention with a (B,) q_offset, and the paged decode against the
+reference's paged kernel. The CUDA kernels themselves are held against the
+plain versions on the card in tests/test_torch_cuda.py."""
 
 import pytest
 
@@ -124,20 +126,115 @@ def test_flash_attention_kv_len_gqa_matches_blockwise(H, Hkv, window):
     assert float(np.abs(out.numpy()[~rows]).max(initial=0.0)) == 0.0
 
 
+def _paged_setup(seed, B, npages, num_pages, page, Hkv, D, dtype):
+    """Random pools (NP+1, page, Hkv, D) and a table giving each slot
+    ``npages`` distinct pages, as tests/test_kernels.py's _paged_setup."""
+    rng = np.random.RandomState(seed)
+    kj, kt = _both(seed, (num_pages + 1, page, Hkv, D), dtype)
+    vj, vt = _both(seed + 50, (num_pages + 1, page, Hkv, D), dtype)
+    pt = rng.permutation(num_pages)[:B * npages].reshape(B, npages).astype(
+        np.int32)
+    return kj, kt, vj, vt, pt
+
+
+@pytest.mark.parametrize("page,npages", [(8, 4), (16, 2), (32, 3), (7, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_flash_decode_matches_reference(page, npages, dtype):
+    """tests/test_kernels.py's paged sweep: the port's paged decode against
+    the reference's Pallas kernel in interpret mode (page 7 included)."""
+    B, H, Hkv, D = 3, 8, 2, 64
+    kj, kt, vj, vt, pt = _paged_setup(1, B, npages, 2 * B * npages, page,
+                                      Hkv, D, dtype)
+    qj, qt = _both(0, (B, H, D), dtype)
+    cap = npages * page
+    lengths = np.array([cap, (cap // 2) | 1, 1][:B], np.int32)
+    exp = jops.paged_flash_decode(qj, kj, vj, jnp.asarray(pt),
+                                  jnp.asarray(lengths), scale=D ** -0.5)
+    out = ops.paged_flash_decode(qt, kt, vt, torch.from_numpy(pt),
+                                 torch.from_numpy(lengths), scale=D ** -0.5)
+    assert out.dtype == TDT[dtype] and out.shape == (B, H, D)
+    assert _err(exp, out) < TOL[dtype]
+
+
+def test_paged_flash_decode_inactive_slot_and_trash_poison():
+    """A slot of length 0 gets exact zeros (the reference: finite garbage);
+    columns past a slot's live pages that name a poisoned TRASH page change
+    nothing."""
+    B, H, Hkv, D, page, npages = 2, 4, 2, 64, 8, 4
+    num_pages = 2 * B * npages
+    kj, kt, vj, vt, pt = _paged_setup(5, B, npages, num_pages, page, Hkv, D,
+                                      "float32")
+    qj, qt = _both(0, (B, H, D), "float32")
+    lengths = np.array([11, 2 * page], np.int32)     # 2 live pages each
+    pt_trash = pt.copy()
+    pt_trash[:, 2:] = num_pages
+    kt_p, vt_p = kt.clone(), vt.clone()
+    kt_p[num_pages] = 1e4
+    vt_p[num_pages] = 1e4
+    exp = jops.paged_flash_decode(qj, kj, vj, jnp.asarray(pt),
+                                  jnp.asarray(lengths), scale=D ** -0.5)
+    out = ops.paged_flash_decode(qt, kt_p, vt_p, torch.from_numpy(pt_trash),
+                                 torch.from_numpy(lengths), scale=D ** -0.5)
+    assert _err(exp, out) < TOL["float32"]
+    empty = ops.paged_flash_decode(qt, kt, vt, torch.from_numpy(pt),
+                                   torch.tensor([13, 0], dtype=torch.int32),
+                                   scale=D ** -0.5)
+    assert float(empty[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("kernel", [False, True])
+def test_q_offset_rows_match_reference_blockwise(H, Hkv, kernel):
+    """Per-row query offsets (the shared-prefix tail prefill): tail rows at
+    positions q_offset[b] + i over a longer K/V, masked to kv_len, through
+    the port's blockwise attention and its kernel's plain version, against
+    the reference's blockwise attention with a (B,) q_offset."""
+    from repro_torch.models import attention as tattn
+    B, S, T, D = 3, 12, 48, 16
+    qj, qt = _both(0, (B, S, H, D), "float32")
+    kj, kt = _both(1, (B, T, Hkv, D), "float32")
+    vj, vt = _both(2, (B, T, Hkv, D), "float32")
+    q_offset = np.array([0, 9, 33], np.int32)
+    kv_len = np.array([12, 21, 40], np.int32)     # row 2 has padding rows
+    scale = D ** -0.5
+    exp = jattn.blockwise_attention(
+        qj, jattn._repeat_kv(kj, H), jattn._repeat_kv(vj, H), scale=scale,
+        causal=True, q_offset=jnp.asarray(q_offset),
+        kv_len=jnp.asarray(kv_len))
+    qo, kl = torch.from_numpy(q_offset), torch.from_numpy(kv_len)
+    if kernel:
+        out = ops.flash_attention(qt, kt, vt, causal=True, scale=scale,
+                                  kv_len=kl, q_offset=qo)
+    else:
+        out = tattn.blockwise_attention(
+            qt, tattn._repeat_kv(kt, H), tattn._repeat_kv(vt, H),
+            scale=scale, causal=True, q_offset=qo, kv_len=kl)
+    # every row sees key 0, so every row is valid in both
+    assert _err(exp, out) < TOL["float32"]
+
+
 def test_cpu_tensors_launch_no_kernel():
     before = dict(ops.LAUNCHES)
     q = torch.randn(1, 8, 2, 64)
     ops.flash_attention(q, q, q, scale=0.125)
     ops.flash_decode(q[:, 0], q, q, torch.tensor([3], dtype=torch.int32))
+    ops.paged_flash_decode(q[:, 0], q, q,
+                           torch.tensor([[0]], dtype=torch.int32),
+                           torch.tensor([3], dtype=torch.int32))
     assert ops.LAUNCHES == before
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from repro_torch.kernels.decode_attention import flash_decode_cuda
+    from repro_torch.kernels.decode_attention import (flash_decode_cuda,
+                                                      paged_flash_decode_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     q = torch.randn(1, 8, 2, 64)
+    one = torch.tensor([3], dtype=torch.int32)
     with pytest.raises(ValueError):
         flash_attention_cuda(q, q, q, causal=True, window=0, scale=1.0)
     with pytest.raises(ValueError):
-        flash_decode_cuda(q[:, 0], q, q, torch.tensor([3], dtype=torch.int32),
-                          scale=1.0)
+        flash_decode_cuda(q[:, 0], q, q, one, scale=1.0)
+    with pytest.raises(ValueError):
+        paged_flash_decode_cuda(q[:, 0], q, q,
+                                torch.tensor([[0]], dtype=torch.int32), one,
+                                scale=1.0)

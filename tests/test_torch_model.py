@@ -1,7 +1,8 @@
 """The port's dense decoder against the JAX reference: the reduced
 smollm2-1.7b (f32) initialised by the reference and carried across by
-repro_torch.weights.from_jax_params; logits through forward, prefill and
-decode_step within 2e-4, with use_kernels on and off."""
+repro_torch.weights.from_jax_params; logits through forward, prefill,
+decode_step, prefill_shared and decode_paged within 2e-4, with use_kernels
+on and off."""
 
 import dataclasses
 
@@ -15,8 +16,10 @@ import numpy as np  # noqa: E402
 
 from repro.configs import get_reduced_config as jax_config  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
+from repro.serving import paged as jax_paged  # noqa: E402
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serving import paged  # noqa: E402
 from repro_torch.weights import from_jax_params, init_params  # noqa: E402
 
 TOL = 2e-4
@@ -141,6 +144,95 @@ def test_prefill_decode_matches_forward(use_kernels):
     lg = model.decode_step(nxt, lengths, cache)
     assert float((lg[0] - full[0, 9]).abs().max()) < 2e-3
     assert float((lg[1] - full[1, 15]).abs().max()) < 2e-3
+
+
+def _paged_pools(jm, NP, P, seed=3):
+    """One numpy-seeded pool in both packages' layouts."""
+    pool = jm.init_cache(NP + 1, P, jnp.float32)
+    rng = np.random.RandomState(seed)
+    pool = jax.tree_util.tree_map(lambda a: jnp.asarray(
+        0.5 * rng.standard_normal(a.shape).astype(np.float32)), pool)
+    tpool = {"k": torch.from_numpy(np.asarray(pool["layers"][0]).copy()),
+             "v": torch.from_numpy(np.asarray(pool["layers"][1]).copy())}
+    return pool, tpool
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_prefill_shared_and_decode_paged_match_reference(jax_side,
+                                                         use_kernels):
+    """Tail-only prefill over a paged pool (per-row starts, a mid-page
+    start, a cold row with start 0), then one paged decode step with an
+    inactive row: logits and the written K/V against the reference."""
+    jm, params, tm = _pair(jax_side, use_kernels)
+    NP, P, B, n, Tb = 12, 8, 3, 4, 8
+    axes = {"layers": (1, 1)}
+    pool, tpool = _paged_pools(jm, NP, P)
+    pt = np.random.RandomState(4).permutation(NP)[:B * n].reshape(
+        B, n).astype(np.int32)
+    starts = np.array([5, 0, 16], np.int32)
+    lengths = np.array([11, 8, 20], np.int32)
+    toks = _toks(B, Tb, tm.cfg.vocab_size, seed=5)
+    view = jax_paged.gather_view(pool, jnp.asarray(pt), axes)
+    exp, new_view = jm.prefill_shared(params, jnp.asarray(toks),
+                                      jnp.asarray(lengths),
+                                      jnp.asarray(starts), view)
+    out = tm.prefill_shared(torch.from_numpy(toks), torch.from_numpy(lengths),
+                            torch.from_numpy(starts), tpool,
+                            torch.from_numpy(pt))
+    assert out.shape == (B, tm.cfg.padded_vocab)
+    assert _err(exp, out) < TOL
+    got_view = paged.gather_view(tpool, torch.from_numpy(pt))
+    for j, name in enumerate(("k", "v")):
+        assert _err(new_view["layers"][j], got_view[name]) < TOL
+
+    pool = jax_paged.scatter_view(pool, new_view, jnp.asarray(pt), axes,
+                                  None, NP)
+    active = np.array([True, False, True])
+    nxt = np.array([[3], [4], [5]], np.int32)
+    before = tpool["k"].clone()
+    exp, jpool = jm.decode_paged(params, jnp.asarray(nxt),
+                                 jnp.asarray(lengths), pool,
+                                 jnp.asarray(pt), jnp.asarray(active))
+    out = tm.decode_paged(torch.from_numpy(nxt), torch.from_numpy(lengths),
+                          tpool, torch.from_numpy(pt),
+                          torch.from_numpy(active))
+    assert float(np.max(np.abs(np.asarray(exp)[active]
+                               - out.numpy()[active]))) < TOL
+    # the active rows wrote position `lengths` of their own page; the
+    # inactive row wrote only into TRASH
+    for b in (0, 2):
+        page, off = pt[b, lengths[b] // P], lengths[b] % P
+        assert float(np.max(np.abs(
+            np.asarray(jpool["layers"][0])[:, page, off]
+            - tpool["k"][:, page, off].numpy()))) < TOL
+    assert torch.equal(tpool["k"][:, :NP][:, pt[1]], before[:, :NP][:, pt[1]])
+
+
+def test_paged_prefill_writes_only_through_tables():
+    """A cold paged prefill writes each valid row's K/V into the pages its
+    table names, and padding rows (all-TRASH tables) touch no page: the
+    pool gathered through the tables equals a slot-cache prefill."""
+    cfg = get_reduced_config("smollm2-1.7b")
+    model = build_model(cfg, device="cpu", seed=0)
+    NP, P = 10, 4
+    pool = model.init_cache(NP + 1, P, torch.float32)
+    for t in pool.values():
+        t.normal_(generator=torch.Generator().manual_seed(3))
+    before = {k: v.clone() for k, v in pool.items()}
+    toks = torch.from_numpy(_toks(3, 8, cfg.vocab_size)).long()
+    lengths = torch.tensor([8, 5, 0], dtype=torch.int32)
+    pt = torch.tensor([[7, 2], [4, NP], [NP, NP]], dtype=torch.int32)
+    lg = model.prefill(toks, lengths, pool, page_table=pt)
+    ref_cache = model.init_cache(3, 8, torch.float32)
+    ref_lg = model.prefill(toks, lengths, ref_cache)
+    assert torch.equal(lg[:2], ref_lg[:2])
+    view = paged.gather_view(pool, pt[:2])
+    for name in ("k", "v"):
+        assert torch.equal(view[name][:, 0], ref_cache[name][:, 0])
+        assert torch.equal(view[name][:, 1, :4], ref_cache[name][:, 1, :4])
+        untouched = [p for p in range(NP) if p not in (7, 2, 4)]
+        assert torch.equal(pool[name][:, untouched],
+                           before[name][:, untouched])
 
 
 def test_prefill_writes_only_given_slots():
