@@ -3,6 +3,12 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py [--out report.json]
 
+With --faults it runs phases 1-2 and then only phase 6's comparison, with
+no fault and with each fault of PlantFault planted in the kernel engine at
+run time: the readings behind the routing bounds and DS_LOGIT_TOL. It
+exits 0 when the sound run passes and every fault is caught, and prints no
+ok line.
+
 Phases (any failure exits non-zero; no phase swallows an exception):
   1. card     - the card's name and power limit, torch and CUDA versions;
   2. build    - nvcc builds the hand-written kernels from csrc/;
@@ -10,9 +16,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 at the main-path shapes and a few sweep shapes (the paged
                 decode over scattered pages, page sizes 7 and 16, GQA, a
                 poisoned TRASH page; the prefill with per-row query
-                offsets), with times beside the least time the card could
-                take (bound_ms) and a PyTorch library call computing the
-                same function;
+                offsets; the paged MLA decode at DeepSeek-V2-Lite's shape
+                and at pages of 7 and 16; the grouped expert GEMM at the
+                reference's sweep and over rows sorted by expert at the
+                decode and prefill dispatches), with times beside the least
+                time the card could take (bound_ms) and a PyTorch library
+                call computing the same function;
   4. serve    - full-width SmolLM2-1.7B (seeded random weights, bf16)
                 with the kernels: (a) fact verification, 4 prompt templates
                 x 64 claims, one token each, and (b) 16 long prompts of
@@ -24,14 +33,25 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 launch counts set to 0 and must show its kernels ran; (a)-
                 (c) through use_kernels=False engines over the same
                 weights must agree; (c) must give (b)'s tokens and (d)'s
-                shared run its cold run's; torch.profiler then reads the
-                device busy share and heaviest kernels of each mix;
+                shared run its cold run's (no profiler pass here: the run
+                keeps inside half its time limit with only (f)'s);
   5. pcm      - a context's cold build, its demote to pinned host memory
                 and its restore, after which (b) decodes identically; then
                 the paged sharing engine of (d) demoted (weights and live
                 pages only), restored and run on (d) again (every wave
                 hits, same tokens), and a template of it cloned into a
-                twin that serves (c) with the same tokens and no build.
+                twin that serves (c) with the same tokens and no build;
+  6. deepseek - full-width DeepSeek-V2-Lite-16B (MLA + MoE, 27 layers,
+                15.7 B parameters, seeded random bf16 weights drawn on the
+                card) on the paged pool with the kernels: (e) fact
+                verification, 4 templates x 64 claims, one token each, and
+                (f) mix (b)'s 16 long prompts, 64 new tokens each, each with
+                the launch counts set to 0 (the paged MLA decode and the
+                grouped GEMM must run), against a use_kernels=False engine
+                over the same weights: greedy agreement, the first-token
+                logits gap and the routing decisions that differed; then
+                torch.profiler over (f). Its demote/restore (31 GB of pinned
+                host memory) is left to the CPU tests.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -60,6 +80,7 @@ from repro_torch.data import HashTokenizer, fever  # noqa: E402
 from repro_torch.data.tokenizer import BOS, LABEL_TOKENS  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.serving import InferenceEngine, Request  # noqa: E402
 
 # kernel-vs-plain tolerances, max-abs (tests/test_kernels.py:16)
@@ -69,6 +90,25 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 # the last bit of a bf16 attention output; 24 layers carry such flips to
 # the logits, whose bf16 step at magnitude 4-8 is 0.03. Eight such steps.
 LOGIT_TOL = 0.25
+# DeepSeek, the same comparison on requests whose prefill routed every token
+# to the same experts in both engines, held to SmolLM2's bound. Readings
+# (chip_smoke.py --faults, H100): 0.0 sound; with a fault planted, every
+# request's routing differed and the gap over all requests was 0.62-0.98.
+DS_LOGIT_TOL = 0.25
+# Routing is discrete: last-bit differences flip a token's choice where its
+# 6th and 7th expert probabilities nearly tie, and a flip moves its hidden
+# state by a whole expert's output, so requests with a flip are counted and
+# not held to DS_LOGIT_TOL. The share of (token, layer) decisions that
+# differ is bounded instead, between the readings of the sound run and of
+# the planted faults (--faults, H100): prefill 0 sound, 22-35 % with the
+# grouped GEMM dropping one expert; decode 0.68-0.79 % sound (the MLA kernel
+# returns bf16 latents where the plain path keeps f32), 2.5 % with the MLA
+# kernel reading one key too few, 1.6 % with the dropped expert.
+PREFILL_ROUTE_DIFF_MAX = 0.05
+DECODE_ROUTE_DIFF_MAX = 0.015
+# DeepSeek-V2-Lite's tensors: the reference's param_count() (15 706 357 760)
+# plus the 126 464 norm scales it leaves out
+DS_PARAMS = 15_706_484_224
 # one H100 SXM (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -171,8 +211,28 @@ def bound_ms(nbytes, flops):
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
-def check(name, err, dtype, extra=""):
-    tol = TOL[dtype]
+def mla_bound(B, H, R, Dr, lengths, page, elt):
+    """Least bytes and FLOPs of one MLA decode step: q_lat, q_rope read and
+    the latent output written once, each live key's latent and rope rows
+    and its page's table entry read once, 2 (R + Dr) + 2 R FLOPs per
+    (head, live key)."""
+    live = int(np.sum(lengths))
+    nbytes = (B * H * (2 * R + Dr) + live * (R + Dr)) * elt + 4 * B
+    nbytes += 4 * int(np.sum(-(-np.asarray(lengths) // page)))
+    return nbytes, 2.0 * H * live * (2 * R + Dr)
+
+
+def gemm_bound(counts, d, f, elt):
+    """Least bytes and FLOPs of the grouped GEMM on these segments: x read
+    and out written once, only the chosen experts' weights read once, 2 d f
+    FLOPs per row."""
+    N, used = int(np.sum(counts)), int(np.count_nonzero(counts))
+    nbytes = (N * d + used * d * f + N * f) * elt + 4 * len(counts)
+    return nbytes, 2.0 * N * d * f
+
+
+def check(name, err, dtype, extra="", tol=None):
+    tol = TOL[dtype] if tol is None else tol
     ok = err <= tol
     log(f"[kernels] {name}: max_abs_err {err:.3e} (tol {tol:g}) "
         f"{'ok' if ok else 'FAIL'} {extra}")
@@ -411,12 +471,175 @@ def phase_kernels() -> dict:
                              poison=True)
         check(f"paged_flash_decode P {P} n {n} ({H}/{Hkv} heads) "
               f"{str(dtype)[6:]} lengths {lens}, poisoned TRASH", err, dtype)
+    rows.update(phase_kernels_mla_moe())
+    return rows
+
+
+def route_counts(gen, tokens, k=6, experts=64):
+    """Rows per expert of ``tokens`` tokens each choosing k distinct
+    experts uniformly (a random router's spread)."""
+    counts = np.zeros(experts, np.int64)
+    for _ in range(tokens):
+        counts[gen.choice(experts, size=k, replace=False)] += 1
+    return counts
+
+
+def phase_kernels_mla_moe() -> dict:
+    """Phase 3 for the DeepSeek path's kernels, on their own generator (the
+    earlier cases draw what they drew before these existed)."""
+    gen = np.random.RandomState(2)
+    rows = {}
+
+    # --- paged_mla_decode --------------------------------------------------
+    def mla_case(B, H, R, Dr, P, n, num_pages, dtype, lengths, scale,
+                 poison=False):
+        ql = randn(gen, (B, H, R), dtype)
+        qr = randn(gen, (B, H, Dr), dtype)
+        ckv = randn(gen, (num_pages + 1, P, R), dtype)
+        kr = randn(gen, (num_pages + 1, P, Dr), dtype)
+        if poison:
+            ckv[num_pages] = 1e4
+            kr[num_pages] = 1e4
+        pt = np.full((B, n), num_pages, np.int32)
+        ids = iter(gen.permutation(num_pages))
+        for b, ln in enumerate(lengths):
+            for j in range(-(-ln // P)):
+                pt[b, j] = next(ids)
+        pt = torch.as_tensor(pt, device="cuda")
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        args = (ql, qr, ckv, kr, pt, ln)
+        out = ops.paged_mla_decode(*args, scale=scale)
+        sync()
+        exp = ref.paged_mla_decode_ref(*args, scale=scale)
+        err = float((out.float() - exp.float()).abs().max())
+        zero = ln == 0
+        if zero.any() and float(out[zero].abs().max()) != 0.0:
+            raise AssertionError("paged_mla_decode: empty slots are not "
+                                 "exact zeros")
+        if not torch.isfinite(out).all():
+            raise AssertionError("paged_mla_decode: non-finite output")
+        return args, err
+
+    # DeepSeek-V2-Lite's decode: 16 slots, 16 heads, latent 512, rope 64,
+    # 16 pages of 64 per slot scattered over a 256-page pool
+    B, H, R, Dr, P, n = 16, 16, 512, 64, 64, 16
+    lengths = gen.randint(2, n * P, size=B)
+    lengths[:3] = (0, 1, n * P)
+    scale = (128 + 64) ** -0.5
+    args, err = mla_case(B, H, R, Dr, P, n, 256, torch.bfloat16,
+                         lengths.tolist(), scale)
+    main_err = check("paged_mla_decode main (16,16,512+64) P 64 n 16 bf16 "
+                     "lengths with 0/1/1024, scattered pages", err,
+                     torch.bfloat16)
+    ms = time_ms(lambda: ops.paged_mla_decode(*args, scale=scale), iters=50)
+    plain = time_ms(lambda: ref.paged_mla_decode_ref(*args, scale=scale))
+    ql, qr, ckv, kr, pt, ln = args
+    pos = torch.arange(n * P, device="cuda")
+    mask = (pos[None, :] < ln[:, None])[:, None, None, :]
+    flat = pt.reshape(-1).long()
+
+    def library():
+        c = ckv.index_select(0, flat).reshape(B, 1, n * P, R)
+        k = torch.cat([c, kr.index_select(0, flat).reshape(B, 1, n * P, Dr)],
+                      dim=-1)
+        q = torch.cat([ql, qr], dim=-1)[:, :, None]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k.expand(B, H, n * P, R + Dr), c.expand(B, H, n * P, R),
+            attn_mask=mask, scale=scale)
+    lib = time_ms(library, iters=50)
+    nbytes, flops = mla_bound(B, H, R, Dr, lengths, P, 2)
+    bms, by = bound_ms(nbytes, flops)
+    log(f"[kernels] paged_mla_decode main: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, gather+SDPA {lib:.4f} ms, bound {bms:.4f} ms "
+        f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    rows["paged_mla_decode"] = dict(
+        name="paged_mla_decode", route="cuda",
+        source="src/repro_torch/csrc/paged_mla_decode.cu",
+        replaces="src/repro/kernels/decode_attention.py:308",
+        max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=bms,
+        bound_by=by, library_ms=lib)
+    del args, ql, qr, ckv, kr, mask
+    for P, n, lens in ((7, 5, [35, 17, 1, 0]), (16, 4, [64, 33, 0, 5])):
+        _, err = mla_case(4, 16, 512, 64, P, n, 6 * n, torch.float32, lens,
+                          scale, poison=True)
+        check(f"paged_mla_decode P {P} n {n} (16,512+64) f32 lengths {lens}, "
+              f"poisoned TRASH", err, torch.float32)
+
+    # --- grouped_gemm -------------------------------------------------------
+    def gemm_tol(dtype, d, exp):
+        # tests/test_kernels.py:130-131's bound, relative to the contraction
+        # depth, capped at TOL[dtype] of the largest plain output: a bf16
+        # output is within a few of its own rounding steps, while a tile of
+        # zeros or of another expert's weights is off by the output's size
+        return min((5e-3 if dtype == torch.float32 else 1.0) * d ** 0.5,
+                   TOL[dtype] * float(exp.float().abs().max()))
+
+    for E, C, d, f in ((2, 128, 256, 128), (8, 256, 128, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(gen, (E, C, d), dtype)
+            w = randn(gen, (E, d, f), dtype)
+            out = ops.grouped_gemm(x, w)
+            sync()
+            exp = ref.grouped_gemm_ref(x, w)
+            err = float((out.float() - exp.float()).abs().max())
+            check(f"grouped_gemm ({E},{C},{d}) x ({E},{d},{f}) "
+                  f"{str(dtype)[6:]}", err, dtype,
+                  tol=gemm_tol(dtype, d, exp))
+
+    cases = {}
+    for phase, tokens in (("decode", 16), ("prefill", 16 * 512)):
+        counts = route_counts(gen, tokens)
+        N = int(counts.sum())
+        cnt = torch.as_tensor(counts.astype(np.int32), device="cuda")
+        for proj, d, f in (("gate/up", 2048, 1408), ("down", 1408, 2048)):
+            x = randn(gen, (N, d), torch.bfloat16)
+            w = randn(gen, (64, d, f), torch.bfloat16) * d ** -0.5
+            out = ops.grouped_gemm_segments(x, cnt, w)
+            sync()
+            exp = ref.grouped_gemm_segments_ref(x, cnt, w)
+            err = float((out.float() - exp.float()).abs().max())
+            label = (f"grouped_gemm_segments {phase} {N} rows over 64 "
+                     f"experts ({int((counts == 0).sum())} empty), "
+                     f"{proj} {d}->{f} bf16")
+            check(label, err, torch.bfloat16,
+                  tol=gemm_tol(torch.bfloat16, d, exp))
+            iters = 50 if phase == "decode" else 10
+            ms = time_ms(lambda: ops.grouped_gemm_segments(x, cnt, w),
+                         iters=iters)
+            plain = time_ms(lambda: ref.grouped_gemm_segments_ref(x, cnt, w),
+                            iters=3)
+            cmax = int(counts.max())
+            xp = torch.zeros((64, cmax, d), dtype=x.dtype, device="cuda")
+            lo = 0
+            for e, c in enumerate(counts.tolist()):
+                xp[e, :c] = x[lo:lo + c]
+                lo += c
+            lib = time_ms(lambda: torch.bmm(xp, w), iters=iters)
+            nbytes, flops = gemm_bound(counts, d, f, 2)
+            bms, by = bound_ms(nbytes, flops)
+            log(f"[kernels] {label}: kernel {ms:.4f} ms, plain {plain:.4f} "
+                f"ms, padded bmm ({64}x{cmax} rows) {lib:.4f} ms, bound "
+                f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.1f} GFLOP), max_abs_err {err:.3e}")
+            cases[f"{phase} {proj}"] = dict(
+                rows=N, empty_experts=int((counts == 0).sum()), d=d, f=f,
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+            del x, w, out, exp, xp
+    main = cases["prefill gate/up"]
+    rows["grouped_gemm"] = dict(
+        name="grouped_gemm", route="cuda",
+        source="src/repro_torch/csrc/grouped_gemm.cu",
+        replaces="src/repro/kernels/moe_gemm.py:48",
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        cases=cases)
     return rows
 
 
 # ------------------------------------------------------------ 4. serve ----
-def fact_prompts():
-    tok = HashTokenizer(49_152)
+def fact_prompts(vocab: int = 49_152):
+    tok = HashTokenizer(vocab)
     claims = fever.claim_batch(range(64))
     return [tok.encode(fever.render_prompt(c, t))
             for t in fever.PROMPT_CANDIDATES for c in claims]
@@ -498,29 +721,45 @@ def serve_rounds(engine, prompts, max_new, label, size=16):
     return reqs, rounds
 
 
+def expected_launches(engine, waves, steps):
+    """What one path of ``waves`` prefill waves and ``steps`` decode steps
+    launches. Dense GQA: each layer launches the prefill kernel once per
+    wave and its engine's decode kernel once per step. DeepSeek (paged):
+    each layer the MLA decode kernel once per step (its prefill is torch,
+    as the reference's is XLA), each MoE layer the grouped GEMM three
+    times (gate, up, down) per wave and per step. Nothing else launches.
+    Returns (expected counts, the kernels that must have run)."""
+    cfg = engine.cfg
+    expect = {name: 0 for name in ops.LAUNCHES}
+    if cfg.attention == "mla":
+        n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+        expect["paged_mla_decode"] = cfg.n_layers * steps
+        expect["grouped_gemm_segments"] = 3 * n_moe * (waves + steps)
+        must = ["grouped_gemm_segments"] + (["paged_mla_decode"] if steps
+                                            else [])
+        return expect, must
+    decode_kernel = ("paged_flash_decode"
+                     if engine.stats.decode_path == "paged"
+                     else "flash_decode")
+    expect["flash_attention"] = cfg.n_layers * waves
+    expect[decode_kernel] = cfg.n_layers * steps
+    return expect, ["flash_attention", decode_kernel]
+
+
 def run_path(engine, label, fn):
     """Drive one main path with every launch count set to 0 just before,
-    and hold the counts read just after against the path: each layer
-    launches the prefill kernel once per wave and its engine's decode
-    kernel once per decode step, and nothing else launches."""
+    and hold the counts read just after against the path
+    (``expected_launches``)."""
     st0 = dict(engine.stats.as_dict())
     ops.reset_launches()
     out = fn()
     launches = dict(ops.LAUNCHES)
     st = engine.stats.as_dict()
-    n_layers = engine.cfg.n_layers
-    decode_kernel = ("paged_flash_decode"
-                     if engine.stats.decode_path == "paged"
-                     else "flash_decode")
-    expect = {name: 0 for name in launches}
-    expect["flash_attention"] = n_layers * (st["prefill_batches"]
-                                            - st0["prefill_batches"])
-    expect[decode_kernel] = n_layers * (st["decode_steps"]
-                                        - st0["decode_steps"])
-    log(f"[serve] {label} launches {launches}; expected {expect} "
-        f"(n_layers x prefill waves, n_layers x decode steps)")
-    if launches != expect or launches["flash_attention"] <= 0 \
-            or launches[decode_kernel] <= 0:
+    expect, must = expected_launches(
+        engine, st["prefill_batches"] - st0["prefill_batches"],
+        st["decode_steps"] - st0["decode_steps"])
+    log(f"[serve] {label} launches {launches}; expected {expect}")
+    if launches != expect or any(launches[k] <= 0 for k in must):
         raise AssertionError(f"{label}: kernel launch counts do not match "
                              f"the path")
     return out, launches
@@ -557,6 +796,7 @@ def profile_mix(engine, prompts, max_new, label) -> dict:
     under torch.profiler (whose own host cost lowers the share a little)."""
     from torch.profiler import ProfilerActivity, profile
     sync()
+    t_all = time.monotonic()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -572,7 +812,7 @@ def profile_mix(engine, prompts, max_new, label) -> dict:
     top = [dict(kernel=k[1][:80], ms=k[0] / 1e3, calls=k[2])
            for k in kernels[:8]]
     out = dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
-               top=top)
+               top=top, pass_s=time.monotonic() - t_all)
     log(f"[profile] {label}: {json.dumps(out)}")
     return out
 
@@ -612,10 +852,7 @@ def phase_serve() -> dict:
                logits_err_a=compare("(a)", fk, fp, cfg.vocab_size),
                logits_err_b=compare("(b)", lk, lp, cfg.vocab_size),
                long_tokens=tokens(lk))
-    free(plain)
-    out["profile_a"] = profile_mix(engine, facts, 1, "(a) kernels")
-    out["profile_b"] = profile_mix(engine, longs, 64, "(b) kernels")
-    free(engine)
+    free(plain, engine)
 
     # (c): mix (b) through the paged pool
     pg = InferenceEngine(model, device="cuda", prefix_sharing=False,
@@ -635,9 +872,7 @@ def phase_serve() -> dict:
     out.update(rates_c=rates_c,
                logits_err_c=compare("(c)", ck, cp, cfg.vocab_size),
                paged_tokens=tokens(ck))
-    free(plain_pg)
-    out["profile_c"] = profile_mix(pg, longs, 64, "(c) kernels")
-    free(pg)
+    free(plain_pg, pg)
 
     # (d): few-shot fact verification, with and without prefix sharing
     fs = fewshot_prompts(HashTokenizer(cfg.vocab_size))
@@ -687,9 +922,6 @@ def phase_serve() -> dict:
                prefill_tokens_d_cold=computed_cold, ttft_cold_s=ttft_cold,
                ttft_hit_s=ttft_hit, logits_gap_d=gap,
                fewshot_tokens=tokens(dk))
-    prof = InferenceEngine(model, device="cuda", **PAGED_KW)
-    out["profile_d"] = profile_mix(prof, fs, 8, "(d) kernels, sharing")
-    free(prof)
     out["sharing_engine"] = sh
     out["fewshot"] = fs
     out["longs"] = longs
@@ -805,22 +1037,295 @@ def phase_pcm_paged(eng, fewshot, fewshot_tokens, longs, paged_tokens,
                 clone_s=clone_s)
 
 
+# --------------------------------------------------------- 6. deepseek ----
+class RouteLog:
+    """Records every MoE routing decision while active: for each call of
+    ``route`` (one per MoE layer per wave or decode step), each token's
+    chosen experts in ascending order, on the device."""
+
+    def __init__(self):
+        self.calls = []
+        self._route = moe_lib.route
+
+    def __enter__(self):
+        def logged(p, x, cfg):
+            ids, w, aux = self._route(p, x, cfg)
+            self.calls.append(ids.sort(dim=1).values)
+            return ids, w, aux
+        moe_lib.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.route = self._route
+
+
+def compare_routed(label, kern, plain, log_k, log_p, cfg, slots):
+    """Kernel engine vs plain engine on one mix, with the routing
+    decisions that differed counted: the first-token logits of requests
+    whose prefill routed every token alike in both are held to
+    DS_LOGIT_TOL, and their greedy first tokens must agree where the
+    plain logits' top-2 margin exceeds it; decode steps are compared on
+    slots whose input tokens still agree."""
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    if [c.shape for c in log_k.calls] != [c.shape for c in log_p.calls]:
+        raise AssertionError(f"{label}: the engines routed different "
+                             f"batches")
+    # group the calls into waves (T = slots x bucket) and decode steps
+    # (T = slots), n_moe calls each, in the order the engine ran them
+    groups = [(log_k.calls[i:i + n_moe], log_p.calls[i:i + n_moe])
+              for i in range(0, len(log_k.calls), n_moe)]
+    waves = [g for g in groups if g[0][0].shape[0] != slots]
+    steps = [g for g in groups if g[0][0].shape[0] == slots]
+    pre_diff = pre_all = dec_diff = dec_all = 0
+    routed_alike = []
+    for w, (ck, cp) in enumerate(waves):
+        diff = torch.stack([(a != b).any(dim=1) for a, b in zip(ck, cp)])
+        bucket = diff.shape[1] // slots
+        diff = diff.reshape(n_moe, slots, bucket)
+        for i, r in enumerate(kern[w * slots:(w + 1) * slots]):
+            n = len(r.prompt)
+            pre_diff += int(diff[:, i, :n].sum())
+            pre_all += n_moe * n
+            routed_alike.append(not bool(diff[:, i, :n].any()))
+    for j, (ck, cp) in enumerate(steps):
+        rows = [rk.slot for rk, rp in zip(kern, plain)
+                if rk.generated[:j + 1] == rp.generated[:j + 1]]
+        if not rows:
+            continue
+        rows = torch.tensor(rows, device="cuda")
+        for a, b in zip(ck, cp):
+            dec_diff += int((a[rows] != b[rows]).any(dim=1).sum())
+            dec_all += n_moe * len(rows)
+    err, checked, agree = 0.0, 0, 0
+    for rk, rp, alike in zip(kern, plain, routed_alike):
+        if not alike:
+            continue
+        lk, lp = rk.first_logits[:cfg.vocab_size], rp.first_logits[
+            :cfg.vocab_size]
+        err = max(err, float((lk - lp).abs().max()))
+        top2 = torch.topk(lp, 2).values
+        if float(top2[0] - top2[1]) > DS_LOGIT_TOL:
+            checked += 1
+            agree += int(rk.generated[0] == rp.generated[0])
+    gap_all = max(float((rk.first_logits - rp.first_logits).abs().max())
+                  for rk, rp in zip(kern, plain))
+    same_first = sum(rk.generated[0] == rp.generated[0]
+                     for rk, rp in zip(kern, plain))
+    same_seq = sum(rk.generated == rp.generated for rk, rp in zip(kern,
+                                                                   plain))
+    failures = []
+    if err > DS_LOGIT_TOL:
+        failures.append(f"logits error {err} > {DS_LOGIT_TOL}")
+    if agree != checked:
+        failures.append("first tokens disagree")
+    for phase, n_diff, n_all, bound in (
+            ("prefill", pre_diff, pre_all, PREFILL_ROUTE_DIFF_MAX),
+            ("decode", dec_diff, dec_all, DECODE_ROUTE_DIFF_MAX)):
+        if n_diff > bound * max(n_all, 1):
+            failures.append(f"{phase} routing differs in {n_diff}/{n_all} "
+                            f"decisions, above {bound}")
+    out = dict(requests=len(kern), routed_alike=sum(routed_alike),
+               prefill_route_diff=pre_diff, prefill_route_decisions=pre_all,
+               prefill_route_share=pre_diff / max(pre_all, 1),
+               decode_route_diff=dec_diff, decode_route_decisions=dec_all,
+               decode_route_share=dec_diff / max(dec_all, 1),
+               logits_err_routed_alike=err, logits_gap_all=gap_all,
+               first_tokens_checked=checked, first_tokens_agree=agree,
+               first_tokens_equal=same_first, identical_sequences=same_seq,
+               failures=failures)
+    log(f"[deepseek] {label} kernels vs plain: {json.dumps(out)} (logits "
+        f"tol {DS_LOGIT_TOL} on requests routed alike; routing-difference "
+        f"bounds {PREFILL_ROUTE_DIFF_MAX} prefill, {DECODE_ROUTE_DIFF_MAX} "
+        f"decode)")
+    return out
+
+
+def phase_deepseek() -> dict:
+    """Full-width DeepSeek-V2-Lite-16B on the paged pool: (e) and (f) with
+    the kernels, each path's launches checked, against a use_kernels=False
+    engine over the same weights; torch.profiler over (f)."""
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              use_kernels=True)
+    sync()
+    t0 = time.monotonic()
+    model = build_model(cfg, device="cuda", seed=0)
+    sync()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    plain_model = build_model(dataclasses.replace(cfg, use_kernels=False),
+                              device="cuda", params=dict(model.state_dict()))
+    eng = InferenceEngine(model, device="cuda", **PAGED_KW)
+    log(f"[deepseek] deepseek-v2-lite-16b full width: {cfg.n_layers} layers "
+        f"({cfg.moe.first_dense_layers} dense, d_ff {cfg.moe.dense_d_ff}), "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads, MLA latent "
+        f"{cfg.mla.kv_lora_rank} + rope {cfg.mla.qk_rope_head_dim}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.experts_per_token} of "
+        f"d_ff {cfg.moe.d_ff} + {cfg.moe.n_shared_experts} shared; "
+        f"{n_params} params, {weight_bytes / 1e9:.3f} GB bf16, drawn on the "
+        f"card in {init_s:.2f} s; pool "
+        f"{eng.snapshot()['capacity_bytes'] / 1e9:.3f} GB; engine {PAGED_KW}")
+    if n_params != DS_PARAMS:
+        raise AssertionError(f"deepseek: {n_params} parameters, expected "
+                             f"{DS_PARAMS}")
+    log(f"[deepseek] prefix_fallback: {eng.prefix_fallback}")
+    if eng.prefix_fallback is None or "MoE" not in eng.prefix_fallback \
+            or "MLA" not in eng.prefix_fallback:
+        raise AssertionError("deepseek: prefix sharing did not resolve off "
+                             "naming MoE and MLA")
+    facts = fact_prompts(cfg.vocab_size)
+    longs = long_prompts(cfg.vocab_size)
+    eng.generate([[2, 5]], max_new_tokens=2)
+    out = {"params": n_params, "weight_bytes": weight_bytes,
+           "init_s": init_s, "prefix_fallback": eng.prefix_fallback,
+           "launches": {}}
+
+    with RouteLog() as rk_e:
+        (ek, rates_e), out["launches"]["e"] = run_path(
+            eng, "(e) DeepSeek fact verification",
+            lambda: serve(eng, facts, 1, "(e) DeepSeek fact verification"))
+    with RouteLog() as rk_f:
+        (fk, rates_f), out["launches"]["f"] = run_path(
+            eng, "(f) DeepSeek long prompts",
+            lambda: serve(eng, longs, 64, "(f) DeepSeek long prompts"))
+    plain = InferenceEngine(plain_model, device="cuda", **PAGED_KW)
+    plain.generate([[2, 5]], max_new_tokens=2)
+    with RouteLog() as rp_e:
+        ep, rates_e_plain = serve(plain, facts, 1, "(e) plain path")
+    with RouteLog() as rp_f:
+        fp, rates_f_plain = serve(plain, longs, 64, "(f) plain path")
+    free(plain)
+    out.update(rates_e=rates_e, rates_f=rates_f, rates_e_plain=rates_e_plain,
+               rates_f_plain=rates_f_plain,
+               compare_e=compare_routed("(e)", ek, ep, rk_e, rp_e, cfg,
+                                        eng.slots),
+               compare_f=compare_routed("(f)", fk, fp, rk_f, rp_f, cfg,
+                                        eng.slots))
+    del rk_e, rk_f, rp_e, rp_f
+    for mix in ("e", "f"):
+        if out[f"compare_{mix}"]["failures"]:
+            raise AssertionError(f"deepseek ({mix}) kernels vs plain: "
+                                 f"{out[f'compare_{mix}']['failures']}")
+    out["profile_f"] = profile_mix(eng, longs, 64, "(f) DeepSeek kernels")
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    free(eng)
+    return out
+
+
+class PlantFault:
+    """For --faults: breaks one kernel entry point at run time (the code
+    stays as it is) while active. ``gemm_drop_expert`` zeroes the grouped
+    GEMM's output rows of expert 0, as if that expert's tiles were
+    dropped; ``mla_drop_newest`` hands the MLA decode kernel each slot's
+    length less one, so the new token's own key goes unread."""
+
+    NAMES = ("gemm_drop_expert", "mla_drop_newest")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self._saved = gemm, mla = (ops.grouped_gemm_segments,
+                                   ops.paged_mla_decode)
+        if self.name == "gemm_drop_expert":
+            def broken_gemm(x, counts, w):
+                out = gemm(x, counts, w)
+                rows = torch.arange(out.shape[0], device=out.device)
+                return out.masked_fill((rows < counts[0])[:, None], 0)
+            ops.grouped_gemm_segments = broken_gemm
+        elif self.name == "mla_drop_newest":
+            def broken_mla(*args, scale):
+                *head, lengths = args
+                return mla(*head, torch.clamp(lengths - 1, min=0),
+                           scale=scale)
+            ops.paged_mla_decode = broken_mla
+        return self
+
+    def __exit__(self, *exc):
+        ops.grouped_gemm_segments, ops.paged_mla_decode = self._saved
+
+
+def phase_faults() -> dict:
+    """--faults: phase 6's comparison of the kernel engine with the plain
+    engine on (e) and (f), read with no fault and with each PlantFault
+    planted in the kernel engine; every engine is fresh, so each run
+    assigns the slots alike. These readings set the routing bounds and
+    DS_LOGIT_TOL."""
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              use_kernels=True)
+    model = build_model(cfg, device="cuda", seed=0)
+    plain_model = build_model(dataclasses.replace(cfg, use_kernels=False),
+                              device="cuda", params=dict(model.state_dict()))
+    facts = fact_prompts(cfg.vocab_size)
+    longs = long_prompts(cfg.vocab_size)
+
+    def run(m, label):
+        eng = InferenceEngine(m, device="cuda", **PAGED_KW)
+        eng.generate([[2, 5]], max_new_tokens=2)
+        with RouteLog() as log_e:
+            e, _ = serve(eng, facts, 1, f"(e) {label}")
+        with RouteLog() as log_f:
+            f, _ = serve(eng, longs, 64, f"(f) {label}")
+        slots = eng.slots
+        free(eng)
+        return e, f, log_e, log_f, slots
+
+    ep, fp, rp_e, rp_f, _ = run(plain_model, "plain path")
+    out = {}
+    for fault in ("none",) + PlantFault.NAMES:
+        with PlantFault(fault):
+            ek, fk, rk_e, rk_f, slots = run(model, f"fault {fault}")
+        out[fault] = dict(
+            e=compare_routed(f"(e) fault {fault}", ek, ep, rk_e, rp_e, cfg,
+                             slots),
+            f=compare_routed(f"(f) fault {fault}", fk, fp, rk_f, rp_f, cfg,
+                             slots))
+        del rk_e, rk_f
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
+    ap.add_argument("--faults", action="store_true",
+                    help="instead of the smoke run: read phase 6's "
+                         "comparison with no fault and with each planted "
+                         "fault (PlantFault); exits 0 when the sound run "
+                         "passes and every fault is caught")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.monotonic()
+    if args.faults:
+        report = {"card": phase_card(), "build": {
+            k: v for k, v in phase_build().items() if k != "ptxas"}}
+        report["faults"] = readings = phase_faults()
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(report, indent=1))
+        failed = {k: bool(r["e"]["failures"] or r["f"]["failures"])
+                  for k, r in readings.items()}
+        print(json.dumps({"check_failed": failed}), flush=True)
+        caught = not failed.pop("none") and all(failed.values())
+        return 0 if caught else 1
+
+    def phase_done(name):
+        log(f"[time] {name} done at {time.monotonic() - t_start:.1f} s")
+
     smi = phase_card()
     report = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     report["build"] = {k: v for k, v in phase_build().items()
                        if k != "ptxas"}
+    phase_done("build")
     rows = phase_kernels()
+    phase_done("kernels")
     serve_out = phase_serve()
+    phase_done("serve")
     sharing = serve_out.pop("sharing_engine")
     fewshot, longs = serve_out.pop("fewshot"), serve_out.pop("longs")
     report["serve"] = serve_out
@@ -828,15 +1333,26 @@ def main() -> int:
     report["pcm_paged"] = phase_pcm_paged(
         sharing, fewshot, serve_out.pop("fewshot_tokens"), longs,
         serve_out.pop("paged_tokens"), report["pcm"]["cache_bytes"])
+    phase_done("pcm")
+    del sharing
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["deepseek"] = phase_deepseek()
+    phase_done("deepseek")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # a kernel's launches on the main paths, summed over its entry points
+    entries = {"grouped_gemm": ("grouped_gemm", "grouped_gemm_segments")}
+    runs = list(serve_out["launches"].values()) + list(
+        report["deepseek"]["launches"].values())
     kernels = []
     for name, row in rows.items():
-        row = dict(row, launches=sum(run[name] for run in
-                                     serve_out["launches"].values()))
+        row = dict(row, launches=sum(run[e] for run in runs
+                                     for e in entries.get(name, (name,))))
         kernels.append({k: row[k] for k in keys})
     report["kernels"] = kernels
     report["flash_attention_q_offset"] = rows["flash_attention"]["q_offset"]
+    report["grouped_gemm_cases"] = rows["grouped_gemm"]["cases"]
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     if args.out:

@@ -6,8 +6,8 @@ give an equal ``key()`` in both packages, so a config built on either side
 names the same model.
 
 One ``ModelConfig`` describes every architecture family the reference
-knows; the port builds the ``dense`` family so far (see
-``repro_torch.models.registry``).
+knows; the port builds the ``dense`` family and the ``moe`` family with
+MLA attention so far (see ``repro_torch.models.registry``).
 """
 
 from __future__ import annotations

@@ -1,29 +1,39 @@
 """Architecture registry of the port: ``arch id -> ModelConfig``.
 
-The port serves the dense SmolLM2-1.7B so far. The reference's other
-architectures are known by name and raise, naming the port slice that
-brings their model family.
+The port serves the dense SmolLM2-1.7B and the MLA + MoE
+DeepSeek-V2-Lite-16B so far. The reference's other architectures are known
+by name and raise, naming the port slice that brings their model family
+(or, for one, why one card cannot hold it).
 """
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as DEEPSEEK_V2_LITE
 from repro_torch.configs.smollm2_1_7b import CONFIG as SMOLLM2_1_7B
 
-_CONFIGS = {"smollm2-1.7b": SMOLLM2_1_7B}
+_CONFIGS = {"smollm2-1.7b": SMOLLM2_1_7B,
+            "deepseek-v2-lite-16b": DEEPSEEK_V2_LITE}
 
-# arch id -> the later port slice that brings it (ROADMAP.md, queue 1)
+# arch id -> why it is not built yet: the later port slice that brings it
+# (ROADMAP.md, queue 1), or what stands in its way
 _LATER = {
-    "stablelm-12b": "dense GQA decoders",
-    "nemotron-4-15b": "dense GQA decoders",
-    "granite-3-2b": "dense GQA decoders",
-    "h2o-danube-1.8b": "sliding-window ring-buffer caches",
-    "whisper-small": "the audio encoder-decoder family",
-    "xlstm-350m": "the SSM/xLSTM family",
-    "zamba2-7b": "the hybrid Mamba2 family (needs the SSD scan kernel)",
-    "llama-3.2-vision-11b": "the vision cross-attention family",
-    "qwen3-moe-235b-a22b": "the MoE family (needs the grouped GEMM kernel)",
-    "deepseek-v2-lite-16b": "MLA + MoE (needs the paged MLA decode kernel)",
+    "stablelm-12b": "it arrives with the port slice for dense GQA decoders",
+    "nemotron-4-15b": "it arrives with the port slice for dense GQA decoders",
+    "granite-3-2b": "it arrives with the port slice for dense GQA decoders",
+    "h2o-danube-1.8b": "it arrives with the port slice for sliding-window "
+                       "ring-buffer caches",
+    "whisper-small": "it arrives with the port slice for the audio "
+                     "encoder-decoder family",
+    "xlstm-350m": "it arrives with the port slice for the SSM/xLSTM family",
+    "zamba2-7b": "it arrives with the port slice for the hybrid Mamba2 "
+                 "family (needs the SSD scan kernel)",
+    "llama-3.2-vision-11b": "it arrives with the port slice for the vision "
+                            "cross-attention family",
+    "qwen3-moe-235b-a22b": "it does not fit one card: 235 B parameters are "
+                           "470 GB in bf16 against one H100's 80 GB, so it "
+                           "waits for a port slice that shards experts "
+                           "across cards",
 }
 
 ALL_ARCHS = tuple(_CONFIGS)
@@ -34,8 +44,7 @@ def get_config(arch_id: str) -> ModelConfig:
         return _CONFIGS[arch_id]
     if arch_id in _LATER:
         raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: it arrives with the port slice "
-            f"for {_LATER[arch_id]}")
+            f"{arch_id!r} is not ported yet: {_LATER[arch_id]}")
     raise KeyError(f"unknown arch {arch_id!r}; available: "
                    f"{', '.join(sorted(_CONFIGS))}")
 

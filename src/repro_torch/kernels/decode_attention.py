@@ -6,14 +6,15 @@ The kernels are ``csrc/flash_decode.cu`` (one query token per slot against
 the contiguous slot cache, per-slot valid lengths, an optional active mask)
 and ``csrc/paged_flash_decode.cu`` (the same against the paged pool read
 through a per-slot page table); both run ``csrc/decode_kernel.cuh``, the G
-grouped query heads of a KV head in one block. ``paged_mla_decode`` comes
-with the MLA family in a later slice.
+grouped query heads of a KV head in one block. ``paged_mla_decode`` (the
+Pallas ``_paged_mla_kernel``) is ``csrc/paged_mla_decode.cu``: DeepSeek's
+absorbed MLA decode over the paged latents, output in latent space.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,6 +29,13 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
 _PAGED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
     ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_MLA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [
+    ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+MLA_MAX_LATENT = 512  # widest latent R the MLA kernel's accumulators hold
+_MLA_TILE = 32        # keys per tile of the MLA kernel (kBK)
+_MLA_MAX_SPLITS = 64  # key ranges per slot the combine pass takes
+_SMS: Dict[int, int] = {}
 
 
 def _lib(name: str, argtypes):
@@ -116,18 +124,24 @@ def check_paged_inputs(q: torch.Tensor, k_pages: torch.Tensor,
                        lengths: torch.Tensor) -> None:
     _check_q("paged_flash_decode", q, k_pages, v_pages, lengths)
     B = q.shape[0]
+    _check_table("paged_flash_decode", page_table, B, q.device)
+
+
+def _check_table(kernel: str, page_table: torch.Tensor, B: int,
+                 dev: torch.device) -> None:
+    """A (B, n >= 1) int32 table on ``dev`` whose rows are contiguous: a
+    column slice of a wider table is taken as it is (rows are stride(0)
+    apart); any other layout is refused."""
     if (page_table.dtype != torch.int32 or page_table.dim() != 2
             or page_table.shape[0] != B or page_table.shape[1] < 1
-            or page_table.device != q.device):
-        raise ValueError(f"paged_flash_decode kernel: page_table must be a "
-                         f"(B, n >= 1) int32 tensor on q's device; got "
+            or page_table.device != dev):
+        raise ValueError(f"{kernel} kernel: page_table must be a (B, n >= "
+                         f"1) int32 tensor on q's device; got "
                          f"{page_table.dtype} {tuple(page_table.shape)}")
-    # a column slice of a wider table is taken as it is (rows are
-    # stride(0) apart); any other layout is refused
     if page_table.stride(1) != 1 or (
             B > 1 and page_table.stride(0) < page_table.shape[1]):
-        raise ValueError(f"paged_flash_decode kernel: page_table rows must "
-                         f"be contiguous (a column slice of a row-major "
+        raise ValueError(f"{kernel} kernel: page_table rows must be "
+                         f"contiguous (a column slice of a row-major "
                          f"table); got strides {page_table.stride()}")
 
 
@@ -152,4 +166,96 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         page_table.data_ptr(), stride, n, P, lengths.data_ptr(),
         out.data_ptr(), B, H, Hkv, D, float(scale), _DTYPES[q.dtype], stream)
     build.check(lib, "paged_flash_decode", code)
+    return out
+
+
+def check_mla_inputs(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                     ckv_pages: torch.Tensor, krope_pages: torch.Tensor,
+                     page_table: torch.Tensor, lengths: torch.Tensor) -> None:
+    """What the MLA kernel requires: one CUDA device; f32 or bf16 of one
+    dtype; q_lat (B, H, R), q_rope (B, H, Dr), ckv_pages (NP+1, P, R) and
+    krope_pages (NP+1, P, Dr), all contiguous, R <= 512, R and Dr
+    multiples of 8, both pools 16-byte aligned; the table as the paged
+    decode's; lengths a contiguous (B,) int32 tensor."""
+    dev = q_lat.device
+    ts = (q_lat, q_rope, ckv_pages, krope_pages)
+    if not (q_lat.is_cuda and all(t.device == dev for t in ts)
+            and lengths.device == dev):
+        raise ValueError("paged_mla_decode kernel: q, the pages and lengths "
+                         "must be on one CUDA device")
+    if q_lat.dtype not in _DTYPES or any(t.dtype != q_lat.dtype for t in ts):
+        raise TypeError(f"paged_mla_decode kernel takes f32 or bf16 inputs "
+                        f"of one dtype, got {[t.dtype for t in ts]}")
+    if q_lat.dim() != 3 or q_rope.dim() != 3 or ckv_pages.dim() != 3 \
+            or krope_pages.dim() != 3:
+        raise ValueError("paged_mla_decode kernel: q_lat/q_rope (B,H,.) and "
+                         "pages (NP+1,P,.) must be 3-d")
+    B, H, R = q_lat.shape
+    Dr = q_rope.shape[2]
+    if (q_rope.shape[:2] != (B, H) or ckv_pages.shape[2] != R
+            or krope_pages.shape != ckv_pages.shape[:2] + (Dr,)):
+        raise ValueError(f"paged_mla_decode kernel: shapes do not match: "
+                         f"{[tuple(t.shape) for t in ts]}")
+    if R > MLA_MAX_LATENT:
+        raise ValueError(f"paged_mla_decode kernel: latent width {R} above "
+                         f"{MLA_MAX_LATENT}")
+    if R % 8 or Dr % 8:
+        raise ValueError(f"paged_mla_decode kernel: R and Dr must be "
+                         f"multiples of 8, got {R}, {Dr}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("paged_mla_decode kernel: q and the pages must be "
+                         "contiguous")
+    if ckv_pages.data_ptr() % 16 or krope_pages.data_ptr() % 16:
+        raise ValueError("paged_mla_decode kernel: the pages must be 16-byte "
+                         "aligned")
+    if (lengths.dtype != torch.int32 or lengths.shape != (B,)
+            or not lengths.is_contiguous()):
+        raise ValueError("paged_mla_decode kernel: lengths must be a "
+                         "contiguous (B,) int32 tensor")
+    _check_table("paged_mla_decode", page_table, B, dev)
+
+
+def mla_splits(B: int, H: int, max_keys: int, sms: int) -> Tuple[int, int]:
+    """(splits, keys a split) of the MLA kernel's key axis: ranges of
+    whole 32-key tiles, enough of them for about four blocks an SM over
+    the B x ceil(H / 2) (slot, head pair) blocks. Sized from the table's
+    capacity, never from the lengths on the device."""
+    tiles = max(1, -(-max_keys // _MLA_TILE))
+    want = -(-4 * sms // (B * -(-H // 2)))
+    per = -(-tiles // max(1, min(want, tiles, _MLA_MAX_SPLITS)))
+    return -(-tiles // per), per * _MLA_TILE
+
+
+def paged_mla_decode_cuda(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                          ckv_pages: torch.Tensor, krope_pages: torch.Tensor,
+                          page_table: torch.Tensor, lengths: torch.Tensor, *,
+                          scale: float) -> torch.Tensor:
+    """q_lat (B, H, R); q_rope (B, H, Dr); ckv_pages (NP+1, P, R);
+    krope_pages (NP+1, P, Dr); page_table (B, n) int32; lengths (B,) int32
+    -> the latent-space output (B, H, R) in q's dtype. Launches the kernel;
+    raises on a refused launch."""
+    check_mla_inputs(q_lat, q_rope, ckv_pages, krope_pages, page_table,
+                     lengths)
+    B, H, R = q_lat.shape
+    Dr, P = q_rope.shape[2], ckv_pages.shape[1]
+    n = page_table.shape[1]
+    stride = page_table.stride(0) if B > 1 else n
+    dev = q_lat.device
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    splits, split_keys = mla_splits(B, H, n * P, _SMS[dev.index])
+    part = torch.empty((B, H, splits, R), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((B, H, splits, 2), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty_like(q_lat)
+    lib = _lib("paged_mla_decode", _MLA_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.paged_mla_decode_fwd(
+        q_lat.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(),
+        krope_pages.data_ptr(), page_table.data_ptr(), stride, n, P,
+        lengths.data_ptr(), part.data_ptr(), part_ml.data_ptr(),
+        out.data_ptr(), B, H, R, Dr, float(scale), splits, split_keys,
+        _DTYPES[q_lat.dtype], stream)
+    build.check(lib, "paged_mla_decode", code)
     return out

@@ -20,11 +20,17 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (flash_decode_cuda,
-                                                  paged_flash_decode_cuda)
+                                                  paged_flash_decode_cuda,
+                                                  paged_mla_decode_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.moe_gemm import (grouped_gemm_cuda,
+                                          grouped_gemm_segments_cuda)
 
+# one key per entry point; grouped_gemm and grouped_gemm_segments launch
+# the same kernel (csrc/grouped_gemm.cu)
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0,
-                            "paged_flash_decode": 0}
+                            "paged_flash_decode": 0, "paged_mla_decode": 0,
+                            "grouped_gemm": 0, "grouped_gemm_segments": 0}
 
 
 def reset_launches() -> None:
@@ -88,5 +94,47 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+def paged_mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                     ckv_pages: torch.Tensor, krope_pages: torch.Tensor,
+                     page_table: torch.Tensor, lengths: torch.Tensor, *,
+                     scale: float = 1.0) -> torch.Tensor:
+    """Absorbed-matrix MLA decode over paged latents: q_lat (B, H, R),
+    q_rope (B, H, Dr), ckv_pages (NP+1, P, R), krope_pages (NP+1, P, Dr),
+    page_table (B, n), lengths (B,) -> latent output (B, H, R). A slot of
+    length 0 gets zeros."""
+    if _on_cpu(q_lat, "paged_mla_decode"):
+        return ref.paged_mla_decode_ref(q_lat, q_rope, ckv_pages,
+                                        krope_pages, page_table, lengths,
+                                        scale=scale)
+    out = paged_mla_decode_cuda(q_lat, q_rope, ckv_pages, krope_pages,
+                                page_table, lengths, scale=scale)
+    LAUNCHES["paged_mla_decode"] += 1
+    return out
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, C, d); w (E, d, f) -> (E, C, f), f32 accumulation, in x's
+    dtype (the reference's contract)."""
+    if _on_cpu(x, "grouped_gemm"):
+        return ref.grouped_gemm_ref(x, w)
+    out = grouped_gemm_cuda(x, w)
+    LAUNCHES["grouped_gemm"] += 1
+    return out
+
+
+def grouped_gemm_segments(x: torch.Tensor, counts: torch.Tensor,
+                          w: torch.Tensor) -> torch.Tensor:
+    """x (N, d) whose rows are grouped by expert (``counts[e]`` rows of
+    expert e after expert e-1's), counts (E,) int32 on x's device, w
+    (E, d, f) -> (N, f) in x's dtype. The MoE dispatch's entry point: the
+    counts are never read on the host."""
+    if _on_cpu(x, "grouped_gemm_segments"):
+        return ref.grouped_gemm_segments_ref(x, counts, w)
+    out = grouped_gemm_segments_cuda(x, counts, w)
+    LAUNCHES["grouped_gemm_segments"] += 1
+    return out
+
+
 __all__ = ["flash_attention", "flash_decode", "paged_flash_decode",
+           "paged_mla_decode", "grouped_gemm", "grouped_gemm_segments",
            "LAUNCHES", "reset_launches", "ref"]

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
 Port of ``repro.kernels.ref`` for the port's kernels so far, in the
-kernels' public layout. Each is what ``repro_torch.kernels.ops`` runs for a
-tensor on the CPU, and what ``chip_smoke.py`` holds the CUDA kernel against
-on the card. Masked scores use the reference's ``-1e30`` sentinel and get a
+kernels' public layout, plus ``grouped_gemm_segments_ref``, the plain
+version of the grouped GEMM's entry point over rows sorted by expert. Each
+is what ``repro_torch.kernels.ops`` runs for a tensor on the CPU, and what
+``chip_smoke.py`` holds the CUDA kernel against on the card. Masked scores use the reference's ``-1e30`` sentinel and get a
 weight of exactly 0, and the normaliser is ``max(l, 1e-30)``, as in the
 kernels: a row with no visible key comes out as zeros.
 """
@@ -107,3 +108,48 @@ def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
     k = _gather_pages(k_pages, page_table)
     v = _gather_pages(v_pages, page_table)
     return flash_decode_ref(q, k, v, lengths, scale=scale)
+
+
+def paged_mla_decode_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                         ckv_pages: torch.Tensor, krope_pages: torch.Tensor,
+                         page_table: torch.Tensor, lengths: torch.Tensor, *,
+                         scale: float = 1.0) -> torch.Tensor:
+    """Absorbed MLA decode over paged latents: q_lat (B, H, R) (q_nope
+    through w_uk), q_rope (B, H, Dr), ckv_pages (NP+1, P, R), krope_pages
+    (NP+1, P, Dr), page_table (B, n), lengths (B,) -> the latent-space
+    output (B, H, R) in q_lat's dtype. Score ``(q_lat . c_kv + q_rope .
+    k_rope) * scale`` in f32; the value is the latent itself. Keys at or
+    past ``lengths[b]`` are masked; a slot of length 0 gets zeros."""
+    ckv = _gather_pages(ckv_pages, page_table).float()         # (B, T, R)
+    kr = _gather_pages(krope_pages, page_table).float()        # (B, T, Dr)
+    s = (torch.einsum("bhr,btr->bht", q_lat.float(), ckv)
+         + torch.einsum("bhd,btd->bht", q_rope.float(), kr)) * scale
+    pos = torch.arange(ckv.shape[1], device=q_lat.device)
+    mask = (pos[None, :] < lengths.long()[:, None])[:, None, :]
+    out = _masked_softmax_av(s, mask, ckv, "bht,btr->bhr")
+    return out.to(q_lat.dtype)
+
+
+def grouped_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert matmul (E, C, d) x (E, d, f) -> (E, C, f), f32
+    accumulation, output in x's dtype."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def grouped_gemm_segments_ref(x: torch.Tensor, counts: torch.Tensor,
+                              w: torch.Tensor) -> torch.Tensor:
+    """x (N, d) whose rows are grouped by expert, expert e's ``counts[e]``
+    rows next after expert e-1's; counts (E,); w (E, d, f) -> (N, f) in
+    x's dtype, f32 accumulation. Rows past ``sum(counts)`` belong to no
+    expert: zeros here, left unwritten by the kernel. (Reads the counts on
+    the host: a comparison target, never the serving path on the card.)"""
+    out = torch.zeros((x.shape[0], w.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    lo = 0
+    for e, n in enumerate(counts.tolist()):
+        hi = min(lo + int(n), x.shape[0])
+        if hi > lo:
+            out[lo:hi] = torch.matmul(x[lo:hi].float(), w[e].float()).to(
+                x.dtype)
+        lo = hi
+    return out

@@ -375,3 +375,168 @@ def paged_attend_decode(p, x: torch.Tensor, cfg, *, k_pages: torch.Tensor,
         valid = pos[None, :] <= lengths.long()[:, None]
         out = grouped_attention_narrow(q * scale, kv, vv, valid)[:, :1]
     return _out_proj(out, p.wo, c)
+
+
+# -------------------------------------------------------------- MLA --------
+def _mla_q(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Queries (B,S,H,dn+dr): direct (``wq``) or through the query latent
+    (``w_dq`` then ``w_uq``)."""
+    c = cdt(cfg)
+    if getattr(p, "w_dq", None) is not None:
+        return _proj(torch.matmul(x.to(c), p.w_dq.to(c)), p.w_uq, c)
+    return _proj(x, p.wq, c)
+
+
+def _mla_latent(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Down-project to (latent c_kv (B,S,R) RMS-normed, shared rope key
+    (B,S,dr) before its rotation)."""
+    m = cfg.mla
+    c = cdt(cfg)
+    dkv = torch.matmul(x.to(c), p.w_dkv.to(c))
+    ckv, k_rope = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    return rms_norm_heads(ckv, p.kv_norm, cfg.norm_eps), k_rope
+
+
+def _mla_qk(p, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """(q_nope, q_rope rotated, c_kv, k_rope rotated) at ``positions``
+    ((S,) or (B,S))."""
+    m = cfg.mla
+    q = _mla_q(p, x, cfg)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    cos, sin = rope_cos_sin(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    ckv, k_rope = _mla_latent(p, x, cfg)
+    return (q_nope, apply_rope(q_rope, cos, sin), ckv,
+            apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :])
+
+
+def _mla_scale(cfg) -> float:
+    m = cfg.mla
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def mla_prefill(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+                kv_len: Optional[torch.Tensor] = None, chunk: int = 1024
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Causal MLA over the whole sequence: a blockwise online softmax whose
+    keys and values are decompressed from the latent one chunk of
+    ``chunk`` positions at a time (the reference's XLA path; no kernel).
+    Returns (y (B,S,d), (c_kv (B,S,R), k_rope (B,S,dr))), the latents the
+    cache keeps."""
+    c = cdt(cfg)
+    B, S, _ = x.shape
+    q_nope, q_rope, ckv, k_rope = _mla_qk(p, x, cfg, positions)
+    scale = _mla_scale(cfg)
+    qn = q_nope.float() * scale
+    qr = q_rope.float() * scale
+    dev = x.device
+    qp = torch.arange(S, device=dev)[:, None]
+    H, dv = cfg.n_heads, cfg.mla.v_head_dim
+    acc = torch.zeros((B, S, H, dv), dtype=torch.float32, device=dev)
+    m = torch.full((B, S, H), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, S, H), dtype=torch.float32, device=dev)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    w_uk, w_uv = p.w_uk.to(c), p.w_uv.to(c)
+    for c0 in range(0, S, min(chunk, S)):
+        ckv_i = ckv[:, c0:c0 + chunk].to(c)
+        k_i = torch.einsum("bcr,rhk->bchk", ckv_i, w_uk).float()
+        v_i = torch.einsum("bcr,rhk->bchk", ckv_i, w_uv).float()
+        s = torch.einsum("bshd,bchd->bshc", qn, k_i)
+        s = s + torch.einsum("bshd,bcd->bshc", qr,
+                             k_rope[:, c0:c0 + chunk].float())
+        k_pos = c0 + torch.arange(k_i.shape[1], device=dev)
+        s = torch.where((qp >= k_pos)[None, :, None, :], s, neg)
+        if kv_len is not None:
+            valid = k_pos[None, :] < kv_len.long()[:, None]         # (B,C)
+            s = torch.where(valid[:, None, None, :], s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        pr = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + pr.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bshc,bchd->bshd", pr, v_i)
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(c)
+    return _out_proj(out, p.wo, c), (ckv, k_rope)
+
+
+def _mla_attend_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                       ckv: torch.Tensor, kr: torch.Tensor,
+                       valid: torch.Tensor, scale: float) -> torch.Tensor:
+    """Absorbed scores in latent space over a contiguous latent cache:
+    q_lat (B,1,H,R), q_rope (B,1,H,dr), ckv (B,T,R), kr (B,T,dr), valid
+    (B,T) -> latent output (B,1,H,R) f32 (the reference's einsums)."""
+    s = torch.einsum("bshr,btr->bhst", q_lat.float() * scale, ckv.float())
+    s = s + torch.einsum("bshd,btd->bhst", q_rope.float() * scale, kr.float())
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,btr->bshr", w, ckv.float())
+
+
+def _mla_out(p, out_lat: torch.Tensor, cfg) -> torch.Tensor:
+    """Latent output (B,1,H,R) -> y (B,1,d) through ``w_uv`` then ``wo``."""
+    c = cdt(cfg)
+    out = torch.einsum("bshr,rhd->bshd", out_lat.to(c), p.w_uv.to(c))
+    return _out_proj(out, p.wo, c)
+
+
+def _mla_decode_q(p, x: torch.Tensor, cfg, lengths: torch.Tensor):
+    """One token per row at position ``lengths``: (q_lat (B,1,H,R) with
+    ``w_uk`` absorbed, q_rope (B,1,H,dr), new c_kv row (B,R), new rotated
+    rope key row (B,dr))."""
+    c = cdt(cfg)
+    q_nope, q_rope, ckv_new, kr_new = _mla_qk(p, x, cfg, lengths[:, None])
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope.to(c), p.w_uk.to(c))
+    return q_lat, q_rope, ckv_new[:, 0], kr_new[:, 0]
+
+
+def mla_decode(p, x: torch.Tensor, cfg, *, cache_ckv: torch.Tensor,
+               cache_krope: torch.Tensor, lengths: torch.Tensor,
+               active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Absorbed-matrix MLA decode over the slot cache: attention runs in
+    latent space, never decompressing keys or values. x (B,1,d); cache_ckv
+    (B,Sc,R) and cache_krope (B,Sc,dr) written in place at ``min(lengths,
+    Sc-1)`` for active rows. Plain torch on every device: the reference has
+    no kernel for it either. Returns y (B,1,d)."""
+    q_lat, q_rope, ckv_new, kr_new = _mla_decode_q(p, x, cfg, lengths)
+    s_cache = cache_ckv.shape[1]
+    slot = torch.clamp(lengths.long(), max=s_cache - 1)
+    write_cache_row(cache_ckv, ckv_new, slot, active)
+    write_cache_row(cache_krope, kr_new, slot, active)
+    pos = torch.arange(s_cache, device=x.device)
+    valid = pos[None, :] <= lengths.long()[:, None]
+    out_lat = _mla_attend_latent(q_lat, q_rope, cache_ckv, cache_krope, valid,
+                                 _mla_scale(cfg))
+    return _mla_out(p, out_lat, cfg)
+
+
+def paged_mla_decode(p, x: torch.Tensor, cfg, *, ckv_pages: torch.Tensor,
+                     krope_pages: torch.Tensor, page_table: torch.Tensor,
+                     lengths: torch.Tensor,
+                     active: torch.Tensor) -> torch.Tensor:
+    """Absorbed-matrix MLA decode against the paged latents: ckv_pages
+    (NP+1, P, R) and krope_pages (NP+1, P, dr), written in place through
+    ``page_table`` (B, n) (inactive rows into TRASH). The pool holds only
+    the compressed latents, never decompressed keys or values.
+
+    With ``cfg.use_kernels`` attention runs in the paged MLA decode kernel
+    (``ops.paged_mla_decode``), which reads the pages in place; otherwise
+    the pages are gathered and scored by the slot cache's math. Returns
+    y (B,1,d)."""
+    q_lat, q_rope, ckv_new, kr_new = _mla_decode_q(p, x, cfg, lengths)
+    _paged_write_row(ckv_pages, ckv_new, page_table, lengths, active)
+    _paged_write_row(krope_pages, kr_new, page_table, lengths, active)
+    scale = _mla_scale(cfg)
+    cap = page_table.shape[1] * ckv_pages.shape[1]
+    if cfg.use_kernels:
+        n_valid = torch.where(active, torch.clamp(lengths + 1, max=cap),
+                              0).to(torch.int32)
+        out_lat = kops.paged_mla_decode(
+            q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous(), ckv_pages,
+            krope_pages, page_table, n_valid, scale=scale)[:, None].float()
+    else:
+        pos = torch.arange(cap, device=x.device)
+        valid = pos[None, :] <= lengths.long()[:, None]
+        out_lat = _mla_attend_latent(
+            q_lat, q_rope, _paged_gather(ckv_pages, page_table),
+            _paged_gather(krope_pages, page_table), valid, scale)
+    return _mla_out(p, out_lat, cfg)

@@ -1,6 +1,7 @@
 """Model registry: ``ModelConfig`` -> a built model on a device.
 
-Port of ``repro.models.registry.build_model`` for the dense family.
+Port of ``repro.models.registry.build_model`` for the dense family and the
+MoE family with MLA attention.
 """
 
 from __future__ import annotations
@@ -23,10 +24,10 @@ def build_model(cfg, *, device: Union[str, torch.device] = "cuda",
     tensors become the parameters without a copy when they already have
     the device and dtype; else the port's own init from ``seed``."""
     dev = devices.resolve(device)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port builds the "
-            f"dense family so far")
+            f"dense and MoE families so far")
     with torch.device("meta"):
         model = Transformer(cfg, "meta")
     if params is None:

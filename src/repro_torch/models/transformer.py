@@ -1,29 +1,43 @@
-"""Decoder-only transformer, dense family.
+"""Decoder-only transformer: the dense family and the MoE family with
+DeepSeek's Multi-head Latent Attention.
 
 Port of ``repro.models.transformer.build_decoder`` for ``family="dense"``
-as ``nn.Module``s. ``Transformer`` has the methods of the reference's
-``Model`` record: ``init_cache``, ``forward``, ``prefill``,
+(GQA/MHA attention, dense MLPs) and ``family="moe"`` with MLA attention
+(DeepSeek-V2-Lite), as ``nn.Module``s. ``Transformer`` has the methods of
+the reference's ``Model`` record: ``init_cache``, ``forward``, ``prefill``,
 ``prefill_shared``, ``decode_step`` and ``decode_paged`` (``init`` is
-``repro_torch.weights.init_params``). Layers
-are a ``ModuleList`` instead of a stacked scan; parameter names follow the
-reference's pytree paths (``layers.{i}.attn.wq`` is ``layers/attn/wq[i]``).
+``repro_torch.weights.init_params``). Layers are ``ModuleList``s instead of
+a stacked scan; parameter names follow the reference's pytree paths
+(``layers.{i}.attn.wq`` is ``layers/attn/wq[i]``, ``dense0.0.mlp.up`` is
+``dense0[0]/mlp/up``). A MoE config's leading dense layers
+(``moe.first_dense_layers``, d_ff ``moe.dense_d_ff``) are ``dense0`` and
+run first, then the MoE blocks of ``layers``.
 
-The KV cache is ``{"k": (L, B, S, Hkv, D), "v": ...}``: the reference's
-``{"layers": (k, v)}`` with the same stacked layer axis; the paged pool is
-the same dict built as ``init_cache(num_pages + 1, page_size)``, pages
-where the slots were. The methods update the cache in place and return
-only the logits, where the reference returned a new cache. Parameters
-never require gradients: the port serves.
+The KV cache holds one tensor per cache leaf, stacked over all layers in
+the order they run (the reference's ``{"dense0": [...], "layers": ...}``
+flattened to one layer axis): ``{"k", "v"}`` of shape (L, B, S, Hkv, D)
+for GQA/MHA, ``{"ckv": (L, B, S, R), "krope": (L, B, S, dr)}`` (the
+compressed latent and the shared rope key) for MLA. The paged pool is the
+same dict built as ``init_cache(num_pages + 1, page_size)``, pages where
+the slots were. The methods update the cache in place and return only the
+logits, where the reference returned a new cache. Parameters never require
+gradients: the port serves.
+
+``prefill_shared`` (tail-only prefill for prefix sharing) is None for MoE
+or MLA models, as the reference's ``Model.prefill_shared`` is: MLA latents
+recompress and MoE routing is sequence-dependent, so a tail-only prefill
+could diverge from a whole one.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, cdt, embed,
                                        pdt, unembed)
 from repro_torch.serving.kvcache import merge_slots
@@ -62,10 +76,40 @@ class Attention(nn.Module):
             self.k_norm = _param(hd, dtype=dt, device=device)
 
 
-class MLP(nn.Module):
+class MLAAttention(nn.Module):
+    """DeepSeek MLA weights in ``init_mla``'s layouts: ``wq`` (d, H, dn+dr)
+    (or ``w_dq`` (d, q_lora) and ``w_uq`` (q_lora, H, dn+dr)), the joint
+    down-projection ``w_dkv`` (d, R+dr), the up-projections ``w_uk``
+    (R, H, dn) and ``w_uv`` (R, H, dv), ``wo`` (H, dv, d) and the latent's
+    RMSNorm scale ``kv_norm`` (R,)."""
+
     def __init__(self, cfg, device):
         super().__init__()
-        d, f, dt = cfg.d_model, cfg.d_ff, pdt(cfg)
+        m, d, H, dt = cfg.mla, cfg.d_model, cfg.n_heads, pdt(cfg)
+        q_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+        if m.q_lora_rank:
+            self.w_dq = _param(d, m.q_lora_rank, dtype=dt, device=device)
+            self.w_uq = _param(m.q_lora_rank, H, q_dim, dtype=dt,
+                               device=device)
+        else:
+            self.wq = _param(d, H, q_dim, dtype=dt, device=device)
+        self.w_dkv = _param(d, m.kv_lora_rank + m.qk_rope_head_dim, dtype=dt,
+                            device=device)
+        self.w_uk = _param(m.kv_lora_rank, H, m.qk_nope_head_dim, dtype=dt,
+                           device=device)
+        self.w_uv = _param(m.kv_lora_rank, H, m.v_head_dim, dtype=dt,
+                           device=device)
+        self.wo = _param(H, m.v_head_dim, d, dtype=dt, device=device)
+        self.kv_norm = _param(m.kv_lora_rank, dtype=dt, device=device)
+
+
+class MLP(nn.Module):
+    """Dense MLP of width ``d_ff`` (default ``cfg.d_ff``): a MoE config's
+    leading dense layer and its shared experts take their own widths."""
+
+    def __init__(self, cfg, device, d_ff: Optional[int] = None):
+        super().__init__()
+        d, f, dt = cfg.d_model, d_ff or cfg.d_ff, pdt(cfg)
         self.up = _param(d, f, dtype=dt, device=device)
         self.down = _param(f, d, dtype=dt, device=device)
         self.gate = (_param(d, f, dtype=dt, device=device)
@@ -76,45 +120,103 @@ class MLP(nn.Module):
         return apply_mlp(x, self.up, self.down, self.cfg, gate=self.gate)
 
 
-class DenseBlock(nn.Module):
+class Experts(nn.Module):
+    """The routed experts' stacked weights: ``up``/``gate`` (E, d, f),
+    ``down`` (E, f, d)."""
+
     def __init__(self, cfg, device):
         super().__init__()
+        e, d, dt = cfg.moe, cfg.d_model, pdt(cfg)
+        self.up = _param(e.n_experts, d, e.d_ff, dtype=dt, device=device)
+        self.down = _param(e.n_experts, e.d_ff, d, dtype=dt, device=device)
+        self.gate = (_param(e.n_experts, d, e.d_ff, dtype=dt, device=device)
+                     if cfg.activation == "swiglu" else None)
+
+
+class MoE(nn.Module):
+    """Router (d, E), routed experts and, where the config has them, the
+    always-on shared experts as one MLP of ``n_shared * shared_d_ff``."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        e = cfg.moe
+        self.router = _param(cfg.d_model, e.n_experts, dtype=pdt(cfg),
+                             device=device)
+        self.experts = Experts(cfg, device)
+        self.shared = (MLP(cfg, device, (e.shared_d_ff or e.d_ff)
+                           * e.n_shared_experts)
+                       if e.n_shared_experts else None)
+
+
+class Block(nn.Module):
+    """One decoder block: GQA/MHA or MLA attention, then a dense MLP (of
+    width ``d_ff``) or, with ``use_moe``, the MoE FFN."""
+
+    def __init__(self, cfg, device, use_moe: bool = False,
+                 d_ff: Optional[int] = None):
+        super().__init__()
         self.cfg = cfg
+        self.mla = cfg.attention == "mla"
         self.ln1 = Norm(cfg, device)
-        self.attn = Attention(cfg, device)
+        self.attn = (MLAAttention(cfg, device) if self.mla
+                     else Attention(cfg, device))
         self.ln2 = Norm(cfg, device)
-        self.mlp = MLP(cfg, device)
+        if use_moe:
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device, d_ff)
+
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.ln2(x)
+        if hasattr(self, "moe"):
+            return x + moe_lib.apply_moe(self.moe, h, self.cfg)[0]
+        return x + self.mlp(h)
 
     def prefill(self, x, *, positions, kv_len):
-        """Returns (x, (k, v)) with the narrow-head K/V of the sequence."""
-        a, kv = attn.attend_prefill(self.attn, self.ln1(x), self.cfg,
-                                    positions=positions, kv_len=kv_len)
-        x = x + a
-        return x + self.mlp(self.ln2(x)), kv
+        """Returns (x, the sequence's two cache leaves): narrow-head (k, v)
+        or MLA's (c_kv, k_rope)."""
+        h = self.ln1(x)
+        if self.mla:
+            a, kv = attn.mla_prefill(self.attn, h, self.cfg,
+                                     positions=positions, kv_len=kv_len)
+        else:
+            a, kv = attn.attend_prefill(self.attn, h, self.cfg,
+                                        positions=positions, kv_len=kv_len)
+        return self._ffn(x + a), kv
 
     def prefill_shared(self, x, *, positions, starts, kv_len, view_k,
                        view_v):
         """``prefill`` over tail tokens only, attending over the row's
-        gathered page view; returns (x, the tail's narrow (k, v))."""
+        gathered page view; returns (x, the tail's narrow (k, v)). Dense
+        GQA/MHA blocks only."""
         a, kv = attn.attend_prefill_shared(
             self.attn, self.ln1(x), self.cfg, positions=positions,
             starts=starts, kv_len=kv_len, view_k=view_k, view_v=view_v)
-        x = x + a
-        return x + self.mlp(self.ln2(x)), kv
+        return self._ffn(x + a), kv
 
-    def decode(self, x, *, lengths, cache_k, cache_v, active):
-        x = x + attn.attend_decode(self.attn, self.ln1(x), self.cfg,
-                                   cache_k=cache_k, cache_v=cache_v,
-                                   lengths=lengths, active=active)
-        return x + self.mlp(self.ln2(x))
+    def decode(self, x, *, lengths, kv, active):
+        h = self.ln1(x)
+        if self.mla:
+            a = attn.mla_decode(self.attn, h, self.cfg, cache_ckv=kv[0],
+                                cache_krope=kv[1], lengths=lengths,
+                                active=active)
+        else:
+            a = attn.attend_decode(self.attn, h, self.cfg, cache_k=kv[0],
+                                   cache_v=kv[1], lengths=lengths,
+                                   active=active)
+        return self._ffn(x + a)
 
-    def decode_paged(self, x, *, lengths, k_pages, v_pages, page_table,
-                     active):
-        x = x + attn.paged_attend_decode(
-            self.attn, self.ln1(x), self.cfg, k_pages=k_pages,
-            v_pages=v_pages, page_table=page_table, lengths=lengths,
-            active=active)
-        return x + self.mlp(self.ln2(x))
+    def decode_paged(self, x, *, lengths, kv, page_table, active):
+        h = self.ln1(x)
+        if self.mla:
+            a = attn.paged_mla_decode(
+                self.attn, h, self.cfg, ckv_pages=kv[0], krope_pages=kv[1],
+                page_table=page_table, lengths=lengths, active=active)
+        else:
+            a = attn.paged_attend_decode(
+                self.attn, h, self.cfg, k_pages=kv[0], v_pages=kv[1],
+                page_table=page_table, lengths=lengths, active=active)
+        return self._ffn(x + a)
 
 
 class Embedding(nn.Module):
@@ -128,24 +230,44 @@ class Embedding(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Dense decoder (smollm2 and the other dense GQA/MHA configs)."""
+    """Dense decoders (smollm2 and the other dense GQA/MHA configs) and MoE
+    decoders with MLA attention (deepseek-v2-lite)."""
 
     def __init__(self, cfg, device):
         super().__init__()
-        if cfg.family != "dense" or cfg.attention != "full":
+        if (cfg.family, cfg.attention) not in (("dense", "full"),
+                                               ("moe", "mla")):
             raise NotImplementedError(
-                f"the port builds dense full-attention decoders so far; "
-                f"{cfg.arch_id!r} is family {cfg.family!r} with "
-                f"{cfg.attention!r} attention")
+                f"the port builds dense full-attention decoders and MoE "
+                f"decoders with MLA so far; {cfg.arch_id!r} is family "
+                f"{cfg.family!r} with {cfg.attention!r} attention")
         self.cfg = cfg
+        n_dense = cfg.moe.first_dense_layers if cfg.moe.enabled else 0
         self.embed = Embedding(cfg, device)
         self.final_norm = Norm(cfg, device)
-        self.layers = nn.ModuleList(DenseBlock(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        self.dense0 = nn.ModuleList(
+            Block(cfg, device, d_ff=cfg.moe.dense_d_ff)
+            for _ in range(n_dense))
+        self.layers = nn.ModuleList(
+            Block(cfg, device, use_moe=cfg.moe.enabled)
+            for _ in range(cfg.n_layers - n_dense))
+        self.cache_names: Tuple[str, str] = (
+            ("ckv", "krope") if cfg.attention == "mla" else ("k", "v"))
+        if cfg.moe.enabled or cfg.attention == "mla":
+            self.prefill_shared = None
 
     @property
     def device(self) -> torch.device:
         return self.embed.tok.device
+
+    @property
+    def blocks(self) -> List[Block]:
+        """Every block in the order it runs (``dense0`` first); block i
+        owns layer i of the cache."""
+        return list(self.dense0) + list(self.layers)
+
+    def _kv(self, cache: Cache, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        return tuple(cache[n][i] for n in self.cache_names)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return unembed(self.embed.tok, x, self.cfg, self.embed.unembed)
@@ -156,43 +278,46 @@ class Transformer(nn.Module):
         keys as the reference's ``batch["lengths"]`` does."""
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        for blk in self.layers:
+        for blk in self.blocks:
             x, _ = blk.prefill(x, positions=positions, kv_len=lengths)
         return self._logits(self.final_norm(x))
 
     def init_cache(self, batch: int, cache_len: int,
                    dtype: Optional[torch.dtype] = None) -> Cache:
-        """Zeroed KV cache {"k", "v"} of shape (L, batch, cache_len, Hkv,
-        D) in ``dtype`` (default: the compute dtype)."""
+        """Zeroed cache in ``dtype`` (default: the compute dtype): {"k",
+        "v"} of shape (L, batch, cache_len, Hkv, D), or for MLA {"ckv":
+        (L, batch, cache_len, R), "krope": (L, batch, cache_len, dr)}."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
+        lead = (cfg.n_layers, batch, cache_len)
+        if cfg.attention == "mla":
+            tails = ((cfg.mla.kv_lora_rank,), (cfg.mla.qk_rope_head_dim,))
+        else:
+            tails = ((cfg.n_kv_heads, cfg.resolved_head_dim),) * 2
         dtype = dtype or cdt(cfg)
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        return {n: torch.zeros(lead + t, dtype=dtype, device=self.device)
+                for n, t in zip(self.cache_names, tails)}
 
     def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor,
                 cache: Cache, slots: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Prefill right-padded prompts. tokens (B,S); lengths (B,) valid
-        counts. Each layer's K/V for positions [0, S) is written in place:
-        into the slot cache, row i into cache row ``slots[i]`` for i <
-        len(slots) (rows past it are padding and write nothing), or into
-        row i when ``slots`` is None; or, with ``page_table`` (B, n), into
-        the paged pool through row i's table (padding rows' tables are all
-        TRASH). Returns the logits at position ``lengths - 1``, (B, V_pad).
-        """
+        counts. Each layer's cache leaves for positions [0, S) are written
+        in place: into the slot cache, row i into cache row ``slots[i]``
+        for i < len(slots) (rows past it are padding and write nothing), or
+        into row i when ``slots`` is None; or, with ``page_table`` (B, n),
+        into the paged pool through row i's table (padding rows' tables are
+        all TRASH). Returns the logits at position ``lengths - 1``,
+        (B, V_pad)."""
         B, S = tokens.shape
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = torch.arange(S, device=tokens.device)
-        for i, blk in enumerate(self.layers):
-            x, (k, v) = blk.prefill(x, positions=positions, kv_len=lengths)
-            if page_table is None:
-                merge_slots(cache["k"][i], k, slots)
-                merge_slots(cache["v"][i], v, slots)
-            else:
-                attn._paged_write_span(cache["k"][i], k, page_table)
-                attn._paged_write_span(cache["v"][i], v, page_table)
+        for i, blk in enumerate(self.blocks):
+            x, kv = blk.prefill(x, positions=positions, kv_len=lengths)
+            for dst, src in zip(self._kv(cache, i), kv):
+                if page_table is None:
+                    merge_slots(dst, src, slots)
+                else:
+                    attn._paged_write_span(dst, src, page_table)
         x = self.final_norm(x)
         last = x[torch.arange(B, device=x.device),
                  torch.clamp(lengths.long() - 1, min=0)]
@@ -213,7 +338,7 @@ class Transformer(nn.Module):
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = starts.long()[:, None] + torch.arange(
             Tb, device=tokens.device)[None, :]
-        for i, blk in enumerate(self.layers):
+        for i, blk in enumerate(self.blocks):
             x, (k, v) = blk.prefill_shared(
                 x, positions=positions, starts=starts, kv_len=lengths,
                 view_k=attn._paged_gather(cache["k"][i], page_table),
@@ -232,9 +357,9 @@ class Transformer(nn.Module):
         cache is written in place at ``min(lengths, S-1)`` for rows where
         ``active`` (default: all rows). Returns logits (B, V_pad)."""
         x = embed(self.embed.tok, tokens, self.cfg)
-        for i, blk in enumerate(self.layers):
-            x = blk.decode(x, lengths=lengths, cache_k=cache["k"][i],
-                           cache_v=cache["v"][i], active=active)
+        for i, blk in enumerate(self.blocks):
+            x = blk.decode(x, lengths=lengths, kv=self._kv(cache, i),
+                           active=active)
         return self._logits(self.final_norm(x))[:, 0]
 
     def decode_paged(self, tokens: torch.Tensor, lengths: torch.Tensor,
@@ -245,8 +370,7 @@ class Transformer(nn.Module):
         one table every layer shares, for rows where ``active`` (inactive
         rows write into TRASH). Returns logits (B, V_pad)."""
         x = embed(self.embed.tok, tokens, self.cfg)
-        for i, blk in enumerate(self.layers):
-            x = blk.decode_paged(x, lengths=lengths, k_pages=cache["k"][i],
-                                 v_pages=cache["v"][i],
+        for i, blk in enumerate(self.blocks):
+            x = blk.decode_paged(x, lengths=lengths, kv=self._kv(cache, i),
                                  page_table=page_table, active=active)
         return self._logits(self.final_norm(x))[:, 0]

@@ -195,19 +195,26 @@ class InferenceEngine:
         else:
             self.cache = model.init_cache(slots, cache_len, cache_dtype)
             self.page_table = None
-        self._cache_dtype = self.cache["k"].dtype
+        self._cache_dtype = next(iter(self.cache.values())).dtype
 
         # ---- prefix sharing: a request, resolved on the paged path only.
-        # The shared prefix K/V must be bitwise what a whole prefill would
-        # have written (cache dtype == compute dtype), and the page size
-        # must divide the plain route's 1024-token attention chunk so shared
-        # and whole prefills chunk at the same key positions.
+        # It needs a model whose tail-only prefill is exact (no MoE, no
+        # MLA: see Transformer.prefill_shared); the shared prefix K/V must
+        # be bitwise what a whole prefill would have written (cache dtype
+        # == compute dtype), and the page size must divide the plain
+        # route's 1024-token attention chunk so shared and whole prefills
+        # chunk at the same key positions.
         self._prefix_cache: Optional[paging.PrefixCache] = None
         self.prefix_fallback: Optional[str] = None
         if paged and prefix_sharing:
             if not self._paged:
                 self.prefix_fallback = ("engine is not paged: "
                                         + (self.paged_fallback or ""))
+            elif getattr(model, "prefill_shared", None) is None:
+                self.prefix_fallback = (
+                    "model has no shared-prefix prefill (MoE capacity "
+                    "dropping and MLA recompression are "
+                    "sequence-dependent; SWA does not page)")
             elif self._cache_dtype != cdt(self.cfg):
                 self.prefix_fallback = (
                     "cache dtype differs from the compute dtype — shared "

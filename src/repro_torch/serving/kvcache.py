@@ -1,9 +1,11 @@
 """Slot-cache helpers for continuous batching.
 
-Port of the slot-cache part of ``repro.serving.kvcache``. The port's cache
-has one layout, ``{"k", "v"}`` of shape (L, slots, cache_len, Hkv, D), so
-the batch axis needs no discovery (the reference's ``batch_axes``): helpers
-take one layer's (slots, cache_len, Hkv, D) tensor and work in place.
+Port of the slot-cache part of ``repro.serving.kvcache``. Every leaf of
+the port's cache (``{"k", "v"}`` of shape (L, slots, cache_len, Hkv, D), or
+MLA's ``{"ckv", "krope"}`` of shape (L, slots, cache_len, R | dr)) has the
+slot axis second, so the batch axis needs no discovery (the reference's
+``batch_axes``): helpers take one layer's (slots, cache_len, ...) tensor
+and work in place.
 
 * ``merge_slots`` writes a prefill wave's rows into their slots. The
   reference built a whole (slots, cache_len) wave cache and merged it; the

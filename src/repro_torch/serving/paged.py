@@ -27,10 +27,11 @@ admission needs room.
 
 The host logic (``pages_for``, ``PageAllocator``, ``PrefixCache``) is the
 reference's, copied: the reference module imports JAX. The device helpers
-work on the port's one cache layout, ``{"k", "v"}`` of shape (L, NP+1, P,
-Hkv, D) built by ``Transformer.init_cache(num_pages + 1, page_size)``: the
-page axis sits where the slot cache's slot axis is. Writes are in place
-(the reference returned new arrays).
+work on any dict of pool leaves built by ``Transformer.init_cache(num_pages
++ 1, page_size)`` (``{"k", "v"}`` of shape (L, NP+1, P, Hkv, D), or MLA's
+``{"ckv": (L, NP+1, P, R), "krope": (L, NP+1, P, dr)}``): the page axis
+sits where the slot cache's slot axis is, whatever trails it. Writes are in
+place (the reference returned new arrays).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The port on the card: each hand-written CUDA kernel against its plain
 PyTorch version, and the engines (slot cache, paged pool with prefix
-sharing) with kernels against the same engines without.
+sharing, the reduced DeepSeek on the paged pool) with kernels against the
+same engines without.
 
 Every test here needs an NVIDIA card and skips without one (the kernels
 have no CPU mode). The file imports nothing of JAX, so it also runs where
@@ -19,7 +20,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.serving import InferenceEngine  # noqa: E402
+from repro_torch.serving import InferenceEngine, Request  # noqa: E402
 
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -38,6 +39,15 @@ def cuda():
 def _rand(seed, shape, dev, dtype):
     x = np.random.RandomState(seed).standard_normal(shape).astype(np.float32)
     return torch.from_numpy(x).to(dev, TDT[dtype])
+
+
+def _gemm_tol(dtype, d, exp):
+    """The reference's bound (tests/test_kernels.py:130-131, relative to the
+    depth), capped at TOL[dtype] of the largest plain output: a bf16 output
+    is within a few of its own rounding steps, and a tile of zeros or of
+    another expert's weights is off by the output's whole size."""
+    return min((5e-3 if dtype == "float32" else 1.0) * d ** 0.5,
+               TOL[dtype] * float(exp.float().abs().max()))
 
 
 @pytest.mark.cuda
@@ -204,3 +214,214 @@ def test_cuda_paged_sharing_engine_kernels_match_plain(cuda):
     eng._alloc.check(eng._prefix_cache.pages())
     eng.drop_prefix_cache()
     assert eng._alloc.free_pages == eng.num_pages
+
+
+def _mla_pool(seed, B, npages, num_pages, page, R, Dr, dev, dtype):
+    """Random latent and rope-key pools of num_pages + 1 pages and a table
+    giving each slot npages distinct pages, scattered across the pool."""
+    rng = np.random.RandomState(seed)
+    ckv = _rand(seed + 1, (num_pages + 1, page, R), dev, dtype)
+    kr = _rand(seed + 2, (num_pages + 1, page, Dr), dev, dtype)
+    ids = rng.permutation(num_pages)[:B * npages].reshape(B, npages)
+    return ckv, kr, torch.as_tensor(ids.astype(np.int32), device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page,npages", [(8, 4), (16, 3), (7, 5), (64, 16)])
+@pytest.mark.parametrize("H,R,Dr", [(8, 32, 16), (16, 512, 64), (5, 48, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_mla_decode_matches_plain(cuda, page, npages, H, R, Dr,
+                                             dtype):
+    """The MLA kernel against its plain version: the reference's page sweep
+    at its (H 8, R 32, Dr 16), DeepSeek-V2-Lite's (16, 512, 64) and an odd
+    head count; page-boundary, mid-page, single-token and empty slots."""
+    B = 4
+    ckv, kr, pt = _mla_pool(1, B, npages, 2 * B * npages, page, R, Dr, cuda,
+                            dtype)
+    ql = _rand(0, (B, H, R), cuda, dtype)
+    qr = _rand(3, (B, H, Dr), cuda, dtype)
+    cap = npages * page
+    lengths = torch.tensor([cap, (cap // 2) | 1, 1, 0], dtype=torch.int32,
+                           device=cuda)
+    scale = (R + Dr) ** -0.5
+    before = ops.LAUNCHES["paged_mla_decode"]
+    out = ops.paged_mla_decode(ql, qr, ckv, kr, pt, lengths, scale=scale)
+    assert ops.LAUNCHES["paged_mla_decode"] == before + 1
+    exp = ref.paged_mla_decode_ref(ql, qr, ckv, kr, pt, lengths, scale=scale)
+    assert out.dtype == ql.dtype and out.shape == (B, H, R)
+    assert float((out.float() - exp.float()).abs().max()) < TOL[dtype]
+    assert float(out[3].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_paged_mla_decode_table_slice_and_trash(cuda):
+    """A column slice of a wider table is read through its row stride and
+    a poisoned TRASH page past the live columns is never read."""
+    B, H, R, Dr, page, npages = 3, 8, 64, 16, 16, 6
+    num_pages = 2 * B * npages
+    ckv, kr, pt = _mla_pool(5, B, npages, num_pages, page, R, Dr, cuda,
+                            "float32")
+    ql = _rand(0, (B, H, R), cuda, "float32")
+    qr = _rand(1, (B, H, Dr), cuda, "float32")
+    lengths = torch.tensor([20, 2 * page, 1], dtype=torch.int32, device=cuda)
+    wide = torch.full((B, 2 * npages), num_pages, dtype=torch.int32,
+                      device=cuda)
+    wide[:, :npages] = pt
+    ckv[num_pages] = 1e4
+    kr[num_pages] = 1e4
+    out = ops.paged_mla_decode(ql, qr, ckv, kr, wide[:, :3], lengths,
+                               scale=0.1)
+    exp = ref.paged_mla_decode_ref(ql, qr, ckv, kr, pt[:, :3].contiguous(),
+                                   lengths, scale=0.1)
+    assert float((out - exp).abs().max()) < TOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,f", [(2, 128, 256, 128), (8, 256, 128, 256),
+                                     (4, 70, 1408, 200)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_grouped_gemm_matches_plain(cuda, E, C, d, f, dtype):
+    """The reference's sweep (tests/test_kernels.py:121-131), plus a ragged
+    row count with DeepSeek's expert depth 1408; its tolerance, capped by
+    the output's size."""
+    x = _rand(0, (E, C, d), cuda, dtype)
+    w = _rand(1, (E, d, f), cuda, dtype)
+    before = ops.LAUNCHES["grouped_gemm"]
+    out = ops.grouped_gemm(x, w)
+    assert ops.LAUNCHES["grouped_gemm"] == before + 1
+    exp = ref.grouped_gemm_ref(x, w)
+    assert out.shape == (E, C, f) and out.dtype == x.dtype
+    err = float((out.float() - exp.float()).abs().max())
+    assert err <= _gemm_tol(dtype, d, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts,d,f", [
+    ([3, 0, 1, 0, 70, 2, 0, 130], 2048, 1408),
+    ([1] * 40 + [0] * 20 + [14, 0, 33, 9], 1408, 2048),
+    ([5, 0, 0, 11], 104, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_grouped_gemm_segments_matches_plain(cuda, counts, d, f, dtype):
+    """Rows grouped by expert with empty experts, DeepSeek's depths 2048
+    and 1408, and a depth and width that no tile divides."""
+    E, N = len(counts), sum(counts)
+    x = _rand(0, (N, d), cuda, dtype)
+    w = _rand(1, (E, d, f), cuda, dtype)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    before = ops.LAUNCHES["grouped_gemm_segments"]
+    out = ops.grouped_gemm_segments(x, cnt, w)
+    assert ops.LAUNCHES["grouped_gemm_segments"] == before + 1
+    exp = ref.grouped_gemm_segments_ref(x, cnt, w)
+    err = float((out.float() - exp.float()).abs().max())
+    assert err <= _gemm_tol(dtype, d, exp)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_widths_not_multiple_of_8(cuda):
+    """The MLA decode and the grouped GEMM stage whole 16-byte chunks: the
+    wrappers refuse widths that are not multiples of 8 and unaligned
+    pools instead of launching."""
+    cnt = torch.tensor([2, 1], dtype=torch.int32, device=cuda)
+    w = _rand(1, (2, 100, 40), cuda, "bfloat16")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.grouped_gemm_segments(_rand(0, (3, 100), cuda, "bfloat16"), cnt,
+                                  w)
+    x = _rand(0, (3 * 104 + 1,), cuda, "bfloat16")[1:].view(3, 104)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.grouped_gemm_segments(x, cnt, _rand(1, (2, 104, 40), cuda,
+                                                "bfloat16"))
+    ckv, kr, pt = _mla_pool(1, 2, 2, 4, 8, 20, 6, cuda, "float32")
+    ql = _rand(0, (2, 3, 20), cuda, "float32")
+    qr = _rand(3, (2, 3, 6), cuda, "float32")
+    lengths = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.paged_mla_decode(ql, qr, ckv, kr, pt, lengths, scale=0.1)
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_engine_kernels_match_plain(cuda):
+    """Reduced deepseek-v2-lite in f32 on the paged pool: greedy output
+    with the kernels (MLA decode, grouped GEMM) equals the plain path's
+    and the slot cache's; sharing resolves off."""
+    cfg = get_reduced_config("deepseek-v2-lite-16b", use_kernels=True)
+    model = build_model(cfg, device=cuda, seed=0)
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                        device=cuda, params=dict(model.state_dict()))
+    rng = np.random.RandomState(0)
+    ps = [list(rng.randint(8, cfg.vocab_size, size=rng.randint(3, 30)))
+          for _ in range(9)]
+    kw = dict(device=cuda, slots=4, cache_len=64, prefill_buckets=(16, 32),
+              megastep=4)
+    ops.reset_launches()
+    eng = InferenceEngine(model, paged=True, page_size=8, **kw)
+    with_kernels = eng.generate(ps, 8)
+    assert ops.LAUNCHES["paged_mla_decode"] > 0
+    assert ops.LAUNCHES["grouped_gemm_segments"] > 0
+    assert eng.prefix_fallback.startswith("model has no shared-prefix")
+    assert with_kernels == InferenceEngine(plain, paged=True, page_size=8,
+                                           **kw).generate(ps, 8)
+    assert with_kernels == InferenceEngine(plain, **kw).generate(ps, 8)
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_engine_bf16_kernels_match_plain(cuda):
+    """Reduced deepseek-v2-lite in bf16, so the MoE layer runs the grouped
+    GEMM's tensor-core body: the first-token logits of the paged engine
+    with the kernels against the plain engine's. The MoE layer's input
+    comes from the dense layer and the MLA prefill, which are plain torch
+    in both engines, so both route every token alike and the logits differ
+    only by the bf16 roundings of the expert outputs: held to 2e-2 of the
+    largest plain logit (a few of its rounding steps), which an expert's
+    output dropped or taken from another expert's weights exceeds."""
+    cfg = get_reduced_config("deepseek-v2-lite-16b", use_kernels=True,
+                             param_dtype="bfloat16",
+                             compute_dtype="bfloat16")
+    model = build_model(cfg, device=cuda, seed=0)
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                        device=cuda, params=dict(model.state_dict()))
+    rng = np.random.RandomState(1)
+    ps = [list(rng.randint(8, cfg.vocab_size, size=rng.randint(3, 30)))
+          for _ in range(12)]
+
+    def first(m):
+        eng = InferenceEngine(m, device=cuda, paged=True, page_size=8,
+                              slots=4, cache_len=64, prefill_buckets=(16, 32))
+        reqs = [eng.submit(Request(prompt=p, max_new_tokens=1,
+                                   keep_logits=True)) for p in ps]
+        eng.run_to_completion()
+        return torch.stack([r.first_logits[:cfg.vocab_size] for r in reqs])
+
+    ops.reset_launches()
+    lk = first(model)
+    assert ops.LAUNCHES["grouped_gemm_segments"] > 0
+    lp = first(plain)
+    assert torch.isfinite(lk).all()
+    assert float((lk - lp).abs().max()) <= 2e-2 * float(lp.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_decode_step_makes_no_host_sync(cuda):
+    """A paged decode step of the reduced deepseek-v2-lite with the kernels
+    (the MLA decode; routing, sorted dispatch, the grouped GEMMs and the
+    combine of every MoE layer) keeps every size on the device: the
+    engine's one sync per megastep stays the only one."""
+    cfg = get_reduced_config("deepseek-v2-lite-16b", use_kernels=True)
+    model = build_model(cfg, device=cuda, seed=0)
+    B, P, n = 4, 8, 4
+    cache = model.init_cache(B * n + 1, P)
+    table = torch.arange(B * n, dtype=torch.int32, device=cuda).reshape(B, n)
+    lengths = torch.tensor([0, 5, 17, 31], dtype=torch.int32, device=cuda)
+    tokens = torch.randint(8, cfg.vocab_size, (B, 1), device=cuda)
+    active = torch.tensor([True, True, False, True], device=cuda)
+    model.decode_paged(tokens, lengths, cache, table, active)  # builds
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = model.decode_paged(tokens, lengths, cache, table, active)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(logits).all()
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    assert ops.LAUNCHES["paged_mla_decode"] == cfg.n_layers
+    assert ops.LAUNCHES["grouped_gemm_segments"] == 3 * n_moe

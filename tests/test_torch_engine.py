@@ -579,3 +579,107 @@ def test_sharing_resolution_rules(smol):
     short = InferenceEngine(model, device="cpu", slots=2, cache_len=8,
                             paged=True)
     assert not short._paged and short.paged_fallback
+
+
+# ------------------------------------------------ DeepSeek: MLA + MoE -----
+@pytest.fixture(scope="module")
+def ds():
+    """Reduced deepseek-v2-lite-16b (f32): the reference's model and
+    params, and the port's model with the same weights, plain and with
+    use_kernels (on the CPU: the kernels' plain versions)."""
+    import dataclasses
+    jcfg = jax_config("deepseek-v2-lite-16b")
+    jmodel = jax_build(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(1))
+    tcfg = get_reduced_config("deepseek-v2-lite-16b")
+    plain = build_model(tcfg, device="cpu", params=from_jax_params(
+        jax.device_get(params), tcfg, "cpu"))
+    kern = build_model(dataclasses.replace(tcfg, use_kernels=True),
+                       device="cpu", params=dict(plain.state_dict()))
+    return jmodel, params, plain, kern
+
+
+PAGED = dict(paged=True, page_size=8, prefix_sharing=False)
+
+
+@pytest.fixture(scope="module")
+def ds_jax_paged(ds):
+    jmodel, params, _, _ = ds
+    e = JaxEngine(jmodel, params, **ENGINE, megastep=4, **PAGED)
+    return e.generate(prompts(9), max_new_tokens=8)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("kernels", [False, True])
+def test_deepseek_paged_greedy_matches_reference_engine(ds, ds_jax_paged, K,
+                                                        kernels):
+    model = ds[3] if kernels else ds[2]
+    eng = engine(model, megastep=K, **PAGED)
+    assert eng.stats.decode_path == "paged"
+    assert eng.generate(prompts(9), max_new_tokens=8) == ds_jax_paged
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_deepseek_paged_equals_slot_cache(ds, kernels):
+    """Port copy of test_serving.py::test_paged_mla_greedy_parity: the
+    paged latent pool gives the slot cache's greedy output; on the plain
+    route bit for bit, first-token logits included."""
+    model = ds[3] if kernels else ds[2]
+    ps = prompts(5, seed=3)
+    kw = dict(slots=3, cache_len=32, prefill_buckets=(16,), megastep=4)
+
+    def run(**extra):
+        eng = InferenceEngine(model, device="cpu", **kw, **extra)
+        reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=5,
+                                   keep_logits=True)) for p in ps]
+        eng.run_to_completion()
+        return eng, reqs
+
+    slot, sr = run()
+    pg, pr = run(paged=True, page_size=8)
+    assert pg._paged and pg.stats.decode_path == "paged"
+    assert [r.generated for r in sr] == [r.generated for r in pr]
+    if not kernels:
+        for a, b in zip(sr, pr):
+            assert torch.equal(a.first_logits, b.first_logits)
+    assert pg._alloc.free_pages == pg.num_pages
+
+
+def test_deepseek_prefix_sharing_resolves_off_with_reason(ds):
+    model = ds[2]
+    eng = engine(model, paged=True, page_size=8)        # sharing requested
+    assert eng._paged and eng._prefix_cache is None
+    assert eng.prefix_fallback == (
+        "model has no shared-prefix prefill (MoE capacity dropping and MLA "
+        "recompression are sequence-dependent; SWA does not page)")
+    assert eng.snapshot()["prefix_fallback"] == eng.prefix_fallback
+    prefix = prompts(1, seed=4)[0] * 3
+    ps = [prefix + p for p in prompts(4, seed=5)]
+    assert eng.generate(ps, max_new_tokens=4) == engine(
+        model, **PAGED).generate(ps, max_new_tokens=4)
+    assert eng.stats.prefix_hits == 0
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_deepseek_offload_restore_continue_bit_identical(ds, paged):
+    """A DeepSeek context demoted in the middle of a stream (requests
+    decoding and queued) and restored continues bit for bit: its MLA
+    latents (or live latent pages), the MoE weights and the RNG."""
+    model = ds[3]
+    kw = dict(megastep=4, **(PAGED if paged else {}))
+    ps = prompts(7, seed=11)
+    ref = engine(model, **kw).generate(ps, max_new_tokens=9)
+    eng = engine(model, **kw)
+    reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=9))
+            for p in ps]
+    eng.step()
+    assert eng.active and eng.queue, "nothing in flight — test is vacuous"
+    params_before = {n: p.clone() for n, p in model.named_parameters()}
+    host = eng.offload_device_state()
+    assert set(host["cache"]) == {"ckv", "krope"}
+    assert all(p.numel() == 0 for p in model.parameters())
+    eng.restore_device_state(host)
+    for n, p in model.named_parameters():
+        assert torch.equal(p, params_before[n])
+    eng.run_to_completion()
+    assert [r.generated for r in reqs] == ref

@@ -4,9 +4,11 @@ reference its Pallas kernels in interpret mode. Same shape and dtype sweeps
 and tolerances as tests/test_kernels.py, plus the port's extensions
 (per-row kv_len, GQA by head index) against the reference's blockwise
 attention, per-row query offsets against the reference's blockwise
-attention with a (B,) q_offset, and the paged decode against the
-reference's paged kernel. The CUDA kernels themselves are held against the
-plain versions on the card in tests/test_torch_cuda.py."""
+attention with a (B,) q_offset, the paged decode and the paged MLA decode
+against the reference's paged kernels, the grouped expert GEMM against the
+reference's, and the grouped GEMM over rows sorted by expert against
+per-expert einsum. The CUDA kernels themselves are held against the plain
+versions on the card in tests/test_torch_cuda.py."""
 
 import pytest
 
@@ -213,28 +215,164 @@ def test_q_offset_rows_match_reference_blockwise(H, Hkv, kernel):
     assert _err(exp, out) < TOL["float32"]
 
 
+@pytest.mark.parametrize("page,npages", [(8, 4), (16, 3), (7, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_mla_decode_matches_reference(page, npages, dtype):
+    """tests/test_kernels.py's MLA sweep: the port's paged MLA decode
+    against the reference's Pallas kernel in interpret mode."""
+    B, H, R, Dr = 3, 8, 32, 16
+    num_pages = 2 * B * npages
+    cj, ct = _both(7, (num_pages + 1, page, R), dtype)
+    kj, kt = _both(8, (num_pages + 1, page, Dr), dtype)
+    pt = np.random.RandomState(7).permutation(num_pages)[:B * npages]
+    pt = pt.reshape(B, npages).astype(np.int32)
+    qlj, qlt = _both(0, (B, H, R), dtype)
+    qrj, qrt = _both(1, (B, H, Dr), dtype)
+    cap = npages * page
+    lengths = np.array([cap, (cap // 2) | 1, 1][:B], np.int32)
+    scale = (R + Dr) ** -0.5
+    exp = jops.paged_mla_decode(qlj, qrj, cj, kj, jnp.asarray(pt),
+                                jnp.asarray(lengths), scale=scale)
+    out = ops.paged_mla_decode(qlt, qrt, ct, kt, torch.from_numpy(pt),
+                               torch.from_numpy(lengths), scale=scale)
+    assert out.dtype == TDT[dtype] and out.shape == (B, H, R)
+    assert _err(exp, out) < TOL[dtype]
+
+
+@pytest.mark.parametrize("B,H,max_keys", [
+    (16, 16, 1024), (4, 16, 35), (3, 16, 1024), (1, 5, 56), (64, 16, 64),
+    (16, 16, 16 * 2048)])
+def test_mla_key_splits_cover_the_table(B, H, max_keys):
+    """The MLA kernel's key ranges: whole 32-key tiles, at most 64, every
+    range starting inside the table, together covering it; about four
+    (slot, head pair, range) blocks an SM where the table has the tiles."""
+    from repro_torch.kernels.decode_attention import mla_splits
+    splits, keys = mla_splits(B, H, max_keys, 132)
+    assert keys % 32 == 0 and 1 <= splits <= 64
+    assert (splits - 1) * keys < max_keys <= splits * keys
+    tiles = -(-max_keys // 32)
+    blocks = B * -(-H // 2) * splits
+    assert blocks >= min(4 * 132, B * -(-H // 2) * min(tiles, 64)) // 2
+
+
+def test_paged_mla_decode_inactive_slot_and_trash_poison():
+    """A slot of length 0 gets exact zeros (the reference kernel: finite);
+    columns past a slot's live pages that name a poisoned TRASH page change
+    nothing."""
+    B, H, R, Dr, page, npages = 2, 4, 32, 16, 8, 4
+    num_pages = 2 * B * npages
+    cj, ct = _both(9, (num_pages + 1, page, R), "float32")
+    kj, kt = _both(10, (num_pages + 1, page, Dr), "float32")
+    pt = np.random.RandomState(9).permutation(num_pages)[:B * npages]
+    pt = pt.reshape(B, npages).astype(np.int32)
+    qlj, qlt = _both(0, (B, H, R), "float32")
+    qrj, qrt = _both(1, (B, H, Dr), "float32")
+    scale = (R + Dr) ** -0.5
+    lengths = np.array([9, 0], np.int32)
+    exp = jops.paged_mla_decode(qlj, qrj, cj, kj, jnp.asarray(pt),
+                                jnp.asarray(lengths), scale=scale)
+    assert bool(jnp.all(jnp.isfinite(exp)))
+    out = ops.paged_mla_decode(qlt, qrt, ct, kt, torch.from_numpy(pt),
+                               torch.from_numpy(lengths), scale=scale)
+    assert _err(exp[:1], out[:1]) < TOL["float32"]
+    assert float(out[1].abs().max()) == 0.0
+    lengths = np.array([11, 2 * page], np.int32)      # 2 live pages each
+    pt_trash = pt.copy()
+    pt_trash[:, 2:] = num_pages
+    ct_p, kt_p = ct.clone(), kt.clone()
+    ct_p[num_pages] = 1e4
+    kt_p[num_pages] = 1e4
+    exp = jops.paged_mla_decode(qlj, qrj, cj, kj, jnp.asarray(pt),
+                                jnp.asarray(lengths), scale=scale)
+    out = ops.paged_mla_decode(qlt, qrt, ct_p, kt_p,
+                               torch.from_numpy(pt_trash),
+                               torch.from_numpy(lengths), scale=scale)
+    assert _err(exp, out) < TOL["float32"]
+
+
+@pytest.mark.parametrize("E,C,d,f", [(2, 128, 256, 128), (8, 256, 128, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_gemm_matches_reference(E, C, d, f, dtype):
+    """tests/test_kernels.py's grouped GEMM sweep and tolerance, against the
+    reference's Pallas kernel in interpret mode."""
+    xj, xt = _both(0, (E, C, d), dtype)
+    wj, wt = _both(1, (E, d, f), dtype)
+    exp = jops.grouped_gemm(xj, wj)
+    out = ops.grouped_gemm(xt, wt)
+    assert out.dtype == TDT[dtype] and out.shape == (E, C, f)
+    assert _err(exp, out) < (5e-3 if dtype == "float32" else 1.0) * d ** 0.5
+
+
+@pytest.mark.parametrize("counts,d,f", [
+    ([3, 0, 1, 0, 7, 2, 0, 5], 64, 48),
+    ([2, 0, 0, 4], 1408, 32),
+    ([0, 5, 0], 48, 1408)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_gemm_segments_matches_einsum(counts, d, f, dtype):
+    """Rows grouped by expert, empty experts included, DeepSeek's expert
+    depth 1408 as contraction and as width: each expert's segment is its
+    rows times its weights, as the reference's per-expert einsum computes
+    it; the uniform-segment case is ops.grouped_gemm."""
+    E, N = len(counts), sum(counts)
+    xj, xt = _both(2, (N, d), dtype)
+    wj, wt = _both(3, (E, d, f), dtype)
+    out = ops.grouped_gemm_segments(xt, torch.tensor(counts,
+                                                     dtype=torch.int32), wt)
+    assert out.shape == (N, f) and out.dtype == TDT[dtype]
+    lo = 0
+    tol = (5e-3 if dtype == "float32" else 1.0) * d ** 0.5
+    for e, n in enumerate(counts):
+        exp = jnp.einsum("cd,df->cf", xj[lo:lo + n].astype(jnp.float32),
+                         wj[e].astype(jnp.float32)).astype(JDT[dtype])
+        if n:
+            assert _err(exp, out[lo:lo + n]) < tol
+        lo += n
+    xu = xt[:4 * 3].reshape(4, 3, d) if N >= 12 else None
+    if xu is not None and E >= 4:
+        uni = ops.grouped_gemm(xu, wt[:4])
+        seg = ops.grouped_gemm_segments(
+            xu.reshape(12, d), torch.full((4,), 3, dtype=torch.int32),
+            wt[:4])
+        assert torch.equal(uni.reshape(12, f), seg)
+
+
 def test_cpu_tensors_launch_no_kernel():
     before = dict(ops.LAUNCHES)
     q = torch.randn(1, 8, 2, 64)
+    one = torch.tensor([3], dtype=torch.int32)
+    table = torch.tensor([[0]], dtype=torch.int32)
     ops.flash_attention(q, q, q, scale=0.125)
-    ops.flash_decode(q[:, 0], q, q, torch.tensor([3], dtype=torch.int32))
-    ops.paged_flash_decode(q[:, 0], q, q,
-                           torch.tensor([[0]], dtype=torch.int32),
-                           torch.tensor([3], dtype=torch.int32))
+    ops.flash_decode(q[:, 0], q, q, one)
+    ops.paged_flash_decode(q[:, 0], q, q, table, one)
+    ops.paged_mla_decode(q[:, 0], q[:, 0, :, :8], q[0], q[0, :, :, :8],
+                         table, one)
+    w = torch.randn(8, 64, 16)
+    ops.grouped_gemm(q[0], w)
+    ops.grouped_gemm_segments(q[0, :, 0], torch.full((8,), 1,
+                                                     dtype=torch.int32), w)
     assert ops.LAUNCHES == before
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.decode_attention import (flash_decode_cuda,
-                                                      paged_flash_decode_cuda)
+                                                      paged_flash_decode_cuda,
+                                                      paged_mla_decode_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.moe_gemm import (grouped_gemm_cuda,
+                                              grouped_gemm_segments_cuda)
     q = torch.randn(1, 8, 2, 64)
     one = torch.tensor([3], dtype=torch.int32)
+    table = torch.tensor([[0]], dtype=torch.int32)
     with pytest.raises(ValueError):
         flash_attention_cuda(q, q, q, causal=True, window=0, scale=1.0)
     with pytest.raises(ValueError):
         flash_decode_cuda(q[:, 0], q, q, one, scale=1.0)
     with pytest.raises(ValueError):
-        paged_flash_decode_cuda(q[:, 0], q, q,
-                                torch.tensor([[0]], dtype=torch.int32), one,
-                                scale=1.0)
+        paged_flash_decode_cuda(q[:, 0], q, q, table, one, scale=1.0)
+    with pytest.raises(ValueError):
+        paged_mla_decode_cuda(q[:, 0], q[:, 0, :, :8], q[0], q[0, :, :, :8],
+                              table, one, scale=1.0)
+    with pytest.raises(ValueError):
+        grouped_gemm_cuda(q[0], q[0].transpose(1, 2))
+    with pytest.raises(ValueError):
+        grouped_gemm_segments_cuda(q[0, 0], one, q[0].transpose(1, 2))

@@ -319,3 +319,159 @@ def test_config_copy_matches_reference():
                        get_reduced_config("smollm2-1.7b"))):
         assert dataclasses.asdict(full) == dataclasses.asdict(red)
         assert full.key() == red.key()
+
+
+# ------------------------------------------------ DeepSeek: MLA + MoE -----
+DS = "deepseek-v2-lite-16b"
+
+
+@pytest.fixture(scope="module")
+def ds_side():
+    cfg = jax_config(DS)
+    params = jax_build(cfg).init(jax.random.PRNGKey(1))
+    return cfg, params, jax.device_get(params)
+
+
+def _ds_pair(ds_side, use_kernels):
+    jcfg, params, params_np = ds_side
+    tcfg = get_reduced_config(DS, use_kernels=use_kernels)
+    tmodel = build_model(tcfg, device="cpu",
+                         params=from_jax_params(params_np, tcfg, "cpu"))
+    return jax_build(jcfg), params, tmodel
+
+
+def _to_port(jcache):
+    """The reference's {"dense0": [(ckv, kr)], "layers": (ckv, kr)} as the
+    port's {"ckv", "krope"} stacked over all layers in run order."""
+    return {name: torch.from_numpy(np.concatenate(
+        [np.asarray(jcache["dense0"][0][j])[None],
+         np.asarray(jcache["layers"][j])]).copy())
+        for j, name in enumerate(("ckv", "krope"))}
+
+
+def test_deepseek_weight_bridge_layouts(ds_side):
+    _, _, params_np = ds_side
+    tcfg = get_reduced_config(DS)
+    state = from_jax_params(params_np, tcfg, "cpu")
+    model = build_model(tcfg, device="cpu", params=state)
+    assert set(state) == set(model.state_dict())
+    np.testing.assert_array_equal(state["dense0.0.mlp.up"].numpy(),
+                                  params_np["dense0"][0]["mlp"]["up"])
+    assert state["dense0.0.mlp.up"].shape == (tcfg.d_model,
+                                              tcfg.moe.dense_d_ff)
+    for i in range(tcfg.n_layers - 1):
+        np.testing.assert_array_equal(
+            state[f"layers.{i}.moe.experts.down"].numpy(),
+            params_np["layers"]["moe"]["experts"]["down"][i])
+        np.testing.assert_array_equal(
+            state[f"layers.{i}.attn.w_uk"].numpy(),
+            params_np["layers"]["attn"]["w_uk"][i])
+    e = tcfg.moe
+    assert state["layers.0.moe.shared.up"].shape == (
+        tcfg.d_model, e.shared_d_ff * e.n_shared_experts)
+    own = init_params(tcfg, torch.Generator().manual_seed(0),
+                      torch.device("cpu"))
+    assert {k: v.shape for k, v in own.items()} == \
+        {k: v.shape for k, v in state.items()}
+    assert model.prefill_shared is None
+    assert len(model.blocks) == tcfg.n_layers
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_deepseek_forward_matches_reference(ds_side, use_kernels):
+    jm, params, tm = _ds_pair(ds_side, use_kernels)
+    toks = _toks(2, 14, tm.cfg.vocab_size, seed=6)
+    lengths = np.array([14, 9], np.int32)
+    exp, _ = jm.forward(params, {"tokens": jnp.asarray(toks),
+                                 "lengths": jnp.asarray(lengths)})
+    out = tm.forward(torch.from_numpy(toks), torch.from_numpy(lengths))
+    assert out.shape == (2, 14, tm.cfg.padded_vocab)
+    assert _err(np.asarray(exp)[0], out[0]) < TOL
+    assert _err(np.asarray(exp)[1, :9], out[1, :9]) < TOL
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_deepseek_prefill_and_decode_match_reference(ds_side, use_kernels):
+    """Slot-cache prefill (latents written at every valid position) and
+    one decode step."""
+    jm, params, tm = _ds_pair(ds_side, use_kernels)
+    B, S, cache_len = 2, 16, 32
+    toks = _toks(B, S, tm.cfg.vocab_size, seed=7)
+    lengths = np.array([11, 16], np.int32)
+    jcache = jm.init_cache(B, cache_len, jnp.float32)
+    exp, jcache = jm.prefill(params, jnp.asarray(toks), jnp.asarray(lengths),
+                             jcache)
+    tcache = tm.init_cache(B, cache_len, torch.float32)
+    assert set(tcache) == {"ckv", "krope"}
+    out = tm.prefill(torch.from_numpy(toks), torch.from_numpy(lengths),
+                     tcache)
+    assert _err(exp, out) < TOL
+    want = _to_port(jcache)
+    for name in ("ckv", "krope"):
+        for b, n in enumerate(lengths):
+            assert _err(want[name][:, b, :n], tcache[name][:, b, :n]) < TOL
+    nxt = np.array([[5], [9]], np.int32)
+    exp, jcache = jm.decode_step(params, jnp.asarray(nxt),
+                                 jnp.asarray(lengths), jcache)
+    out = tm.decode_step(torch.from_numpy(nxt), torch.from_numpy(lengths),
+                         tcache)
+    assert _err(exp, out) < TOL
+    want = _to_port(jcache)
+    for b, n in enumerate(lengths):
+        assert _err(want["ckv"][:, b, n], tcache["ckv"][:, b, n]) < TOL
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_deepseek_paged_prefill_and_decode_match_reference(ds_side,
+                                                           use_kernels):
+    """Prefill through page tables into the paged latent pool, then one
+    paged decode step with an inactive row, against the reference's
+    prefill and decode_paged; the latents land in the tables' pages."""
+    jm, params, tm = _ds_pair(ds_side, use_kernels)
+    NP, P, B, n = 12, 4, 3, 4
+    toks = _toks(B, 12, tm.cfg.vocab_size, seed=8)
+    lengths = np.array([10, 5, 12], np.int32)
+    pt = np.random.RandomState(4).permutation(NP)[:B * n].reshape(
+        B, n).astype(np.int32)
+    jcache = jm.init_cache(B, n * P, jnp.float32)
+    exp, jcache = jm.prefill(params, jnp.asarray(toks), jnp.asarray(lengths),
+                             jcache)
+    pool = tm.init_cache(NP + 1, P, torch.float32)
+    out = tm.prefill(torch.from_numpy(toks), torch.from_numpy(lengths), pool,
+                     page_table=torch.from_numpy(pt))
+    assert _err(exp, out) < TOL
+    view = paged.gather_view(pool, torch.from_numpy(pt))
+    want = _to_port(jcache)
+    for b, ln in enumerate(lengths):
+        assert _err(want["krope"][:, b, :ln], view["krope"][:, b, :ln]) < TOL
+
+    # the reference's pool: the same pages, in its own layout
+    jpool = jm.init_cache(NP + 1, P, jnp.float32)
+    tp = {k: v.numpy() for k, v in pool.items()}
+    jpool = {"dense0": [(jnp.asarray(tp["ckv"][0]),
+                         jnp.asarray(tp["krope"][0]))],
+             "layers": (jnp.asarray(tp["ckv"][1:]),
+                        jnp.asarray(tp["krope"][1:]))}
+    active = np.array([True, False, True])
+    nxt = np.array([[3], [4], [5]], np.int32)
+    before = pool["ckv"].clone()
+    exp, jpool = jm.decode_paged(params, jnp.asarray(nxt),
+                                 jnp.asarray(lengths), jpool,
+                                 jnp.asarray(pt), jnp.asarray(active))
+    out = tm.decode_paged(torch.from_numpy(nxt), torch.from_numpy(lengths),
+                          pool, torch.from_numpy(pt),
+                          torch.from_numpy(active))
+    assert float(np.max(np.abs(np.asarray(exp)[active]
+                               - out.numpy()[active]))) < TOL
+    got = _to_port(jpool)
+    assert _err(got["ckv"][:, :NP], pool["ckv"][:, :NP]) < TOL
+    assert torch.equal(pool["ckv"][:, pt[1]], before[:, pt[1]])
+
+
+def test_deepseek_config_copy_matches_reference():
+    from repro.configs import get_config as jax_get
+    from repro_torch.configs import get_config
+    for full, red in ((jax_get(DS), get_config(DS)),
+                      (jax_config(DS), get_reduced_config(DS))):
+        assert dataclasses.asdict(full) == dataclasses.asdict(red)
+        assert full.key() == red.key()
