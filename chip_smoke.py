@@ -3,11 +3,11 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py [--out report.json]
 
-With --faults it runs phases 1-2 and then only phase 6's comparison, with
-no fault and with each fault of PlantFault planted in the kernel engine at
-run time: the readings behind the routing bounds and DS_LOGIT_TOL. It
-exits 0 when the sound run passes and every fault is caught, and prints no
-ok line.
+With --faults it runs phases 1-2 and then only the comparisons of phases
+6 and 7, with no fault and with each fault of PlantFault planted in the
+kernel engine of its model at run time: the readings behind the routing
+bounds and the logits tolerances. It exits 0 when the sound run passes
+and every fault is caught, and prints no ok line.
 
 Phases (any failure exits non-zero; no phase swallows an exception):
   1. card     - the card's name and power limit, torch and CUDA versions;
@@ -19,9 +19,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 offsets; the paged MLA decode at DeepSeek-V2-Lite's shape
                 and at pages of 7 and 16; the grouped expert GEMM at the
                 reference's sweep and over rows sorted by expert at the
-                decode and prefill dispatches), with times beside the least
-                time the card could take (bound_ms) and a PyTorch library
-                call computing the same function;
+                decode and prefill dispatches; the SSD scan at Zamba2's
+                prefill waves, the reference's sweep and a padded row; the
+                prefill and decode attention at Zamba2's head dim 112),
+                with times beside the least time the card could take
+                (bound_ms) and a PyTorch library call computing the same
+                function where there is one;
   4. serve    - full-width SmolLM2-1.7B (seeded random weights, bf16)
                 with the kernels: (a) fact verification, 4 prompt templates
                 x 64 claims, one token each, and (b) 16 long prompts of
@@ -34,7 +37,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 (c) through use_kernels=False engines over the same
                 weights must agree; (c) must give (b)'s tokens and (d)'s
                 shared run its cold run's (no profiler pass here: the run
-                keeps inside half its time limit with only (f)'s);
+                keeps inside half its time limit with only (h)'s);
   5. pcm      - a context's cold build, its demote to pinned host memory
                 and its restore, after which (b) decodes identically; then
                 the paged sharing engine of (d) demoted (weights and live
@@ -49,9 +52,24 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 the launch counts set to 0 (the paged MLA decode and the
                 grouped GEMM must run), against a use_kernels=False engine
                 over the same weights: greedy agreement, the first-token
-                logits gap and the routing decisions that differed; then
-                torch.profiler over (f). Its demote/restore (31 GB of pinned
-                host memory) is left to the CPU tests.
+                logits gap and the routing decisions that differed. Its
+                demote/restore (31 GB of pinned host memory) is left to the
+                CPU tests;
+  7. zamba2   - full-width Zamba2-7B (81 Mamba2 layers and one shared
+                attention block applied 13 times, 6.79 B parameters,
+                seeded random bf16 weights drawn on the card) on the slot
+                cache with the kernels (a paged request falls back to it):
+                (g) fact verification, 4 templates x 64 claims, one token
+                each, and (h) mix (b)'s 16 long prompts, 64 new tokens each,
+                each with the launch counts set to 0 (the SSD scan in every
+                Mamba2 layer's prefill, the prefill and decode attention at
+                head dim 112 in every application of the shared block),
+                against a use_kernels=False engine over the same weights:
+                the first-token logits gap and greedy agreement, and the
+                same in f32 with the depth cut to 7 layers; then
+                torch.profiler over (h), the run's one profiler pass. Its
+                demote/restore (about 19 GB of pinned host memory) is left
+                to the CPU tests.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -109,9 +127,27 @@ DECODE_ROUTE_DIFF_MAX = 0.015
 # DeepSeek-V2-Lite's tensors: the reference's param_count() (15 706 357 760)
 # plus the 126 464 norm scales it leaves out
 DS_PARAMS = 15_706_484_224
-# one H100 SXM (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor FLOP/s
+# Zamba2-7B's: the reference's param_count() (6 786 849 504) plus the
+# 881 664 norm scales, 601 344 conv biases and 9 072 dt_bias it leaves out
+ZAMBA_PARAMS = 6_788_341_584
+# Zamba2's first-token logits, kernel engine vs plain engine, both bf16,
+# max-abs over every request: the kernel path keeps the SSD scan's y in f32
+# where the plain chunked path rounds it to bf16 (the reference's two paths
+# do the same), in each of 81 layers. Readings (--faults, H100): 1.14 (g)
+# and 1.56 (h) sound; 5.78 (h) with the state not carried from tile to
+# tile, 6.28-6.61 with each step's own input left out.
+ZAMBA_LOGIT_TOL = 3.0
+# the same comparison in f32 at full width, the depth cut to one group and
+# the tail (7 layers), where only the order of f32 sums differs
+ZAMBA_F32_LOGIT_TOL = 2e-3
+# one H100 SXM (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor FLOP/s,
+# f32 FLOP/s outside the tensor cores (the SSD scan's f32 contract)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+# the SSD scan against its plain version, max-abs: the reference's own bound
+# (tests/test_kernels.py::test_ssd_scan_sweep) on outputs of size ~10-100
+SSD_TOL = 2e-3
 
 ENGINE_KW = dict(slots=16, cache_len=1024, prefill_buckets=(32, 128, 512),
                  megastep=8, cache_dtype=torch.bfloat16)
@@ -205,9 +241,9 @@ def decode_bound(B, H, Hkv, D, lengths, elt, page=0):
     return nbytes, flops
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=BF16_FLOPS):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / BF16_FLOPS * 1e3
+    t_f = flops / peak * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
@@ -229,6 +265,15 @@ def gemm_bound(counts, d, f, elt):
     N, used = int(np.sum(counts)), int(np.count_nonzero(counts))
     nbytes = (N * d + used * d * f + N * f) * elt + 4 * len(counts)
     return nbytes, 2.0 * N * d * f
+
+
+def ssd_bound(B, S, H, N, P):
+    """Least bytes and FLOPs of the SSD scan: C, B, v and log_a read and y
+    written once, the final state written once (all f32), and the
+    sequential form's 4 N P FLOPs per (step, head): the state's decay and
+    outer-product update and the output's dot products."""
+    nbytes = 4 * (B * S * H * (2 * N + 2 * P + 1) + B * H * N * P)
+    return nbytes, 4.0 * N * P * B * S * H
 
 
 def check(name, err, dtype, extra="", tol=None):
@@ -472,6 +517,8 @@ def phase_kernels() -> dict:
         check(f"paged_flash_decode P {P} n {n} ({H}/{Hkv} heads) "
               f"{str(dtype)[6:]} lengths {lens}, poisoned TRASH", err, dtype)
     rows.update(phase_kernels_mla_moe())
+    rows.update(phase_kernels_ssd())
+    phase_kernels_d112(rows)
     return rows
 
 
@@ -637,6 +684,192 @@ def phase_kernels_mla_moe() -> dict:
     return rows
 
 
+def phase_kernels_ssd() -> dict:
+    """Phase 3 for the hybrid's SSD scan, on its own generator: Zamba2's
+    prefill waves (16 rows of 512 steps for (h), of 32 for (g): 112 heads,
+    N = P = 64), the reference's sweep shapes (tests/test_kernels.py), and
+    a row padded as Mamba2 pads (dt = 0), whose final state must equal the
+    unpadded row's bit for bit. Times: the kernel, its plain version (the
+    sequential scan) and the port's chunked form (the use_kernels=False
+    path); no single PyTorch call computes a decayed scan, so no library
+    time."""
+    from repro_torch.models.ssm import chunked_linear_attention
+    gen = np.random.RandomState(3)
+
+    def inputs(B, S, H, N, P):
+        la = -torch.nn.functional.softplus(randn(gen, (B, S, H),
+                                                 torch.float32))
+        return (randn(gen, (B, S, H, N), torch.float32),
+                randn(gen, (B, S, H, N), torch.float32),
+                randn(gen, (B, S, H, P), torch.float32), la)
+
+    def plain(C, Bm, v, la):
+        B, S, H, N = C.shape
+        P = v.shape[-1]
+
+        def bhs(t):
+            return t.transpose(1, 2).reshape(B * H, S, t.shape[-1])
+        y, st = ref.ssd_scan_ref(bhs(C), bhs(Bm), bhs(v), bhs(la[..., None]))
+        return y.reshape(B, H, S, P).transpose(1, 2), st.reshape(B, H, N, P)
+
+    cases = {}
+    for label, shape, timed in (
+            ("main (h) wave (16,512,112,64,64)", (16, 512, 112, 64, 64), True),
+            ("(g) wave, one 32-step tile (16,32,112,64,64)",
+             (16, 32, 112, 64, 64), True),
+            ("sweep (1,128,2,16,32)", (1, 128, 2, 16, 32), False),
+            ("sweep (2,256,1,64,64)", (2, 256, 1, 64, 64), False),
+            ("sweep (1,64,4,8,16)", (1, 64, 4, 8, 16), False)):
+        args = inputs(*shape)
+        y, st = ops.ssm_scan(*args)
+        sync()
+        ye, se = plain(*args)
+        if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"ssd_scan {label}: non-finite output")
+        err = max(float((y - ye).abs().max()), float((st - se).abs().max()))
+        check(f"ssd_scan {label} f32 (y and final state)", err,
+              torch.float32, tol=SSD_TOL)
+        nbytes, flops = ssd_bound(*shape)
+        bms, by = bound_ms(nbytes, flops, F32_FLOPS)
+        case = dict(shape=shape, max_abs_err=err, bound_ms=bms, bound_by=by)
+        if timed:
+            case["ms"] = time_ms(lambda: ops.ssm_scan(*args))
+            case["plain_ms"] = time_ms(lambda: plain(*args), iters=2,
+                                       warmup=1)
+            case["chunked_ms"] = time_ms(
+                lambda: chunked_linear_attention(*args, 256), iters=3,
+                warmup=1)
+            log(f"[kernels] ssd_scan {label}: kernel {case['ms']:.4f} ms, "
+                f"plain {case['plain_ms']:.4f} ms, chunked torch (the plain "
+                f"engine's path) {case['chunked_ms']:.4f} ms, bound "
+                f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.2f} GFLOP at {F32_FLOPS / 1e12:.0f} TFLOP/s "
+                f"f32)")
+        cases[label] = case
+        del args, y, st, ye, se
+
+    # right padding as _mamba2_core_inputs makes it: log_a = 0, v = 0
+    C, Bm, v, la = inputs(1, 512, 112, 64, 64)
+    n = 300
+    v[:, n:], la[:, n:] = 0.0, 0.0
+    y, st = ops.ssm_scan(C, Bm, v, la)
+    y0, st0 = ops.ssm_scan(*(t[:, :n].contiguous() for t in (C, Bm, v, la)))
+    sync()
+    same = torch.equal(st, st0) and torch.equal(y[:, :n], y0)
+    log(f"[kernels] ssd_scan padded row (512 steps, {n} valid) vs unpadded: "
+        f"final state and outputs bitwise equal: {same}")
+    if not same:
+        raise AssertionError("ssd_scan: a padded row's final state differs "
+                             "from the unpadded row's")
+    main = cases["main (h) wave (16,512,112,64,64)"]
+    return {"ssd_scan": dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:78",
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by")},
+        library_ms=None, cases=cases)}
+
+
+def phase_kernels_d112(rows) -> None:
+    """Phase 3 for head dim 112, the shape of Zamba2's shared attention
+    block (32 MHA heads of 3584 / 32), on its own generator: the prefill
+    kernel over a (h) wave with ragged kv_len and the decode kernel over a
+    1024-slot cache, in bf16 with times, and both in f32."""
+    gen = np.random.RandomState(4)
+    B, S, H, D, Skv = 16, 512, 32, 112, 1024
+    q = randn(gen, (B, S, H, D), torch.bfloat16)
+    k = randn(gen, (B, S, H, D), torch.bfloat16)
+    v = randn(gen, (B, S, H, D), torch.bfloat16)
+    kv_len = gen.randint(1, S + 1, size=B)
+    kv_len[:2] = (1, S)
+    kl = torch.as_tensor(kv_len.astype(np.int32), device="cuda")
+    kw = dict(causal=True, window=0, scale=D ** -0.5, kv_len=kl)
+    out = ops.flash_attention(q, k, v, **kw)
+    sync()
+    err = check("flash_attention D 112 (16,512,32,112) bf16 causal ragged "
+                "kv_len", float((out.float() - ref.flash_attention_ref(
+                    q, k, v, **kw).float()).abs().max()), torch.bfloat16)
+    pos = torch.arange(S, device="cuda")
+    mask = ((pos[None, :] <= pos[:, None])[None]
+            & (pos[None, None, :] < kl[:, None, None]))[:, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    nbytes, flops = attention_bound(B, S, H, H, D, kv_len, True, 0, 2)
+    bms, by = bound_ms(nbytes, flops)
+    rows["flash_attention"]["d112"] = case = dict(
+        max_abs_err=err, ms=time_ms(lambda: ops.flash_attention(q, k, v,
+                                                                **kw)),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                         iters=3),
+        library_ms=time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=kw["scale"])),
+        bound_ms=bms, bound_by=by)
+    log(f"[kernels] flash_attention D 112: kernel {case['ms']:.4f} ms, plain "
+        f"{case['plain_ms']:.4f} ms, SDPA {case['library_ms']:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+        f"GFLOP)")
+    del q, k, v, out, mask, qt, kt, vt
+
+    q = randn(gen, (B, H, D), torch.bfloat16)
+    ck = randn(gen, (B, Skv, H, D), torch.bfloat16)
+    cv = randn(gen, (B, Skv, H, D), torch.bfloat16)
+    lengths = gen.randint(2, Skv, size=B)
+    lengths[:3] = (0, 1, Skv)
+    ln = torch.as_tensor(lengths.astype(np.int32), device="cuda")
+    dk = dict(scale=D ** -0.5)
+    out = ops.flash_decode(q, ck, cv, ln, **dk)
+    sync()
+    err = check("flash_decode D 112 (16,32,112) Skv 1024 bf16 lengths with "
+                "0/1/1024", float((out.float() - ref.flash_decode_ref(
+                    q, ck, cv, ln, **dk).float()).abs().max()),
+                torch.bfloat16)
+    if float(out[0].abs().max()) != 0.0:
+        raise AssertionError("flash_decode D 112: an empty slot is not zeros")
+    mask = (torch.arange(Skv, device="cuda")[None, :]
+            < ln[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2)
+    nbytes, flops = decode_bound(B, H, H, D, lengths, 2)
+    bms, by = bound_ms(nbytes, flops)
+    rows["flash_decode"]["d112"] = case = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: ops.flash_decode(q, ck, cv, ln, **dk), iters=50),
+        plain_ms=time_ms(lambda: ref.flash_decode_ref(q, ck, cv, ln, **dk)),
+        library_ms=time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=dk["scale"]), iters=50),
+        bound_ms=bms, bound_by=by)
+    log(f"[kernels] flash_decode D 112: kernel {case['ms']:.4f} ms, plain "
+        f"{case['plain_ms']:.4f} ms, SDPA {case['library_ms']:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} "
+        f"GFLOP)")
+    del q, ck, cv, out, mask, qt, kt, vt
+
+    # f32 at D 112: the prefill with GQA and query offsets, the decode with
+    # an active mask
+    q = randn(gen, (3, 40, 8, D), torch.float32)
+    k = randn(gen, (3, 300, 2, D), torch.float32)
+    v = randn(gen, (3, 300, 2, D), torch.float32)
+    kw = dict(causal=True, window=0, scale=D ** -0.5,
+              kv_len=torch.tensor([30, 117, 290], dtype=torch.int32,
+                                  device="cuda"),
+              q_offset=torch.tensor([0, 77, 250], dtype=torch.int32,
+                                    device="cuda"))
+    check("flash_attention D 112 q_offset GQA (3,40 over 300,8/2,112) f32",
+          float((ops.flash_attention(q, k, v, **kw)
+                 - ref.flash_attention_ref(q, k, v, **kw)).abs().max()),
+          torch.float32)
+    q = randn(gen, (4, 8, D), torch.float32)
+    ck = randn(gen, (4, 256, 2, D), torch.float32)
+    cv = randn(gen, (4, 256, 2, D), torch.float32)
+    ln = torch.tensor([100, 7, 200, 256], dtype=torch.int32, device="cuda")
+    dk = dict(scale=D ** -0.5, active=torch.tensor([True, False, True, True],
+                                                   device="cuda"))
+    check("flash_decode D 112 active mask (4,8/2,112) Skv 256 f32",
+          float((ops.flash_decode(q, ck, cv, ln, **dk)
+                 - ref.flash_decode_ref(q, ck, cv, ln, **dk)).abs().max()),
+          torch.float32)
+
+
 # ------------------------------------------------------------ 4. serve ----
 def fact_prompts(vocab: int = 49_152):
     tok = HashTokenizer(vocab)
@@ -724,13 +957,24 @@ def serve_rounds(engine, prompts, max_new, label, size=16):
 def expected_launches(engine, waves, steps):
     """What one path of ``waves`` prefill waves and ``steps`` decode steps
     launches. Dense GQA: each layer launches the prefill kernel once per
-    wave and its engine's decode kernel once per step. DeepSeek (paged):
+    wave and its engine's decode kernel once per step. Zamba2 (slot
+    cache): each Mamba2 layer the SSD scan once per wave (its decode step
+    is torch, as the reference's is XLA), each application of the shared
+    block the prefill kernel once per wave and the decode kernel once per
+    step. DeepSeek (paged):
     each layer the MLA decode kernel once per step (its prefill is torch,
     as the reference's is XLA), each MoE layer the grouped GEMM three
     times (gate, up, down) per wave and per step. Nothing else launches.
     Returns (expected counts, the kernels that must have run)."""
     cfg = engine.cfg
     expect = {name: 0 for name in ops.LAUNCHES}
+    if cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.shared_attn_every
+        expect["ssm_scan"] = cfg.n_layers * waves
+        expect["flash_attention"] = n_attn * waves
+        expect["flash_decode"] = n_attn * steps
+        return expect, ["ssm_scan", "flash_attention"] + (
+            ["flash_decode"] if steps else [])
     if cfg.attention == "mla":
         n_moe = cfg.n_layers - cfg.moe.first_dense_layers
         expect["paged_mla_decode"] = cfg.n_layers * steps
@@ -769,26 +1013,45 @@ def tokens(reqs):
     return [r.generated for r in reqs]
 
 
-def compare(label, kern, plain, vocab):
-    err, checked, agree = 0.0, 0, 0
+def compare_dense(label, kern, plain, vocab, tol, phase="zamba2"):
+    """Kernel engine vs plain engine on one mix of a dense-path model (no
+    routing): the first-token logits gap over every request, held to
+    ``tol``, and the greedy first tokens, which must agree where the plain
+    logits' top-2 margin exceeds it. Returns the readings with a list of
+    failures (empty when sound)."""
+    gap, checked, agree = 0.0, 0, 0
     for rk, rp in zip(kern, plain):
         lk, lp = rk.first_logits[:vocab], rp.first_logits[:vocab]
-        err = max(err, float((lk - lp).abs().max()))
+        gap = max(gap, float((lk - lp).abs().max()))
         top2 = torch.topk(lp, 2).values
-        if float(top2[0] - top2[1]) > LOGIT_TOL:
+        if float(top2[0] - top2[1]) > tol:
             checked += 1
             agree += int(rk.generated[0] == rp.generated[0])
-    same_seq = sum(rk.generated == rp.generated
-                   for rk, rp in zip(kern, plain))
-    log(f"[serve] {label} kernels vs plain: first-token logits max_abs_err "
-        f"{err:.4f} (tol {LOGIT_TOL}); greedy first tokens agree on "
-        f"{agree}/{checked} rows with a top-2 margin above tol; identical "
-        f"sequences {same_seq}/{len(kern)}")
-    if err > LOGIT_TOL:
-        raise AssertionError(f"{label}: logits error {err} > {LOGIT_TOL}")
+    out = dict(requests=len(kern), logits_gap=gap,
+               logits_max=max(float(rp.first_logits[:vocab].abs().max())
+                              for rp in plain),
+               first_tokens_checked=checked, first_tokens_agree=agree,
+               first_tokens_equal=sum(rk.generated[0] == rp.generated[0]
+                                      for rk, rp in zip(kern, plain)),
+               identical_sequences=sum(rk.generated == rp.generated
+                                       for rk, rp in zip(kern, plain)),
+               failures=[])
+    if gap > tol:
+        out["failures"].append(f"logits gap {gap} > {tol}")
     if agree != checked:
-        raise AssertionError(f"{label}: first tokens disagree")
-    return err
+        out["failures"].append("first tokens disagree")
+    log(f"[{phase}] {label} kernels vs plain: {json.dumps(out)} (logits tol "
+        f"{tol})")
+    return out
+
+
+def compare(label, kern, plain, vocab):
+    """``compare_dense`` for SmolLM2's mixes, held to LOGIT_TOL; raises on
+    a failure and returns the logits gap."""
+    out = compare_dense(label, kern, plain, vocab, LOGIT_TOL, phase="serve")
+    if out["failures"]:
+        raise AssertionError(f"{label}: {out['failures']}")
+    return out["logits_gap"]
 
 
 def profile_mix(engine, prompts, max_new, label) -> dict:
@@ -1143,7 +1406,7 @@ def compare_routed(label, kern, plain, log_k, log_p, cfg, slots):
 def phase_deepseek() -> dict:
     """Full-width DeepSeek-V2-Lite-16B on the paged pool: (e) and (f) with
     the kernels, each path's launches checked, against a use_kernels=False
-    engine over the same weights; torch.profiler over (f)."""
+    engine over the same weights."""
     cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
                               use_kernels=True)
     sync()
@@ -1207,8 +1470,108 @@ def phase_deepseek() -> dict:
         if out[f"compare_{mix}"]["failures"]:
             raise AssertionError(f"deepseek ({mix}) kernels vs plain: "
                                  f"{out[f'compare_{mix}']['failures']}")
-    out["profile_f"] = profile_mix(eng, longs, 64, "(f) DeepSeek kernels")
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    free(eng)
+    return out
+
+
+def zamba2_f32_check(label, facts, longs) -> dict:
+    """Zamba2 at full width in f32, the depth cut to one group and the tail
+    (7 layers), the kernel engine against the plain one on 64 of (g)'s
+    prompts (four 32-step waves) and (h)'s 16 (one 512-step wave: eight of
+    the SSD kernel's tiles), one token each: where bf16 rounding is out of
+    the way, the first-token logits agree to the order of f32 sums."""
+    cfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=7,
+                              param_dtype="float32",
+                              compute_dtype="float32", use_kernels=True)
+    model = build_model(cfg, device="cuda", seed=1)
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                        device="cuda", params=dict(model.state_dict()))
+    kw = dict(ENGINE_KW, cache_dtype=torch.float32)
+    reqs = {}
+    for name, m in (("kernels", model), ("plain", plain)):
+        eng = InferenceEngine(m, device="cuda", **kw)
+        reqs[name], _ = serve(eng, facts[:64] + longs, 1,
+                              f"{label} f32 7 layers, {name}")
+        free(eng)
+    return compare_dense(f"{label} f32 7 layers", reqs["kernels"],
+                         reqs["plain"], cfg.vocab_size, ZAMBA_F32_LOGIT_TOL)
+
+
+def phase_zamba2() -> dict:
+    """Full-width Zamba2-7B (81 Mamba2 layers, the shared attention block
+    13 times; seeded random bf16 weights drawn on the card) on the slot
+    cache with the kernels: (g) fact verification, 4 templates x 64
+    claims, one token each (16 waves of the 32 bucket), and (h) mix (b)'s
+    16 long prompts, 64 new tokens each (one 512-bucket wave, then 63
+    decode steps), each with the launch counts set to 0, against a
+    use_kernels=False engine over the same weights, and the two engines
+    again in f32 at 7 layers (``zamba2_f32_check``); torch.profiler over
+    (h), the run's one profiler pass."""
+    cfg = dataclasses.replace(get_config("zamba2-7b"), use_kernels=True)
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.monotonic()
+    model = build_model(cfg, device="cuda", seed=0)
+    sync()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    plain_model = build_model(dataclasses.replace(cfg, use_kernels=False),
+                              device="cuda", params=dict(model.state_dict()))
+    eng = InferenceEngine(model, device="cuda", paged=True, **ENGINE_KW)
+    cache = {n: (tuple(t.shape), str(t.dtype)[6:], t.numel()
+                 * t.element_size()) for n, t in eng.cache.items()}
+    log(f"[zamba2] zamba2-7b full width: {cfg.n_layers} Mamba2 layers (d_in "
+        f"{cfg.ssm.expand * cfg.d_model}, {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} "
+        f"heads of {cfg.ssm.head_dim}, state {cfg.ssm.state_dim}, "
+        f"{cfg.ssm.n_groups} groups), the shared block {eng.model.n_groups} "
+        f"times ({cfg.n_heads} heads of {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}); {n_params} params, {weight_bytes / 1e9:.3f} GB bf16, "
+        f"drawn on the card in {init_s:.2f} s; cache {json.dumps(cache)}; "
+        f"engine {ENGINE_KW}")
+    if n_params != ZAMBA_PARAMS:
+        raise AssertionError(f"zamba2: {n_params} parameters, expected "
+                             f"{ZAMBA_PARAMS}")
+    log(f"[zamba2] paged=True resolves to the slot cache: "
+        f"{eng.paged_fallback}; prefix_fallback: {eng.prefix_fallback}")
+    if eng.stats.decode_path != "full" or eng.paged_fallback is None \
+            or "no paged decode" not in eng.paged_fallback:
+        raise AssertionError("zamba2: a paged request did not keep the slot "
+                             "cache")
+    facts = fact_prompts(cfg.vocab_size)
+    longs = long_prompts(cfg.vocab_size)
+    eng.generate([[2, 5]], max_new_tokens=2)
+    out = {"params": n_params, "weight_bytes": weight_bytes,
+           "init_s": init_s, "cache": cache,
+           "paged_fallback": eng.paged_fallback, "launches": {}}
+    (gk, rates_g), out["launches"]["g"] = run_path(
+        eng, "(g) Zamba2 fact verification",
+        lambda: serve(eng, facts, 1, "(g) Zamba2 fact verification"))
+    (hk, rates_h), out["launches"]["h"] = run_path(
+        eng, "(h) Zamba2 long prompts",
+        lambda: serve(eng, longs, 64, "(h) Zamba2 long prompts"))
+    plain = InferenceEngine(plain_model, device="cuda", **ENGINE_KW)
+    plain.generate([[2, 5]], max_new_tokens=2)
+    gp, rates_g_plain = serve(plain, facts, 1, "(g) plain path")
+    hp, rates_h_plain = serve(plain, longs, 64, "(h) plain path")
+    free(plain)
+    out.update(rates_g=rates_g, rates_h=rates_h, rates_g_plain=rates_g_plain,
+               rates_h_plain=rates_h_plain,
+               compare_g=compare_dense("(g)", gk, gp, cfg.vocab_size,
+                                       ZAMBA_LOGIT_TOL),
+               compare_h=compare_dense("(h)", hk, hp, cfg.vocab_size,
+                                       ZAMBA_LOGIT_TOL))
+    out["compare_f32"] = zamba2_f32_check("(g)+(h)", facts, longs)
+    for mix in ("g", "h", "f32"):
+        if out[f"compare_{mix}"]["failures"]:
+            raise AssertionError(f"zamba2 ({mix}) kernels vs plain: "
+                                 f"{out[f'compare_{mix}']['failures']}")
+    out["profile_h"] = profile_mix(eng, longs, 64, "(h) Zamba2 kernels")
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[zamba2] peak device memory {out['peak_memory_bytes'] / 1e9:.2f} "
+        f"GB")
     free(eng)
     return out
 
@@ -1218,16 +1581,22 @@ class PlantFault:
     stays as it is) while active. ``gemm_drop_expert`` zeroes the grouped
     GEMM's output rows of expert 0, as if that expert's tiles were
     dropped; ``mla_drop_newest`` hands the MLA decode kernel each slot's
-    length less one, so the new token's own key goes unread."""
+    length less one, so the new token's own key goes unread (both
+    DeepSeek's). ``ssd_drop_carry`` runs the SSD scan on each 64-step tile
+    of the sequence on its own, as if the state were not carried from tile
+    to tile; ``ssd_drop_diagonal`` leaves each step's own input out of its
+    output (y_t misses (C_t . B_t) v_t), as a causal mask of t < s would
+    (both Zamba2's)."""
 
-    NAMES = ("gemm_drop_expert", "mla_drop_newest")
+    DEEPSEEK = ("gemm_drop_expert", "mla_drop_newest")
+    ZAMBA2 = ("ssd_drop_carry", "ssd_drop_diagonal")
 
     def __init__(self, name):
         self.name = name
 
     def __enter__(self):
-        self._saved = gemm, mla = (ops.grouped_gemm_segments,
-                                   ops.paged_mla_decode)
+        self._saved = gemm, mla, scan = (ops.grouped_gemm_segments,
+                                         ops.paged_mla_decode, ops.ssm_scan)
         if self.name == "gemm_drop_expert":
             def broken_gemm(x, counts, w):
                 out = gemm(x, counts, w)
@@ -1240,18 +1609,34 @@ class PlantFault:
                 return mla(*head, torch.clamp(lengths - 1, min=0),
                            scale=scale)
             ops.paged_mla_decode = broken_mla
+        elif self.name == "ssd_drop_carry":
+            def broken_scan(C, B, v, log_a, chunk=128):
+                parts = [scan(*(t[:, s0:s0 + 64] for t in (C, B, v, log_a)))
+                         for s0 in range(0, C.shape[1], 64)]
+                return (torch.cat([y for y, _ in parts], dim=1),
+                        parts[-1][1])
+            ops.ssm_scan = broken_scan
+        elif self.name == "ssd_drop_diagonal":
+            def broken_scan(C, B, v, log_a, chunk=128):
+                y, state = scan(C, B, v, log_a)
+                own = (C.float() * B.float()).sum(-1, keepdim=True)
+                return y - own * v.float(), state
+            ops.ssm_scan = broken_scan
         return self
 
     def __exit__(self, *exc):
-        ops.grouped_gemm_segments, ops.paged_mla_decode = self._saved
+        (ops.grouped_gemm_segments, ops.paged_mla_decode,
+         ops.ssm_scan) = self._saved
 
 
 def phase_faults() -> dict:
     """--faults: phase 6's comparison of the kernel engine with the plain
-    engine on (e) and (f), read with no fault and with each PlantFault
-    planted in the kernel engine; every engine is fresh, so each run
-    assigns the slots alike. These readings set the routing bounds and
-    DS_LOGIT_TOL."""
+    engine on (e) and (f), and phase 7's on (g), (h) and in f32, read
+    with no fault and with each PlantFault planted in the kernel engine of
+    its model; every engine is fresh, so each run assigns the slots alike.
+    These readings set the routing bounds, DS_LOGIT_TOL, ZAMBA_LOGIT_TOL
+    and ZAMBA_F32_LOGIT_TOL. Returns {fault: {mix: reading}}."""
+    out = {"none": {}}
     cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
                               use_kernels=True)
     model = build_model(cfg, device="cuda", seed=0)
@@ -1272,16 +1657,50 @@ def phase_faults() -> dict:
         return e, f, log_e, log_f, slots
 
     ep, fp, rp_e, rp_f, _ = run(plain_model, "plain path")
-    out = {}
-    for fault in ("none",) + PlantFault.NAMES:
+    for fault in ("none",) + PlantFault.DEEPSEEK:
         with PlantFault(fault):
             ek, fk, rk_e, rk_f, slots = run(model, f"fault {fault}")
-        out[fault] = dict(
+        out.setdefault(fault, {}).update(
             e=compare_routed(f"(e) fault {fault}", ek, ep, rk_e, rp_e, cfg,
                              slots),
             f=compare_routed(f"(f) fault {fault}", fk, fp, rk_f, rp_f, cfg,
                              slots))
         del rk_e, rk_f
+    del model, plain_model, rp_e, rp_f
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"), use_kernels=True)
+    model = build_model(cfg, device="cuda", seed=0)
+    plain_model = build_model(dataclasses.replace(cfg, use_kernels=False),
+                              device="cuda", params=dict(model.state_dict()))
+    facts = fact_prompts(cfg.vocab_size)
+    longs = long_prompts(cfg.vocab_size)
+
+    def run_z(m, label):
+        eng = InferenceEngine(m, device="cuda", **ENGINE_KW)
+        eng.generate([[2, 5]], max_new_tokens=2)
+        g, _ = serve(eng, facts, 1, f"(g) {label}")
+        h, _ = serve(eng, longs, 64, f"(h) {label}")
+        free(eng)
+        return g, h
+
+    gp, hp = run_z(plain_model, "plain path")
+    for fault in ("none",) + PlantFault.ZAMBA2:
+        with PlantFault(fault):
+            gk, hk = run_z(model, f"fault {fault}")
+        out.setdefault(fault, {}).update(
+            g=compare_dense(f"(g) fault {fault}", gk, gp, cfg.vocab_size,
+                            ZAMBA_LOGIT_TOL),
+            h=compare_dense(f"(h) fault {fault}", hk, hp, cfg.vocab_size,
+                            ZAMBA_LOGIT_TOL))
+    del model, plain_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fault in ("none",) + PlantFault.ZAMBA2:
+        with PlantFault(fault):
+            out[fault]["f32"] = zamba2_f32_check(f"fault {fault}", facts,
+                                                 longs)
     return out
 
 
@@ -1289,10 +1708,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
     ap.add_argument("--faults", action="store_true",
-                    help="instead of the smoke run: read phase 6's "
-                         "comparison with no fault and with each planted "
-                         "fault (PlantFault); exits 0 when the sound run "
-                         "passes and every fault is caught")
+                    help="instead of the smoke run: read the comparisons "
+                         "of phases 6 and 7 with no fault and with each "
+                         "planted fault (PlantFault); exits 0 when the "
+                         "sound run passes and every fault is caught")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1307,7 +1726,7 @@ def main() -> int:
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(report, indent=1))
-        failed = {k: bool(r["e"]["failures"] or r["f"]["failures"])
+        failed = {k: any(m["failures"] for m in r.values())
                   for k, r in readings.items()}
         print(json.dumps({"check_failed": failed}), flush=True)
         caught = not failed.pop("none") and all(failed.values())
@@ -1339,12 +1758,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["deepseek"] = phase_deepseek()
     phase_done("deepseek")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["zamba2"] = phase_zamba2()
+    phase_done("zamba2")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's launches on the main paths, summed over its entry points
-    entries = {"grouped_gemm": ("grouped_gemm", "grouped_gemm_segments")}
-    runs = list(serve_out["launches"].values()) + list(
-        report["deepseek"]["launches"].values())
+    entries = {"grouped_gemm": ("grouped_gemm", "grouped_gemm_segments"),
+               "ssd_scan": ("ssm_scan",)}
+    runs = [run for phase in (serve_out, report["deepseek"],
+                              report["zamba2"])
+            for run in phase["launches"].values()]
     kernels = []
     for name, row in rows.items():
         row = dict(row, launches=sum(run[e] for run in runs
@@ -1353,6 +1778,9 @@ def main() -> int:
     report["kernels"] = kernels
     report["flash_attention_q_offset"] = rows["flash_attention"]["q_offset"]
     report["grouped_gemm_cases"] = rows["grouped_gemm"]["cases"]
+    report["ssd_scan_cases"] = rows["ssd_scan"]["cases"]
+    report["d112"] = {k: rows[k]["d112"]
+                      for k in ("flash_attention", "flash_decode")}
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     if args.out:

@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of the PCM reproduction, beside the JAX package
 ``repro`` (the reference, which this package never imports).
 
-Slice 1: the dense SmolLM2-1.7B, served by the slot-cache
-``serving.InferenceEngine`` with hand-written CUDA prefill-attention and
-flash-decode kernels (``csrc/``), and the engine's context demote/restore
-hooks. See ROADMAP.md for the slices to come.
+It serves the dense SmolLM2-1.7B (slot cache and paged pool with prefix
+sharing), the MLA + MoE DeepSeek-V2-Lite-16B (paged pool) and the Mamba2
+hybrid Zamba2-7B (slot cache) through ``serving.InferenceEngine``, with a
+hand-written CUDA kernel (``csrc/``) for each of the reference's Pallas
+kernels, and the engine's context demote/restore hooks. See ROADMAP.md for
+the slices to come.
 """

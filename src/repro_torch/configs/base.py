@@ -6,8 +6,9 @@ give an equal ``key()`` in both packages, so a config built on either side
 names the same model.
 
 One ``ModelConfig`` describes every architecture family the reference
-knows; the port builds the ``dense`` family and the ``moe`` family with
-MLA attention so far (see ``repro_torch.models.registry``).
+knows; the port builds the ``dense`` family, the ``moe`` family with MLA
+attention and the ``hybrid`` family so far (see
+``repro_torch.models.registry``).
 """
 
 from __future__ import annotations
@@ -127,7 +128,8 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     logit_dtype: str = "float32"
-    use_kernels: bool = False          # route attention through the kernels
+    use_kernels: bool = False          # route attention, MoE and SSD scans
+                                       # through the kernels
     remat: str = "none"                # none|block|full  (training remat policy)
     kv_update: str = "scatter"         # scatter|mask  (decode cache write; see
                                        # EXPERIMENTS.md §Perf — mask avoids a

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``arch id -> ModelConfig``.
 
-The port serves the dense SmolLM2-1.7B and the MLA + MoE
-DeepSeek-V2-Lite-16B so far. The reference's other architectures are known
+The port serves the dense SmolLM2-1.7B, the MLA + MoE
+DeepSeek-V2-Lite-16B and the Mamba2 + shared-attention hybrid Zamba2-7B
+so far. The reference's other architectures are known
 by name and raise, naming the port slice that brings their model family
 (or, for one, why one card cannot hold it).
 """
@@ -11,9 +12,11 @@ from __future__ import annotations
 from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as DEEPSEEK_V2_LITE
 from repro_torch.configs.smollm2_1_7b import CONFIG as SMOLLM2_1_7B
+from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
 
 _CONFIGS = {"smollm2-1.7b": SMOLLM2_1_7B,
-            "deepseek-v2-lite-16b": DEEPSEEK_V2_LITE}
+            "deepseek-v2-lite-16b": DEEPSEEK_V2_LITE,
+            "zamba2-7b": ZAMBA2_7B}
 
 # arch id -> why it is not built yet: the later port slice that brings it
 # (ROADMAP.md, queue 1), or what stands in its way
@@ -26,8 +29,6 @@ _LATER = {
     "whisper-small": "it arrives with the port slice for the audio "
                      "encoder-decoder family",
     "xlstm-350m": "it arrives with the port slice for the SSM/xLSTM family",
-    "zamba2-7b": "it arrives with the port slice for the hybrid Mamba2 "
-                 "family (needs the SSD scan kernel)",
     "llama-3.2-vision-11b": "it arrives with the port slice for the vision "
                             "cross-attention family",
     "qwen3-moe-235b-a22b": "it does not fit one card: 235 B parameters are "

@@ -9,7 +9,8 @@
 // (row pt[b, t / P] * P + t % P), so any page size works and only table
 // columns j < ceil(n / P) are ever read. Keys at or past the slot's length
 // n are never read, and a slot with n == 0 gets exact zeros. f32 or bf16,
-// D 16, 32, 64 or 128, f32 softmax and accumulator; 64-bit offsets.
+// D 16, 32, 64, 112 (Zamba2's shared block) or 128, f32 softmax and
+// accumulator; 64-bit offsets.
 //
 // Grid (B, Hkv): one block per slot and KV head; the G = H / Hkv query
 // heads that share the KV head are handled together, so each K/V row is
@@ -219,7 +220,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, Rows rows,
 }
 
 // Checks the head counts, then dispatches on dtype and head_dim (a template
-// argument: 16, 32, 64 or 128). Returns the CUDA error code of the launch.
+// argument: 16, 32, 64, 112 or 128). Returns the CUDA error code of the
+// launch.
 template <typename Rows>
 int launch_any(const void* q, const void* k, const void* v, Rows rows,
                const int* lengths, const unsigned char* active, void* out,
@@ -239,6 +241,7 @@ int launch_any(const void* q, const void* k, const void* v, Rows rows,
       REPRO_DECODE_CASE(__nv_bfloat16, 16)
       REPRO_DECODE_CASE(__nv_bfloat16, 32)
       REPRO_DECODE_CASE(__nv_bfloat16, 64)
+      REPRO_DECODE_CASE(__nv_bfloat16, 112)
       REPRO_DECODE_CASE(__nv_bfloat16, 128)
       default:
         return cudaErrorInvalidValue;
@@ -249,6 +252,7 @@ int launch_any(const void* q, const void* k, const void* v, Rows rows,
       REPRO_DECODE_CASE(float, 16)
       REPRO_DECODE_CASE(float, 32)
       REPRO_DECODE_CASE(float, 64)
+      REPRO_DECODE_CASE(float, 112)
       REPRO_DECODE_CASE(float, 128)
       default:
         return cudaErrorInvalidValue;

@@ -14,8 +14,9 @@
 //     narrow K/V are never repeated in memory.
 //
 // Layout: q (B, S, H, D), k and v (B, T, Hkv, D), out (B, S, H, D), all
-// contiguous, in f32 or bf16; D is 16, 32, 64 or 128. Scores, softmax and
-// the output accumulator are f32.
+// contiguous, in f32 or bf16; D is 16, 32, 64, 112 (Zamba2's shared block)
+// or 128, any multiple of 16: each thread owns D / 16 output columns. Scores,
+// softmax and the output accumulator are f32.
 //
 // Grid (ceil(S / 64), B * H): one block owns 64 query rows of one head and
 // walks the KV tiles in a loop (the TPU kernel's sequential grid axis). The
@@ -227,7 +228,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// head_dim is a template argument: 16, 32, 64 or 128
+// head_dim is a template argument: 16, 32, 64, 112 or 128
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const int* kv_len, const int* q_offset, void* out,
@@ -243,6 +244,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, kv_len, q_offset, out, B, S, T_, H, Hkv,
                            causal, window, scale, st);
+    case 112:
+      return launch<T, 112>(q, k, v, kv_len, q_offset, out, B, S, T_, H, Hkv,
+                            causal, window, scale, st);
     case 128:
       return launch<T, 128>(q, k, v, kv_len, q_offset, out, B, S, T_, H, Hkv,
                             causal, window, scale, st);

@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 MAX_GROUP = 16  # query heads per KV head one block handles (kMaxG)
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [

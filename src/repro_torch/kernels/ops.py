@@ -14,7 +14,7 @@ went through the kernels.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -25,12 +25,14 @@ from repro_torch.kernels.decode_attention import (flash_decode_cuda,
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.moe_gemm import (grouped_gemm_cuda,
                                           grouped_gemm_segments_cuda)
+from repro_torch.kernels.ssm_scan import ssd_scan_cuda
 
 # one key per entry point; grouped_gemm and grouped_gemm_segments launch
 # the same kernel (csrc/grouped_gemm.cu)
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0,
                             "paged_flash_decode": 0, "paged_mla_decode": 0,
-                            "grouped_gemm": 0, "grouped_gemm_segments": 0}
+                            "grouped_gemm": 0, "grouped_gemm_segments": 0,
+                            "ssm_scan": 0}
 
 
 def reset_launches() -> None:
@@ -135,6 +137,30 @@ def grouped_gemm_segments(x: torch.Tensor, counts: torch.Tensor,
     return out
 
 
+def ssm_scan(C_mat: torch.Tensor, B_mat: torch.Tensor, v: torch.Tensor,
+             log_a: torch.Tensor, *, chunk: int = 128
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2/SSD entry point, the reference's contract: C_mat (q-like)
+    and B_mat (k-like) (B, S, H, N); v (B, S, H, P); log_a (B, S, H) ->
+    (y (B, S, H, P) f32, final state (B, H, N, P) f32). ``chunk`` is the
+    reference's chunk length; the kernel picks its own tile length, and the
+    plain version scans step by step, so neither reads it."""
+    C_mat, B_mat, v, log_a = (t.float() for t in (C_mat, B_mat, v, log_a))
+    if _on_cpu(C_mat, "ssm_scan"):
+        Bb, S, H, N = C_mat.shape
+        P = v.shape[-1]
+
+        def bhs(t):
+            return t.transpose(1, 2).reshape(Bb * H, S, t.shape[-1])
+        y, state = ref.ssd_scan_ref(bhs(C_mat), bhs(B_mat), bhs(v),
+                                    bhs(log_a[..., None]))
+        return (y.reshape(Bb, H, S, P).transpose(1, 2),
+                state.reshape(Bb, H, N, P))
+    out = ssd_scan_cuda(C_mat, B_mat, v, log_a)
+    LAUNCHES["ssm_scan"] += 1
+    return out
+
+
 __all__ = ["flash_attention", "flash_decode", "paged_flash_decode",
            "paged_mla_decode", "grouped_gemm", "grouped_gemm_segments",
-           "LAUNCHES", "reset_launches", "ref"]
+           "ssm_scan", "LAUNCHES", "reset_launches", "ref"]

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
-Port of ``repro.kernels.ref`` for the port's kernels so far, in the
-kernels' public layout, plus ``grouped_gemm_segments_ref``, the plain
+Port of ``repro.kernels.ref`` for the port's kernels, in the kernels'
+public layout (``ssd_scan_ref`` in the reference's (BH, S, .) one), plus ``grouped_gemm_segments_ref``, the plain
 version of the grouped GEMM's entry point over rows sorted by expert. Each
 is what ``repro_torch.kernels.ops`` runs for a tensor on the CPU, and what
 ``chip_smoke.py`` holds the CUDA kernel against on the card. Masked scores use the reference's ``-1e30`` sentinel and get a
@@ -153,3 +153,23 @@ def grouped_gemm_segments_ref(x: torch.Tensor, counts: torch.Tensor,
                 x.dtype)
         lo = hi
     return out
+
+
+def ssd_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_a: torch.Tensor):
+    """Sequential SSD scan: ``state_t = exp(log_a_t) * state_{t-1} + k_t
+    v_t^T`` and ``y_t = q_t . state_t``, one step at a time in f32.
+
+    q, k (BH, S, Dk); v (BH, S, Dv); log_a (BH, S, 1). Returns (y (BH, S,
+    Dv) in q's dtype, final state (BH, Dk, Dv) f32)."""
+    BH, S, Dk = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    a = torch.exp(log_a.float())
+    state = torch.zeros((BH, Dk, v.shape[-1]), dtype=torch.float32,
+                        device=q.device)
+    ys = []
+    for t in range(S):
+        state = state * a[:, t, :, None] + \
+            kf[:, t, :, None] * vf[:, t, None, :]
+        ys.append(torch.einsum("bk,bkv->bv", qf[:, t], state))
+    return torch.stack(ys, dim=1).to(q.dtype), state

@@ -1,7 +1,7 @@
 """Model registry: ``ModelConfig`` -> a built model on a device.
 
-Port of ``repro.models.registry.build_model`` for the dense family and the
-MoE family with MLA attention.
+Port of ``repro.models.registry.build_model`` for the dense family, the
+MoE family with MLA attention and the Mamba2 + shared-attention hybrid.
 """
 
 from __future__ import annotations
@@ -10,26 +10,30 @@ from typing import Optional, Union
 
 import torch
 
+from torch import nn
+
 from repro_torch import device as devices
+from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.transformer import Transformer
 from repro_torch.weights import StateDict, init_params
 
 
 def build_model(cfg, *, device: Union[str, torch.device] = "cuda",
                 params: Optional[StateDict] = None,
-                seed: int = 0) -> Transformer:
+                seed: int = 0) -> nn.Module:
     """Build ``cfg``'s model on ``device`` (the card unless ``"cpu"`` is
     asked for; raises when there is no card). Weights are ``params`` (a
     state dict, e.g. from ``repro_torch.weights.from_jax_params``), whose
     tensors become the parameters without a copy when they already have
     the device and dtype; else the port's own init from ``seed``."""
     dev = devices.resolve(device)
-    if cfg.family not in ("dense", "moe"):
+    families = {"dense": Transformer, "moe": Transformer, "hybrid": Hybrid}
+    if cfg.family not in families:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port builds the "
-            f"dense and MoE families so far")
+            f"dense, MoE and hybrid families so far")
     with torch.device("meta"):
-        model = Transformer(cfg, "meta")
+        model = families[cfg.family](cfg, "meta")
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)

@@ -1,0 +1,282 @@
+"""Mamba2 (SSD) blocks.
+
+Port of the Mamba2 half of ``repro.models.ssm`` (mLSTM and sLSTM arrive
+with the xLSTM slice). Mamba2 is a gated outer-product recurrence
+``state_t = a_t * state_{t-1} + k_t v_t^T`` with a per-(step, head) scalar
+decay ``a = exp(-exp(A_log) * dt)``, ``k = B`` (group-broadcast), ``q =
+C`` and ``v = dt * x`` (ZOH discretization), plus the D skip and a gated
+RMSNorm. Prefill runs the chunked form (``chunked_linear_attention``), or
+with ``cfg.use_kernels`` the SSD scan kernel behind ``ops.ssm_scan``;
+decode is one ``linear_attention_step``.
+
+Parameters live on a ``Mamba2`` module in the reference's layouts (the
+projections split by role: ``w_zx`` (d, 2 d_in), ``w_bcdt`` (d, 2 G N +
+H), depthwise conv weights (K, C) and biases, ``A_log``, ``D`` and
+``dt_bias`` (H,) in f32 whatever the param dtype, the gated norm's scale
+(d_in,), ``out_proj`` (d_in, d)). The per-slot cache of one layer is
+``{"ssm": (B, H, N, P) f32, "conv_x": (B, K-1, d_in), "conv_bc": (B, K-1,
+2 G N)}``; rounding follows the reference step by step.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import cdt, pdt
+from repro_torch.models.transformer import Norm, _param
+
+Cache = Dict[str, torch.Tensor]
+
+# parameters the reference keeps in f32 whatever the param dtype
+F32_LEAVES = ("A_log", "D", "dt_bias")
+
+
+# ---------------------------------------------------------------- core -----
+def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, log_a: torch.Tensor,
+                             chunk: int,
+                             initial_state: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k (B, S, H, Dk); v (B, S, H, Dv); log_a (B, S, H) per-step
+    log-decay. Returns (y (B, S, H, Dv) in q's dtype, final state (B, H,
+    Dk, Dv) f32). Within a chunk of L = min(chunk, S) steps a masked-decay
+    product; between chunks a loop carries the state."""
+    B, S, H, Dk = q.shape
+    Dv = v.shape[-1]
+    L = min(chunk, S)
+    assert S % L == 0, f"seq {S} not divisible by chunk {L}"
+    nc = S // L
+
+    qc = q.reshape(B, nc, L, H, Dk).float()
+    kc = k.reshape(B, nc, L, H, Dk).float()
+    vc = v.reshape(B, nc, L, H, Dv).float()
+    lcum = torch.cumsum(log_a.reshape(B, nc, L, H).float(), dim=2)
+    total = lcum[:, :, -1]                                   # (B, nc, H)
+
+    # intra-chunk: score[s, t] = (q_s . k_t) * exp(lcum_s - lcum_t), t <= s
+    rel = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]    # (B,nc,S,T,H)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=q.device))
+    decay = torch.where(causal[None, None, :, :, None], torch.exp(rel),
+                        torch.zeros((), device=q.device))
+    scores = torch.einsum("bnshk,bnthk->bnsth", qc, kc)
+    y_intra = torch.einsum("bnsth,bnthv->bnshv", scores * decay, vc)
+
+    # chunk summaries and the inter-chunk recurrence
+    w_in = torch.exp(total[:, :, None, :] - lcum)            # (B, nc, L, H)
+    s_chunk = torch.einsum("bnthk,bnth,bnthv->bnhkv", kc, w_in, vc)
+    state = (torch.zeros((B, H, Dk, Dv), dtype=torch.float32,
+                         device=q.device) if initial_state is None
+             else initial_state.float())
+    prev = []
+    for n in range(nc):
+        prev.append(state)                                   # before chunk n
+        state = state * torch.exp(total[:, n])[:, :, None, None] + \
+            s_chunk[:, n]
+    prev_states = torch.stack(prev, dim=1)                   # (B,nc,H,Dk,Dv)
+
+    y_inter = torch.einsum("bnshk,bnsh,bnhkv->bnshv", qc, torch.exp(lcum),
+                           prev_states)
+    y = (y_intra + y_inter).reshape(B, S, H, Dv)
+    return y.to(q.dtype), state
+
+
+def linear_attention_step(state: torch.Tensor, q: torch.Tensor,
+                          k: torch.Tensor, v: torch.Tensor, a: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step. state (B, H, Dk, Dv); q, k (B, H, Dk); v (B, H, Dv);
+    a (B, H). Returns (y (B, H, Dv), new state), in the state's dtype."""
+    dt = state.dtype
+    state = state * a[:, :, None, None].to(dt) + \
+        k.to(dt)[..., :, None] * v.to(dt)[..., None, :]
+    y = torch.einsum("bhk,bhkv->bhv", q.to(dt), state)
+    return y, state
+
+
+# ================================================================= Mamba2 ==
+def mamba2_dims(cfg) -> Tuple[int, int, int]:
+    """(d_in, SSM heads, conv channels)."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    n_heads = d_in // s.head_dim
+    conv_ch = d_in + 2 * s.n_groups * s.state_dim
+    return d_in, n_heads, conv_ch
+
+
+class Mamba2(nn.Module):
+    """One Mamba2 mixer's weights in the reference's ``init_mamba2``
+    shapes (the values come from ``repro_torch.weights``)."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        s, d, dt = cfg.ssm, cfg.d_model, pdt(cfg)
+        d_in, n_heads, _ = mamba2_dims(cfg)
+        bc = 2 * s.n_groups * s.state_dim
+        self.w_zx = _param(d, 2 * d_in, dtype=dt, device=device)
+        self.w_bcdt = _param(d, bc + n_heads, dtype=dt, device=device)
+        self.conv_x_w = _param(s.conv_dim, d_in, dtype=dt, device=device)
+        self.conv_x_b = _param(d_in, dtype=dt, device=device)
+        self.conv_bc_w = _param(s.conv_dim, bc, dtype=dt, device=device)
+        self.conv_bc_b = _param(bc, dtype=dt, device=device)
+        f32 = torch.float32
+        self.A_log = _param(n_heads, dtype=f32, device=device)
+        self.D = _param(n_heads, dtype=f32, device=device)
+        self.dt_bias = _param(n_heads, dtype=f32, device=device)
+        self.norm = Norm(cfg, device, d_in)
+        self.out_proj = _param(d_in, d, dtype=dt, device=device)
+
+
+def _mamba2_split(p: Mamba2, u: torch.Tensor, cfg):
+    """u (B, S, d) -> z, x, bc (pre-conv), dt (pre-softplus)."""
+    s, c = cfg.ssm, cdt(cfg)
+    d_in = mamba2_dims(cfg)[0]
+    bc = 2 * s.n_groups * s.state_dim
+    zx = torch.matmul(u.to(c), p.w_zx.to(c))
+    bcdt = torch.matmul(u.to(c), p.w_bcdt.to(c))
+    return zx[..., :d_in], zx[..., d_in:], bcdt[..., :bc], bcdt[..., bc:]
+
+
+def _ragged_conv_state(x_raw: torch.Tensor, K: int,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """Conv state = the last K-1 *valid* inputs of each ragged row:
+    x_raw (B, S, C), valid (B, S) bool -> (B, K-1, C)."""
+    lengths = valid.to(torch.int64).sum(dim=1)                  # (B,)
+    ext = torch.cat([torch.zeros((x_raw.shape[0], K - 1, x_raw.shape[2]),
+                                 dtype=x_raw.dtype, device=x_raw.device),
+                     x_raw], dim=1)
+    idx = lengths[:, None] + torch.arange(K - 1, device=x_raw.device)
+    return torch.gather(ext, 1, idx[:, :, None].expand(-1, -1,
+                                                       x_raw.shape[2]))
+
+
+def _mamba2_core_inputs(p: Mamba2, xBC: torch.Tensor, dt: torch.Tensor,
+                        cfg, valid: Optional[torch.Tensor] = None):
+    """Post-conv split into the SSD core's operands: x (B, S, H, P), B and
+    C group-broadcast to (B, S, H, N) (heads [g*rep, (g+1)*rep) read group
+    g), v = x * dt (f32) and log_a (B, S, H) f32. ``valid`` (B, S)
+    bool makes padding steps exact state no-ops (dt -> 0: decay 1, zero
+    input)."""
+    s = cfg.ssm
+    d_in, n_heads, _ = mamba2_dims(cfg)
+    B_sz, S = xBC.shape[0], xBC.shape[1]
+    gn = s.n_groups * s.state_dim
+    x = xBC[..., :d_in].reshape(B_sz, S, n_heads, s.head_dim)
+    Bm = xBC[..., d_in:d_in + gn].reshape(B_sz, S, s.n_groups, s.state_dim)
+    Cm = xBC[..., d_in + gn:].reshape(B_sz, S, s.n_groups, s.state_dim)
+    rep = n_heads // s.n_groups
+    Bm = Bm.repeat_interleave(rep, dim=2)
+    Cm = Cm.repeat_interleave(rep, dim=2)
+    dt = F.softplus(dt.float() + p.dt_bias[None, None, :])
+    if valid is not None:
+        dt = dt * valid[:, :, None].to(dt.dtype)
+    log_a = -torch.exp(p.A_log)[None, None, :] * dt
+    v = x.float() * dt[..., None]
+    return x, Bm, Cm, v, log_a
+
+
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv as the reference's K shifted multiply-adds.
+    xBC (B, S, C); w (K, C); state (B, K-1, C) or None. Returns (y (B, S,
+    C), new state (B, K-1, C)); a state of another dtype promotes, as
+    ``jnp.concatenate`` does."""
+    K, S = w.shape[0], xBC.shape[1]
+    if state is None:
+        state = torch.zeros((xBC.shape[0], K - 1, xBC.shape[2]),
+                            dtype=xBC.dtype, device=xBC.device)
+    dt = torch.promote_types(state.dtype, xBC.dtype)
+    ext = torch.cat([state.to(dt), xBC.to(dt)], dim=1)
+    y = sum(ext[:, i:i + S] * w[i][None, None, :] for i in range(K))
+    y = F.silu(y + b[None, None, :])
+    new_state = ext[:, -(K - 1):] if K > 1 else state
+    return y, new_state
+
+
+def _gated_norm(p: Mamba2, y: torch.Tensor, z: torch.Tensor,
+                cfg) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: norm(y * silu(z))."""
+    g = y.float() * F.silu(z.float())
+    return p.norm(g.to(y.dtype))
+
+
+def _finish(p: Mamba2, y: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+            u: torch.Tensor, cfg) -> torch.Tensor:
+    """D skip, gated norm and the out projection: y (B, S, H, P)."""
+    y = y + x.float() * p.D[None, None, :, None]
+    y = y.reshape(u.shape[0], u.shape[1], -1)
+    y = _gated_norm(p, y, z, cfg)
+    c = cdt(cfg)
+    return torch.matmul(y.to(c), p.out_proj.to(c))
+
+
+def mamba2_prefill(p: Mamba2, u: torch.Tensor, cfg,
+                   return_state: bool = False,
+                   valid: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """u (B, S, d) -> (out (B, S, d), the layer's cache or None). With
+    ``valid`` (B, S) the conv state holds each row's last K-1 valid inputs
+    and padding steps leave the SSM state as their row's last valid step
+    left it."""
+    K = p.conv_x_w.shape[0]
+    z, x_raw, bc_raw, dt = _mamba2_split(p, u, cfg)
+    x_c, conv_x_state = _causal_conv(x_raw, p.conv_x_w.to(x_raw.dtype),
+                                     p.conv_x_b.to(x_raw.dtype))
+    bc_c, conv_bc_state = _causal_conv(bc_raw, p.conv_bc_w.to(bc_raw.dtype),
+                                       p.conv_bc_b.to(bc_raw.dtype))
+    if valid is not None:
+        conv_x_state = _ragged_conv_state(x_raw, K, valid)
+        conv_bc_state = _ragged_conv_state(bc_raw, K, valid)
+    xBC = torch.cat([x_c, bc_c], dim=-1)
+    x, Bm, Cm, v, log_a = _mamba2_core_inputs(p, xBC, dt, cfg,
+                                                 valid=valid)
+    if cfg.use_kernels:
+        y, state = kops.ssm_scan(Cm, Bm, v, log_a, chunk=cfg.ssm.chunk)
+    else:
+        y, state = chunked_linear_attention(Cm, Bm, v, log_a, cfg.ssm.chunk)
+    out = _finish(p, y, x, z, u, cfg)
+    cache = ({"ssm": state, "conv_x": conv_x_state,
+              "conv_bc": conv_bc_state} if return_state else None)
+    return out, cache
+
+
+def mamba2_decode(p: Mamba2, u: torch.Tensor, cfg,
+                  cache: Cache) -> Tuple[torch.Tensor, Cache]:
+    """u (B, 1, d); cache {"ssm", "conv_x", "conv_bc"} -> (out (B, 1, d),
+    the new cache)."""
+    z, x_raw, bc_raw, dt = _mamba2_split(p, u, cfg)
+    x_c, conv_x_state = _causal_conv(x_raw, p.conv_x_w.to(x_raw.dtype),
+                                     p.conv_x_b.to(x_raw.dtype),
+                                     state=cache["conv_x"])
+    bc_c, conv_bc_state = _causal_conv(bc_raw, p.conv_bc_w.to(bc_raw.dtype),
+                                       p.conv_bc_b.to(bc_raw.dtype),
+                                       state=cache["conv_bc"])
+    xBC = torch.cat([x_c, bc_c], dim=-1)
+    x, Bm, Cm, v, log_a = _mamba2_core_inputs(p, xBC, dt, cfg)
+    y, state = linear_attention_step(cache["ssm"], Cm[:, 0], Bm[:, 0],
+                                     v[:, 0], torch.exp(log_a[:, 0]))
+    out = _finish(p, y[:, None], x, z, u, cfg)
+    return out, {"ssm": state, "conv_x": conv_x_state,
+                 "conv_bc": conv_bc_state}
+
+
+def mamba2_init_cache(cfg, batch: int, dtype: torch.dtype,
+                      device) -> Cache:
+    """One layer's zeroed cache: the SSM state in f32, the conv states in
+    ``dtype``."""
+    s = cfg.ssm
+    d_in, n_heads, _ = mamba2_dims(cfg)
+    bc = 2 * s.n_groups * s.state_dim
+    return {
+        "ssm": torch.zeros((batch, n_heads, s.state_dim, s.head_dim),
+                           dtype=torch.float32, device=device),
+        "conv_x": torch.zeros((batch, s.conv_dim - 1, d_in), dtype=dtype,
+                              device=device),
+        "conv_bc": torch.zeros((batch, s.conv_dim - 1, bc), dtype=dtype,
+                               device=device),
+    }

@@ -54,7 +54,8 @@ only by the prefix cache are evicted, LRU first, when an admission needs
 room.
 
 **Kernels.** With ``cfg.use_kernels`` on a CUDA device, prefill and decode
-attention run in the hand-written kernels of ``repro_torch/csrc``; the
+attention (and the MoE GEMMs and Mamba2 scans of models that have them)
+run in the hand-written kernels of ``repro_torch/csrc``; the
 engine builds them at construction when they are not on disk yet, and
 ``stats.compiles`` counts those builds (0 for a warm context).
 
@@ -147,15 +148,20 @@ class InferenceEngine:
         self.admission = admission
         self.max_stop_tokens = max_stop_tokens
 
-        # ---- paged-vs-contiguous resolution: paged=True is a request; the
-        # port's dense family always pages unless the cache is too short
+        # ---- paged-vs-contiguous resolution: paged=True is a request; a
+        # model with no paged decode (the hybrid's recurrent state) keeps
+        # the slot cache and says why, as the reference's engine does
         self.page_size = int(page_size)
         if paged and self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         self._paged = False
         self.paged_fallback: Optional[str] = None
         if paged:
-            if cache_len <= 8:
+            if getattr(model, "decode_paged", None) is None:
+                self.paged_fallback = (
+                    "model has no paged decode path (SSM/xLSTM state and "
+                    "sliding-window ring buffers keep the slot cache)")
+            elif cache_len <= 8:
                 self.paged_fallback = "cache_len too small to page"
             else:
                 self._paged = True
@@ -195,7 +201,8 @@ class InferenceEngine:
         else:
             self.cache = model.init_cache(slots, cache_len, cache_dtype)
             self.page_table = None
-        self._cache_dtype = next(iter(self.cache.values())).dtype
+        # the K/V leaves' dtype: a hybrid's cache also holds f32 states
+        self._cache_dtype = self.cache[model.cache_names[0]].dtype
 
         # ---- prefix sharing: a request, resolved on the paged path only.
         # It needs a model whose tail-only prefill is exact (no MoE, no

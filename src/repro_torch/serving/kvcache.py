@@ -1,17 +1,19 @@
 """Slot-cache helpers for continuous batching.
 
 Port of the slot-cache part of ``repro.serving.kvcache``. Every leaf of
-the port's cache (``{"k", "v"}`` of shape (L, slots, cache_len, Hkv, D), or
-MLA's ``{"ckv", "krope"}`` of shape (L, slots, cache_len, R | dr)) has the
-slot axis second, so the batch axis needs no discovery (the reference's
-``batch_axes``): helpers take one layer's (slots, cache_len, ...) tensor
-and work in place.
+the port's cache (``{"k", "v"}`` of shape (L, slots, cache_len, Hkv, D),
+MLA's ``{"ckv", "krope"}`` of shape (L, slots, cache_len, R | dr), the
+hybrid's Mamba2 states ``{"ssm", "conv_x", "conv_bc"}`` of shape (L,
+slots, ...)) has the slot axis second, so the batch axis needs no
+discovery (the reference's ``batch_axes``): helpers take one layer's
+(slots, ...) tensor and work in place.
 
 * ``merge_slots`` writes a prefill wave's rows into their slots. The
   reference built a whole (slots, cache_len) wave cache and merged it; the
   port writes the wave's valid rows straight into the slot cache, so no
   second cache is ever allocated. Positions past the wave's bucket keep
   their old content (the reference zeroed them); every read masks them.
+  A recurrent state has no positions: its rows are written whole.
 * ``select_slots`` keeps masked rows bit for bit: the megastep's decode
   writes go through it, so free slots are untouched without the
   reference's post-loop restore of the whole cache.
@@ -28,17 +30,22 @@ import torch
 
 
 def merge_slots(dst: torch.Tensor, src: torch.Tensor,
-                slots: Optional[torch.Tensor] = None) -> None:
+                slots: Optional[torch.Tensor] = None,
+                seq: bool = True) -> None:
     """Write ``src`` (n, S, ...) into ``dst`` (B, S_cache, ...) positions
     [0, S), in place: row i goes to slot ``slots[i]`` for i < len(slots);
     rows past ``len(slots)`` are padding and are not written. With
     ``slots`` None, row i goes to slot i (the reference's whole-batch
-    prefill)."""
-    S = src.shape[1]
+    prefill). ``seq=False`` is for a leaf with no sequence axis (a
+    recurrent state (n, ...)): each row is written whole."""
     if slots is None:
-        dst[:src.shape[0], :S] = src.to(dst.dtype)
+        rows = slice(0, src.shape[0])
     else:
-        dst[slots, :S] = src[:slots.shape[0]].to(dst.dtype)
+        rows, src = slots, src[:slots.shape[0]]
+    if seq:
+        dst[rows, :src.shape[1]] = src.to(dst.dtype)
+    else:
+        dst[rows] = src.to(dst.dtype)
 
 
 def select_slots(old: torch.Tensor, new: torch.Tensor,

@@ -1,7 +1,7 @@
 """Weights of the port's models: its own seeded init, and the bridge that
 carries the JAX reference's parameters across.
 
-Both return a state dict for ``repro_torch.models.transformer.Transformer``
+Both return a state dict for the port's ``Transformer`` or ``Hybrid``
 whose names follow the reference's pytree paths. The reference stacks every
 layer's leaves along a leading layer axis (``transformer.py:210-222``): the
 bridge splits that axis into ``layers.{i}.*``; a MoE config's leading dense
@@ -13,6 +13,13 @@ when untied); MLA's ``wq`` (d, H, dn+dr), ``w_dkv`` (d, R+dr), ``w_uk``
 (R, H, dn), ``w_uv`` (R, H, dv), ``wo`` (H, dv, d), ``kv_norm`` (R,); MoE's
 ``router`` (d, E), experts ``up``/``gate`` (E, d, f) and ``down`` (E, f,
 d), and the shared experts' MLP.
+
+The hybrid's Mamba2 layers are stacked differently in the reference: its
+``groups`` leaves (n_groups, every, ...) and ``tail`` leaves (tail, ...)
+become ``layers.{g * every + i}.*`` and ``layers.{n_groups * every +
+i}.*``; its ``shared_block`` is the port's one shared ``Block``. Mamba2's
+``A_log``, ``D`` and ``dt_bias`` stay f32 whatever the param dtype, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import normal_init, pdt
+from repro_torch.models.ssm import F32_LEAVES, mamba2_dims
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -42,28 +50,50 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _split_layers(path: str, arr: np.ndarray, cfg) -> Dict[str, np.ndarray]:
+    """One reference leaf -> the port's names for it: stacked layer axes
+    split into ``layers.{i}.*``, everything else as it is."""
+    head, _, rest = path.partition(".")
+    if cfg.family == "hybrid" and head in ("groups", "tail"):
+        every = cfg.shared_attn_every
+        n_groups = cfg.n_layers // every
+        if head == "groups":
+            if arr.shape[:2] != (n_groups, every):
+                raise ValueError(f"{path}: leading axes {arr.shape[:2]} are "
+                                 f"not (n_groups, every) = "
+                                 f"{(n_groups, every)}")
+            arr = arr.reshape((n_groups * every,) + arr.shape[2:])
+            first = 0
+        else:
+            first = n_groups * every
+            if arr.shape[0] != cfg.n_layers - first:
+                raise ValueError(f"{path}: leading axis {arr.shape[0]} is "
+                                 f"not the tail count {cfg.n_layers - first}")
+        return {f"layers.{first + i}.{rest}": arr[i]
+                for i in range(arr.shape[0])}
+    if head == "layers":
+        n_stacked = cfg.n_layers - (cfg.moe.first_dense_layers
+                                    if cfg.moe.enabled else 0)
+        if arr.shape[0] != n_stacked:
+            raise ValueError(f"{path}: leading axis {arr.shape[0]} is "
+                             f"not the stacked layer count {n_stacked}")
+        return {f"layers.{i}.{rest}": arr[i] for i in range(n_stacked)}
+    return {path: arr}
+
+
 def from_jax_params(params_np: Mapping, cfg,
                     device: torch.device) -> StateDict:
     """The reference's params pytree (nested dicts and lists of numpy
     arrays, e.g. ``jax.device_get(model.init(key))``) -> the port's state
-    dict on ``device``, in ``cfg.param_dtype``."""
-    dtype = pdt(cfg)
-    n_stacked = cfg.n_layers - (cfg.moe.first_dense_layers
-                                if cfg.moe.enabled else 0)
+    dict on ``device``, in ``cfg.param_dtype`` (``F32_LEAVES`` in f32)."""
     state: StateDict = {}
     for path, arr in _flatten(params_np).items():
         arr = np.array(arr, dtype=np.float32)  # a writable copy
-        if path.startswith("layers."):
-            if arr.shape[0] != n_stacked:
-                raise ValueError(f"{path}: leading axis {arr.shape[0]} is "
-                                 f"not the stacked layer count {n_stacked}")
-            rest = path[len("layers."):]
-            for i in range(n_stacked):
-                state[f"layers.{i}.{rest}"] = torch.from_numpy(
-                    arr[i]).to(device=device, dtype=dtype)
-        else:
-            state[path] = torch.from_numpy(arr).to(device=device,
-                                                   dtype=dtype)
+        for name, a in _split_layers(path, arr, cfg).items():
+            dtype = (torch.float32 if name.rsplit(".", 1)[-1] in F32_LEAVES
+                     else pdt(cfg))
+            state[name] = torch.from_numpy(np.ascontiguousarray(a)).to(
+                device=device, dtype=dtype)
     return state
 
 
@@ -84,10 +114,13 @@ def init_params(cfg, generator: torch.Generator,
     def ones(n):
         return torch.ones(n, dtype=dt, device=device)
 
-    def norm(prefix, state):
-        state[f"{prefix}.scale"] = ones(d)
+    def zeros(n, dtype=dt):
+        return torch.zeros(n, dtype=dtype, device=device)
+
+    def norm(prefix, state, n=d):
+        state[f"{prefix}.scale"] = ones(n)
         if cfg.norm == "layernorm":
-            state[f"{prefix}.bias"] = torch.zeros(d, dtype=dt, device=device)
+            state[f"{prefix}.bias"] = zeros(n)
 
     def mlp(prefix, f, state):
         state[f"{prefix}.up"] = w((d, f), d)
@@ -139,12 +172,36 @@ def init_params(cfg, generator: torch.Generator,
         else:
             mlp(f"{p}.mlp", d_ff, state)
 
+    def mamba(p, state):
+        s = cfg.ssm
+        d_in, n_heads, _ = mamba2_dims(cfg)
+        bc = 2 * s.n_groups * s.state_dim
+        K = s.conv_dim
+        state[f"{p}.w_zx"] = w((d, 2 * d_in), d)
+        state[f"{p}.w_bcdt"] = w((d, bc + n_heads), d)
+        state[f"{p}.conv_x_w"] = w((K, d_in), K)
+        state[f"{p}.conv_x_b"] = zeros(d_in)
+        state[f"{p}.conv_bc_w"] = w((K, bc), K)
+        state[f"{p}.conv_bc_b"] = zeros(bc)
+        state[f"{p}.A_log"] = zeros(n_heads, torch.float32)   # A = -1
+        state[f"{p}.D"] = torch.ones(n_heads, dtype=torch.float32,
+                                     device=device)
+        state[f"{p}.dt_bias"] = zeros(n_heads, torch.float32)
+        norm(f"{p}.norm", state, d_in)
+        state[f"{p}.out_proj"] = w((d_in, d), d_in)
+
     state: StateDict = {}
-    n_dense = e.first_dense_layers if e.enabled else 0
-    for j in range(n_dense):
-        block(f"dense0.{j}", state, False, e.dense_d_ff)
-    for i in range(cfg.n_layers - n_dense):
-        block(f"layers.{i}", state, e.enabled, cfg.d_ff)
+    if cfg.family == "hybrid":
+        block("shared_block", state, False, cfg.d_ff)
+        for i in range(cfg.n_layers):
+            norm(f"layers.{i}.ln", state)
+            mamba(f"layers.{i}.mamba", state)
+    else:
+        n_dense = e.first_dense_layers if e.enabled else 0
+        for j in range(n_dense):
+            block(f"dense0.{j}", state, False, e.dense_d_ff)
+        for i in range(cfg.n_layers - n_dense):
+            block(f"layers.{i}", state, e.enabled, cfg.d_ff)
     state["embed.tok"] = w((cfg.padded_vocab, d), d)
     if not cfg.tie_embeddings:
         state["embed.unembed"] = w((d, cfg.padded_vocab), d)

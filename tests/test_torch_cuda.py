@@ -1,7 +1,7 @@
 """The port on the card: each hand-written CUDA kernel against its plain
 PyTorch version, and the engines (slot cache, paged pool with prefix
-sharing, the reduced DeepSeek on the paged pool) with kernels against the
-same engines without.
+sharing, the reduced DeepSeek on the paged pool, the reduced Zamba2 hybrid
+on the slot cache) with kernels against the same engines without.
 
 Every test here needs an NVIDIA card and skips without one (the kernels
 have no CPU mode). The file imports nothing of JAX, so it also runs where
@@ -53,7 +53,8 @@ def _gemm_tol(dtype, d, exp):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,Hkv,D,causal,window", [
     (2, 128, 4, 4, 64, True, 0), (2, 256, 8, 2, 128, True, 64),
-    (2, 200, 4, 4, 64, False, 0), (3, 77, 4, 1, 64, True, 0)])
+    (2, 200, 4, 4, 64, False, 0), (3, 77, 4, 1, 64, True, 0),
+    (2, 160, 4, 4, 112, True, 0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain(cuda, B, S, H, Hkv, D, causal,
                                             window, dtype):
@@ -73,7 +74,8 @@ def test_cuda_flash_attention_matches_plain(cuda, B, S, H, Hkv, D, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,D,Skv", [(2, 8, 2, 64, 256),
                                            (1, 4, 4, 128, 512),
-                                           (3, 16, 1, 64, 100)])
+                                           (3, 16, 1, 64, 100),
+                                           (3, 8, 8, 112, 300)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_decode_matches_plain(cuda, B, H, Hkv, D, Skv, dtype):
     q = _rand(0, (B, H, D), cuda, dtype)
@@ -425,3 +427,86 @@ def test_cuda_deepseek_decode_step_makes_no_host_sync(cuda):
     n_moe = cfg.n_layers - cfg.moe.first_dense_layers
     assert ops.LAUNCHES["paged_mla_decode"] == cfg.n_layers
     assert ops.LAUNCHES["grouped_gemm_segments"] == 3 * n_moe
+
+
+def _ssd_inputs(seed, B, S, H, N, P, cuda):
+    C = _rand(seed, (B, S, H, N), cuda, "float32")
+    Bm = _rand(seed + 1, (B, S, H, N), cuda, "float32")
+    v = _rand(seed + 2, (B, S, H, P), cuda, "float32")
+    la = -torch.nn.functional.softplus(_rand(seed + 3, (B, S, H), cuda,
+                                             "float32"))
+    return C, Bm, v, la
+
+
+def _ssd_plain(C, Bm, v, la):
+    B, S, H, N = C.shape
+    P = v.shape[-1]
+
+    def bhs(t):
+        return t.transpose(1, 2).reshape(B * H, S, t.shape[-1])
+    y, st = ref.ssd_scan_ref(bhs(C), bhs(Bm), bhs(v), bhs(la[..., None]))
+    return y.reshape(B, H, S, P).transpose(1, 2), st.reshape(B, H, N, P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,N,P", [
+    (1, 128, 2, 16, 32), (2, 256, 1, 64, 64), (1, 64, 4, 8, 16),
+    (2, 100, 3, 16, 16), (16, 512, 112, 64, 64)])
+def test_cuda_ssd_scan_matches_plain(cuda, B, S, H, N, P):
+    """The reference's sweep shapes (tests/test_kernels.py), a ragged S and
+    Zamba2's prefill wave (16 x 512, 112 heads, N = P = 64), within the
+    reference's 2e-3 on outputs of size ~10-100."""
+    C, Bm, v, la = _ssd_inputs(0, B, S, H, N, P, cuda)
+    before = ops.LAUNCHES["ssm_scan"]
+    y, st = ops.ssm_scan(C, Bm, v, la)
+    assert ops.LAUNCHES["ssm_scan"] == before + 1
+    ye, se = _ssd_plain(C, Bm, v, la)
+    assert y.dtype == st.dtype == torch.float32
+    assert float((y - ye).abs().max()) < 2e-3
+    assert float((st - se).abs().max()) < 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_padded_row_and_strided_inputs(cuda):
+    """A row padded from 37 to 100 steps as Mamba2 pads (log_a = 0, v = 0)
+    ends in its unpadded state bit for bit (the padded steps add exact
+    zeros in the same tile order); inputs read through non-contiguous
+    strides give the contiguous copies' result."""
+    B, S, H, N, P, n = 2, 100, 3, 16, 32, 37
+    C, Bm, v, la = _ssd_inputs(4, B, S, H, N, P, cuda)
+    v[0, n:], la[0, n:] = 0.0, 0.0
+    y, st = ops.ssm_scan(C, Bm, v, la)
+    y0, st0 = ops.ssm_scan(*(t[:1, :n].contiguous() for t in (C, Bm, v, la)))
+    assert torch.equal(st[0], st0[0])
+    assert torch.equal(y[0, :n], y0[0])
+    wide = torch.zeros((B, S, H, 2 * N), device=cuda)
+    wide[..., N:] = C
+    ys, sts = ops.ssm_scan(wide[..., N:], Bm, v.transpose(0, 1).contiguous()
+                           .transpose(0, 1), la)
+    assert torch.equal(ys, y) and torch.equal(sts, st)
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_engine_kernels_match_plain(cuda):
+    """Reduced zamba2 in f32 on the slot cache: greedy output with the
+    kernels (the SSD scan in every Mamba2 layer's prefill, the shared
+    block's prefill and decode attention) equals the plain path's, and a
+    paged request keeps the slot cache."""
+    cfg = get_reduced_config("zamba2-7b", use_kernels=True)
+    model = build_model(cfg, device=cuda, seed=0)
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                        device=cuda, params=dict(model.state_dict()))
+    rng = np.random.RandomState(0)
+    ps = [list(rng.randint(8, cfg.vocab_size, size=rng.randint(3, 30)))
+          for _ in range(9)]
+    kw = dict(device=cuda, slots=4, cache_len=64, prefill_buckets=(16, 32),
+              megastep=4)
+    ops.reset_launches()
+    eng = InferenceEngine(model, paged=True, **kw)
+    assert eng.paged_fallback.startswith("model has no paged decode")
+    with_kernels = eng.generate(ps, 8)
+    waves = eng.stats.prefill_batches
+    assert ops.LAUNCHES["ssm_scan"] == cfg.n_layers * waves
+    assert ops.LAUNCHES["flash_attention"] == 2 * waves
+    assert ops.LAUNCHES["flash_decode"] == 2 * eng.stats.decode_steps
+    assert with_kernels == InferenceEngine(plain, **kw).generate(ps, 8)

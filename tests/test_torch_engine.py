@@ -683,3 +683,126 @@ def test_deepseek_offload_restore_continue_bit_identical(ds, paged):
         assert torch.equal(p, params_before[n])
     eng.run_to_completion()
     assert [r.generated for r in reqs] == ref
+
+
+# ------------------------------------- Zamba2: Mamba2 + shared attention ---
+@pytest.fixture(scope="module")
+def hy():
+    """Reduced zamba2-7b (f32, 13 layers: 2 groups of 6 + 1 tail, 8 SSM
+    heads, shared attention of head dim 16): the reference's model and
+    params and the port's model with the same weights, plain and with
+    use_kernels (on the CPU: the kernels' plain versions)."""
+    import dataclasses
+    jcfg = jax_config("zamba2-7b")
+    jmodel = jax_build(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(0))
+    tcfg = get_reduced_config("zamba2-7b")
+    plain = build_model(tcfg, device="cpu", params=from_jax_params(
+        jax.device_get(params), tcfg, "cpu"))
+    kern = build_model(dataclasses.replace(tcfg, use_kernels=True),
+                       device="cpu", params=dict(plain.state_dict()))
+    return jmodel, params, plain, kern
+
+
+@pytest.fixture(scope="module")
+def hy_jax_greedy(hy):
+    jmodel, params, _, _ = hy
+    e = JaxEngine(jmodel, params, **ENGINE)
+    return {"tokens8": e.generate(prompts(9), max_new_tokens=8),
+            "facts": e.generate(fact_prompts(4), max_new_tokens=1)}
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("kernels", [False, True])
+def test_hybrid_greedy_matches_reference_engine(hy, hy_jax_greedy, K,
+                                                kernels):
+    model = hy[3] if kernels else hy[2]
+    eng = engine(model, megastep=K)
+    assert eng.stats.decode_path == "full"
+    assert eng.generate(prompts(9), max_new_tokens=8) == \
+        hy_jax_greedy["tokens8"]
+
+
+def test_hybrid_fact_verification_matches_reference_engine(hy,
+                                                           hy_jax_greedy):
+    out = engine(hy[3], megastep=4).generate(fact_prompts(4),
+                                             max_new_tokens=1)
+    assert out == hy_jax_greedy["facts"]
+
+
+def test_hybrid_paged_request_keeps_the_slot_cache(hy):
+    """paged=True on a model with no paged decode falls back to the slot
+    cache with the reference's reason, and prefix sharing with it."""
+    model = hy[2]
+    eng = engine(model, paged=True, page_size=8)
+    assert not eng._paged and eng.stats.decode_path == "full"
+    assert eng.paged_fallback == (
+        "model has no paged decode path (SSM/xLSTM state and "
+        "sliding-window ring buffers keep the slot cache)")
+    assert eng.prefix_fallback == "engine is not paged: " + eng.paged_fallback
+    assert eng.snapshot()["paged_fallback"] == eng.paged_fallback
+    assert eng._cache_dtype == torch.float32
+    assert eng.generate(prompts(5), max_new_tokens=6) == \
+        engine(model).generate(prompts(5), max_new_tokens=6)
+
+
+def test_hybrid_cache_dtype_reads_the_kv_leaves(hy):
+    eng = engine(hy[2], cache_dtype=torch.bfloat16)
+    assert eng._cache_dtype == torch.bfloat16
+    assert eng.cache["ssm"].dtype == torch.float32
+    assert eng.cache["conv_x"].dtype == torch.bfloat16
+
+
+def test_hybrid_bucket_shorter_than_head_count(hy):
+    """Prompts of at most 4 tokens go through a 4-token bucket, shorter
+    than the 8 SSM heads: each admitted slot's states are written whole
+    over a stale cache, so the output equals a fresh engine's."""
+    model = hy[2]
+    ps = [p[:4] for p in prompts(6, seed=5)]
+    fresh = engine(model, prefill_buckets=(4, 16)).generate(
+        ps, max_new_tokens=5)
+    eng = engine(model, prefill_buckets=(4, 16))
+    for t in eng.cache.values():
+        t.normal_(generator=torch.Generator().manual_seed(7))
+    st0 = eng.stats.prefill_batches
+    assert eng.generate(ps, max_new_tokens=5) == fresh
+    assert eng.stats.prefill_batches > st0
+
+
+def test_hybrid_free_slots_state_unchanged_by_megastep(hy):
+    """A free slot's SSM, conv and K/V rows are bit for bit unchanged by
+    megasteps of the other slots."""
+    eng = engine(hy[3], megastep=4)
+    eng.generate(prompts(4, seed=2), max_new_tokens=3)
+    before = {n: t.clone() for n, t in eng.cache.items()}
+    eng.generate([prompts(1, seed=9)[0]], max_new_tokens=10)
+    busy = 0  # the wave lands in the first free slot
+    for n, t in eng.cache.items():
+        for s in range(1, 4):
+            assert torch.equal(t[:, s], before[n][:, s]), n
+        assert not torch.equal(t[:, busy], before[n][:, busy]), n
+
+
+def test_hybrid_offload_restore_continue_bit_identical(hy):
+    """A hybrid context demoted mid-stream (requests decoding and queued)
+    and restored continues bit for bit: its f32 SSM states, conv states,
+    K/V, the f32 A_log/D/dt_bias and the RNG come back as they left."""
+    model = hy[3]
+    ps = prompts(7, seed=11)
+    ref = engine(model, megastep=4).generate(ps, max_new_tokens=9)
+    eng = engine(model, megastep=4)
+    reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=9))
+            for p in ps]
+    eng.step()
+    assert eng.active and eng.queue, "nothing in flight — test is vacuous"
+    cache_before = {n: t.clone() for n, t in eng.cache.items()}
+    host = eng.offload_device_state()
+    assert set(host["cache"]) == {"k", "v", "ssm", "conv_x", "conv_bc"}
+    assert host["cache"]["ssm"].dtype == torch.float32
+    assert all(p.numel() == 0 for p in model.parameters())
+    eng.restore_device_state(host)
+    for n, t in eng.cache.items():
+        assert torch.equal(t, cache_before[n]) and t.dtype == \
+            cache_before[n].dtype
+    eng.run_to_completion()
+    assert [r.generated for r in reqs] == ref

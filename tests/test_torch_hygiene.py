@@ -40,8 +40,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_port_file_list_is_complete():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "attention.py", "transformer.py", "moe.py",
-            "ops.py", "moe_gemm.py", "build.py", "weights.py",
-            "chip_smoke.py"} <= names
+            "ops.py", "moe_gemm.py", "build.py", "weights.py", "ssm.py",
+            "hybrid.py", "ssm_scan.py", "chip_smoke.py"} <= names
 
 
 def test_every_kernel_has_its_source():
@@ -80,9 +80,10 @@ def test_engine_refuses_a_model_on_another_device():
 def test_unported_architectures_name_their_slice():
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="port slice"):
-        get_config("zamba2-7b")
+        get_config("xlstm-350m")
     with pytest.raises(NotImplementedError, match="does not fit one card"):
         get_config("qwen3-moe-235b-a22b")
     with pytest.raises(KeyError):
         get_config("no-such-model")
     assert get_config("deepseek-v2-lite-16b").family == "moe"
+    assert get_config("zamba2-7b").family == "hybrid"

@@ -475,3 +475,220 @@ def test_deepseek_config_copy_matches_reference():
                       (jax_config(DS), get_reduced_config(DS))):
         assert dataclasses.asdict(full) == dataclasses.asdict(red)
         assert full.key() == red.key()
+
+
+# ------------------------------------- Zamba2: Mamba2 + shared attention ---
+HY = "zamba2-7b"
+
+
+@pytest.fixture(scope="module")
+def hy_side():
+    cfg = jax_config(HY)
+    params = jax_build(cfg).init(jax.random.PRNGKey(0))
+    return cfg, params, jax.device_get(params)
+
+
+def _hy_pair(hy_side, use_kernels):
+    jcfg, params, params_np = hy_side
+    jcfg = dataclasses.replace(jcfg, use_kernels=use_kernels)
+    tcfg = get_reduced_config(HY, use_kernels=use_kernels)
+    tmodel = build_model(tcfg, device="cpu",
+                         params=from_jax_params(params_np, tcfg, "cpu"))
+    return jax_build(jcfg), params, tmodel
+
+
+def _hy_state(jcache, name):
+    """The reference's stacked (groups (G, every, ...), tail (T, ...))
+    state leaf as the port's (n_layers, ...) one."""
+    g = np.asarray(jcache["groups"][name])
+    g = g.reshape((-1,) + g.shape[2:])
+    return np.concatenate([g, np.asarray(jcache["tail"][name])])
+
+
+def test_hybrid_weight_bridge_layouts(hy_side):
+    _, _, params_np = hy_side
+    tcfg = get_reduced_config(HY)
+    state = from_jax_params(params_np, tcfg, "cpu")
+    model = build_model(tcfg, device="cpu", params=state)
+    assert set(state) == set(model.state_dict())
+    every = tcfg.shared_attn_every
+    assert tcfg.n_layers == 2 * every + 1
+    for g in range(2):
+        for i in range(every):
+            np.testing.assert_array_equal(
+                state[f"layers.{g * every + i}.mamba.w_zx"].numpy(),
+                params_np["groups"]["mamba"]["w_zx"][g, i])
+    np.testing.assert_array_equal(
+        state[f"layers.{2 * every}.mamba.out_proj"].numpy(),
+        params_np["tail"]["mamba"]["out_proj"][0])
+    np.testing.assert_array_equal(state["shared_block.attn.wq"].numpy(),
+                                  params_np["shared_block"]["attn"]["wq"])
+    # the port's own init draws the same shapes; the SSM scalars stay f32
+    # in a bf16 model, as the reference keeps them
+    own = init_params(tcfg, torch.Generator().manual_seed(0),
+                      torch.device("cpu"))
+    assert {k: v.shape for k, v in own.items()} == \
+        {k: v.shape for k, v in state.items()}
+    bf = dataclasses.replace(tcfg, param_dtype="bfloat16")
+    state = from_jax_params(params_np, bf, "cpu")
+    assert state["layers.0.mamba.A_log"].dtype == torch.float32
+    assert state["layers.0.mamba.dt_bias"].dtype == torch.float32
+    assert state["layers.0.mamba.w_zx"].dtype == torch.bfloat16
+    assert build_model(bf, device="cpu", params=state).layers[0].mamba \
+        .D.dtype == torch.float32
+
+
+def test_hybrid_full_width_parameter_count():
+    """Full-width Zamba2-7B, built on the meta device: the reference's
+    param_count() plus what it leaves out (norm scales, conv biases,
+    dt_bias)."""
+    from repro.configs import get_config as jax_get
+    from repro_torch.configs import get_config
+    from repro_torch.models import Hybrid
+    cfg = get_config(HY)
+    with torch.device("meta"):
+        model = Hybrid(cfg, "meta")
+    d, d_in, L = cfg.d_model, 2 * cfg.d_model, cfg.n_layers
+    bc = 2 * cfg.ssm.n_groups * cfg.ssm.state_dim
+    left_out = (L * (d + d_in) + 3 * d          # norm scales
+                + L * (d_in + bc)               # conv biases
+                + L * d_in // cfg.ssm.head_dim)  # dt_bias
+    n = sum(p.numel() for p in model.parameters())
+    assert n == jax_get(HY).param_count() + left_out == 6_788_341_584
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_hybrid_forward_matches_reference(hy_side, use_kernels):
+    jm, params, tm = _hy_pair(hy_side, use_kernels)
+    toks = _toks(2, 64, tm.cfg.vocab_size)
+    lengths = np.array([64, 41], np.int32)
+    for batch in ({}, {"lengths": lengths}):
+        exp, _ = jm.forward(params, {"tokens": jnp.asarray(toks),
+                                     **{k: jnp.asarray(v)
+                                        for k, v in batch.items()}})
+        out = tm.forward(torch.from_numpy(toks),
+                         *(torch.from_numpy(v) for v in batch.values()))
+        assert out.shape == (2, 64, tm.cfg.padded_vocab)
+        assert _err(exp, out) < TOL
+
+
+def test_hybrid_kernel_path_matches_reference_kernel_path(hy_side):
+    """Port copy of test_models_consistency.test_kernel_path_matches_jnp
+    for zamba2: with use_kernels the port (on the CPU: the kernels' plain
+    versions) against the reference (its Pallas kernels in interpret mode)
+    and against the port's plain path, within that test's 5e-3."""
+    jm, params, tm = _hy_pair(hy_side, True)
+    _, _, plain = _hy_pair(hy_side, False)
+    toks = _toks(2, 128, tm.cfg.vocab_size, seed=2)
+    exp, _ = jm.forward(params, {"tokens": jnp.asarray(toks)})
+    out = tm.forward(torch.from_numpy(toks))
+    assert _err(exp, out) < 5e-3
+    assert float((out - plain.forward(torch.from_numpy(toks))).abs().max()) \
+        < 5e-3
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_hybrid_prefill_and_decode_match_reference(hy_side, use_kernels):
+    """A ragged prefill then three decode steps: logits, the shared
+    block's K/V and every layer's SSM and conv states."""
+    jm, params, tm = _hy_pair(hy_side, use_kernels)
+    B, S, cache_len = 2, 32, 64
+    toks = _toks(B, S, tm.cfg.vocab_size)
+    lengths = np.array([20, 32], np.int32)
+    jcache = jm.init_cache(B, cache_len, jnp.float32)
+    exp, jcache = jm.prefill(params, jnp.asarray(toks), jnp.asarray(lengths),
+                             jcache)
+    tcache = tm.init_cache(B, cache_len, torch.float32)
+    assert set(tcache) == {"k", "v", "ssm", "conv_x", "conv_bc"}
+    assert tcache["ssm"].dtype == torch.float32
+    out = tm.prefill(torch.from_numpy(toks), torch.from_numpy(lengths),
+                     tcache)
+    assert _err(exp, out) < TOL
+    jk = np.asarray(jcache["attn"][0])
+    for b, n in enumerate(lengths):
+        assert float(np.max(np.abs(jk[:, b, :n]
+                                   - tcache["k"][:, b, :n].numpy()))) < TOL
+    for name in ("ssm", "conv_x", "conv_bc"):
+        assert _err(_hy_state(jcache, name), tcache[name]) < 1e-3, name
+
+    nxt = np.array([[5], [9]], np.int32)
+    for _ in range(3):
+        exp, jcache = jm.decode_step(params, jnp.asarray(nxt),
+                                     jnp.asarray(lengths), jcache)
+        out = tm.decode_step(torch.from_numpy(nxt),
+                             torch.from_numpy(lengths), tcache)
+        assert out.shape == (B, tm.cfg.padded_vocab)
+        assert _err(exp, out) < TOL
+        lengths = lengths + 1
+    assert _err(_hy_state(jcache, "ssm"), tcache["ssm"]) < 1e-3
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_hybrid_prefill_decode_matches_forward(use_kernels):
+    """Port copy of test_models_consistency.test_prefill_decode_matches_
+    forward for zamba2, on the port's own init."""
+    cfg = get_reduced_config(HY, use_kernels=use_kernels)
+    model = build_model(cfg, device="cpu", seed=0)
+    B, S = 2, 16
+    toks = torch.from_numpy(_toks(B, S, cfg.vocab_size)).long()
+    full = model.forward(toks)
+    cache = model.init_cache(B, 64, torch.float32)
+    lengths = torch.tensor([10, 16], dtype=torch.int32) - 1
+    lg = model.prefill(toks, lengths, cache)
+    assert float((lg[0] - full[0, 8]).abs().max()) < 2e-3
+    assert float((lg[1] - full[1, 14]).abs().max()) < 2e-3
+    nxt = torch.stack([toks[0, 9], toks[1, 15]])[:, None]
+    lg = model.decode_step(nxt, lengths, cache)
+    assert float((lg[0] - full[0, 9]).abs().max()) < 2e-3
+    assert float((lg[1] - full[1, 15]).abs().max()) < 2e-3
+
+
+def test_hybrid_prefill_writes_whole_state_rows_of_given_slots():
+    """A wave whose bucket (4) is shorter than the SSM head count (8)
+    writes its valid rows' states whole (every head) into their slots,
+    and padding rows and other slots keep theirs bit for bit."""
+    cfg = get_reduced_config(HY)
+    model = build_model(cfg, device="cpu", seed=0)
+    assert cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim == 8
+    cache = model.init_cache(4, 32, torch.float32)
+    for t in cache.values():
+        t.normal_(generator=torch.Generator().manual_seed(3))
+    before = {k: v.clone() for k, v in cache.items()}
+    toks = torch.from_numpy(_toks(4, 4, cfg.vocab_size)).long()
+    lengths = torch.tensor([4, 3, 0, 0], dtype=torch.int32)
+    model.prefill(toks, lengths, cache, slots=torch.tensor([3, 1]))
+    ref_cache = model.init_cache(2, 32, torch.float32)
+    model.prefill(toks[:2], lengths[:2], ref_cache)
+    for src, dst in ((0, 3), (1, 1)):
+        for name in ("ssm", "conv_x", "conv_bc"):
+            assert torch.equal(cache[name][:, dst], ref_cache[name][:, src])
+        for name in ("k", "v"):
+            assert torch.equal(cache[name][:, dst, :4],
+                               ref_cache[name][:, src, :4])
+    for name in cache:
+        for free in (0, 2):
+            assert torch.equal(cache[name][:, free], before[name][:, free])
+
+
+def test_hybrid_decode_inactive_rows_leave_cache_untouched():
+    cfg = get_reduced_config(HY)
+    model = build_model(cfg, device="cpu", seed=0)
+    cache = model.init_cache(3, 32, torch.float32)
+    toks = torch.from_numpy(_toks(3, 8, cfg.vocab_size)).long()
+    lengths = torch.tensor([8, 5, 7], dtype=torch.int32)
+    model.prefill(toks, lengths, cache)
+    before = {k: v.clone() for k, v in cache.items()}
+    active = torch.tensor([True, False, True])
+    model.decode_step(toks[:, :1], lengths, cache, active=active)
+    for name in cache:
+        assert torch.equal(cache[name][:, 1], before[name][:, 1]), name
+        assert not torch.equal(cache[name][:, 0], before[name][:, 0]), name
+
+
+def test_hybrid_config_copy_matches_reference():
+    from repro.configs import get_config as jax_get
+    from repro_torch.configs import get_config
+    for full, red in ((jax_get(HY), get_config(HY)),
+                      (jax_config(HY), get_reduced_config(HY))):
+        assert dataclasses.asdict(full) == dataclasses.asdict(red)
+        assert full.key() == red.key()
