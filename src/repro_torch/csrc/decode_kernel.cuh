@@ -10,42 +10,57 @@
 // columns j < ceil(n / P) are ever read. Keys at or past the slot's length
 // n are never read, and a slot with n == 0 gets exact zeros. f32 or bf16,
 // D 16, 32, 64, 112 (Zamba2's shared block) or 128, f32 softmax and
-// accumulator; 64-bit offsets.
-//
-// Grid (B, Hkv): one block per slot and KV head; the G = H / Hkv query
-// heads that share the KV head are handled together, so each K/V row is
-// read from device memory once for all of them. Inside the block a loop
-// walks 64-key tiles up to the slot's length (the TPU kernels' sequential
-// grid axis): the tile's row offsets are resolved once into shared memory,
-// the tile is staged in shared memory as f32, scores for all (head, key)
-// pairs are computed from it, one warp per head runs the online softmax
-// (the reference's -1e30 sentinel, max(l, 1e-30)), and the threads then
-// accumulate P.V for their (head, column) outputs in registers.
+// accumulators (the reference's -1e30 sentinel, max(l, 1e-30)); 64-bit
+// offsets.
 //
 // What bounds it on the H100: one query token reads every live K/V byte
 // once and does ~1 FLOP per byte, so the least time is the live cache bytes
-// over the memory rate. What the design does about it: it reads only the
-// live prefix of each slot, reads each K/V row once for all G heads, and
-// loads rows whole and in order (a 64-wide bf16 row is one 128-byte line;
-// a page of P rows is P such lines, contiguous). With B * Hkv = 512 blocks
-// at the main-path shape the card is filled; split-KV (flash-decoding) for
-// small batches and a cp.async / TMA double buffer are later work. PERF.md
-// has its times.
+// over the memory rate (the main shape's 68 MB: 20 us). The first design
+// (one block per (slot, KV head) walking its keys in 64-key tiles staged
+// through shared memory as f32 with scalar loads) reached 250 GB/s: little
+// was in flight per SM, half the threads idled at G = 1, and the longest
+// slot set the time alone.
+//
+// Split-KV (flash-decoding) with a combine pass:
+//   * decode_partial's grid is (splits, Hkv, B). Split s covers keys
+//     [s * kSplit, (s + 1) * kSplit): fixed key positions, the same for the
+//     slot cache and the page table whatever their capacities, B or the SM
+//     count, so both entry points sum every slot's keys in the same order
+//     and give the same bits. A block whose split starts at or past the
+//     slot's length returns at once. It writes its unnormalised f32
+//     accumulators and its (m, l) per head to scratch the wrapper allocates.
+//   * In a block, a lane group of kLanes lanes holds one K/V row: each lane
+//     loads 16 bytes of it straight into registers (a D 64 bf16 row is 8
+//     lanes, a D 112 row 14 of 16), so a warp holds 32 / kLanes rows and
+//     each lane keeps U rows of K and of V in flight before their first use;
+//     no shared-memory staging. Scores come from shuffle reductions within
+//     the lane group, every lane runs the online softmax of its group's
+//     rows and accumulates P.V for its 16-byte slice of the head dim in
+//     registers, so at G = 1 every thread is busy. For G > 1 a row read
+//     once serves all G heads of the KV head.
+//   * The lane groups of a warp, then the four warps, merge in a fixed
+//     order; decode_combine weighs a slot's live splits by exp(m_s - max m)
+//     in split order and divides by max(l, 1e-30). No atomics: the same
+//     inputs give the same bits.
 #pragma once
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace repro {
 namespace decode {
 
-constexpr int kBK = 64;        // keys per tile
+constexpr int kSplit = 256;    // keys a split (kernels/decode_attention.py)
 constexpr int kThreads = 128;  // four warps
-constexpr int kMaxG = 16;      // query heads per KV head handled by a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxG = 16;      // query heads per KV head
+constexpr int kCombineThreads = 128;
 
 // The slot cache (B, Skv, Hkv, D): key t of slot b is row b * Skv + t.
 struct ContiguousRows {
   int skv;
-  __device__ __forceinline__ int limit() const { return skv; }
+  __host__ __device__ __forceinline__ int limit() const { return skv; }
   __device__ __forceinline__ long long row(int b, int t) const {
     return (long long)b * skv + t;
   }
@@ -59,183 +74,320 @@ struct PagedRows {
   long long pt_stride;
   int npages;
   int page;
-  __device__ __forceinline__ int limit() const { return npages * page; }
+  __host__ __device__ __forceinline__ int limit() const {
+    return npages * page;
+  }
   __device__ __forceinline__ long long row(int b, int t) const {
     return (long long)pt[b * pt_stride + t / page] * page + t % page;
   }
 };
 
-template <int D>
-int smem_bytes(int G) {
-  // q (G x D), scores (G x BK), K tile (BK x (D+1)), V tile (BK x D),
-  // per-head m, l, corr
-  return static_cast<int>(sizeof(float)) *
-         (G * D + G * kBK + kBK * (D + 1) + kBK * D + 3 * G);
+__host__ __device__ constexpr int pow2_at_least(int x) {
+  return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2);
 }
 
-template <typename T, int D, typename Rows>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, Rows rows,
-              const int* __restrict__ lengths,
-              const unsigned char* __restrict__ active, T* __restrict__ out,
-              int H, int Hkv, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int kAcc = kMaxG * D / kThreads;  // accumulators per thread
-  const int G = H / Hkv;
-  extern __shared__ float smem[];
-  float* sq = smem;                 // G x D
-  float* ss = sq + G * D;           // G x BK
-  float* sk = ss + G * kBK;         // BK x DP
-  float* sv = sk + kBK * DP;        // BK x D
-  float* sm = sv + kBK * D;         // G running max
-  float* sl = sm + G;               // G running sum
-  float* sc = sl + G;               // G correction of the current tile
-  __shared__ long long srow[kBK];   // element offset of each tile row
+// How a row of D values of T spreads over the lanes of a warp.
+template <typename T, int D>
+struct RowLayout {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // a lane
+  static constexpr int kChunks = D / kVec;  // 16-byte chunks a row
+  static constexpr int kLanes = pow2_at_least(kChunks);  // lanes a row
+  static constexpr int kRows = 32 / kLanes;  // rows a warp holds at once
+  static_assert(D % kVec == 0 && kLanes <= 32, "unsupported head dim");
+};
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
+__device__ __forceinline__ void unpack(uint4 u, float (&x)[4]) {
+  x[0] = __uint_as_float(u.x);
+  x[1] = __uint_as_float(u.y);
+  x[2] = __uint_as_float(u.z);
+  x[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(uint4 u, float (&x)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
 
+// The slot's live length as both kernels see it.
+template <typename Rows>
+__device__ __forceinline__ int live_length(const Rows& rows,
+                                           const int* lengths,
+                                           const unsigned char* active,
+                                           int b) {
   int n = lengths[b];
   if (active != nullptr && !active[b]) n = 0;
-  n = max(0, min(n, rows.limit()));
+  return max(0, min(n, rows.limit()));
+}
+
+// kG: the group size rounded up to 1, 4 or 16 (heads g >= G are skipped).
+template <typename T, int D, int kG, typename Rows>
+__global__ void __launch_bounds__(kThreads)
+decode_partial(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, Rows rows,
+               const int* __restrict__ lengths,
+               const unsigned char* __restrict__ active,
+               float* __restrict__ part, float* __restrict__ part_ml, int H,
+               int Hkv, int nsplit, float scale) {
+  using L = RowLayout<T, D>;
+  constexpr int V = L::kVec, LN = L::kLanes, RW = L::kRows;
+  constexpr int U = kG <= 4 ? 4 : 2;  // rows in flight a lane group
+  constexpr bool kQReg = kG * V <= 32;  // q in registers, else shared
+  __shared__ float sq[kG * D];
+  __shared__ float sacc[kWarps][kG][D];
+  __shared__ float sml[kWarps][kG][2];
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int n = live_length(rows, lengths, active, b);
+  const int t_lo = split * kSplit;
+  if (t_lo >= n) return;
+  const int t_hi = min(n, t_lo + kSplit);
+  const int G = H / Hkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane / LN;  // the row this lane's group holds
+  const int c = lane % LN;    // its 16-byte chunk of the row
+  const bool has = c < L::kChunks;
 
   const T* qb = q + ((long long)b * H + (long long)kvh * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) sq[i] = to_float(qb[i]);
-  for (int g = tid; g < G; g += kThreads) {
-    sm[g] = kNegInf;
-    sl[g] = 0.f;
+  for (int i = tid; i < kG * D; i += kThreads)
+    sq[i] = i < G * D ? to_float(qb[i]) : 0.f;
+  __syncthreads();
+  float qr[kQReg ? kG : 1][V];
+  if constexpr (kQReg) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g)
+#pragma unroll
+      for (int i = 0; i < V; ++i) qr[g][i] = has ? sq[g * D + c * V + i] : 0.f;
   }
 
-  float acc[kAcc];
+  float m[kG], l[kG], acc[kG][V];
 #pragma unroll
-  for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
-
-  const long long row_stride = (long long)Hkv * D;
-  const T* kb = k + (long long)kvh * D;
-  const T* vb = v + (long long)kvh * D;
-
-  for (int t0 = 0; t0 < n; t0 += kBK) {
-    __syncthreads();  // the previous tile's reads are done
-    if (tid < kBK) {
-      const int t = t0 + tid;
-      srow[tid] = t < n ? rows.row(b, t) * row_stride : -1;
-    }
-    __syncthreads();
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const long long off = srow[r];
-      float kx = 0.f, vx = 0.f;
-      if (off >= 0) {
-        kx = to_float(kb[off + c]);
-        vx = to_float(vb[off + c]);
-      }
-      sk[r * DP + c] = kx;
-      sv[r * D + c] = vx;
-    }
-    __syncthreads();
-
-    // scores for every (head, key) pair of the tile
-    for (int i = tid; i < G * kBK; i += kThreads) {
-      const int g = i / kBK, j = i % kBK;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s = fmaf(sq[g * D + d], sk[j * DP + d], s);
-      ss[i] = (t0 + j < n) ? s * scale : kNegInf;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per head, two keys per lane
-    for (int g = warp; g < G; g += kThreads / 32) {
-      const float s0 = ss[g * kBK + lane];
-      const float s1 = ss[g * kBK + lane + 32];
-      float mx = fmaxf(s0, s1);
+  for (int g = 0; g < kG; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sm[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = (t0 + lane < n) ? expf(s0 - m_new) : 0.f;
-      const float p1 = (t0 + lane + 32 < n) ? expf(s1 - m_new) : 0.f;
-      ss[g * kBK + lane] = p0;
-      ss[g * kBK + lane + 32] = p1;
-      float sum = p0 + p1;
+    for (int i = 0; i < V; ++i) acc[g][i] = 0.f;
+  }
+
+  const long long rstride = (long long)Hkv * D;
+  const T* kb = k + (long long)kvh * D + c * V;
+  const T* vb = v + (long long)kvh * D + c * V;
+  constexpr int kStep = kWarps * RW * U;  // keys a block iteration
+  for (int t0 = t_lo + warp * RW * U; t0 < t_hi; t0 += kStep) {
+    uint4 kr[U], vr[U];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        sc[g] = corr;
-        sl[g] = sl[g] * corr + sum;
-        sm[g] = m_new;
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + u * RW + grp;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (has && t < t_hi) {
+        const long long off = rows.row(b, t) * rstride;
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + off));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + off));
       }
     }
-    __syncthreads();
-
-    // P.V into this thread's (head, column) accumulators
+    float s[U][kG];
 #pragma unroll
-    for (int a = 0; a < kAcc; ++a) {
-      const int i = tid + a * kThreads;
-      if (i < G * D) {
-        const int g = i / D, d = i % D;
-        float x = acc[a] * sc[g];
-        const float* pg = ss + g * kBK;
-#pragma unroll 8
-        for (int j = 0; j < kBK; ++j) x = fmaf(pg[j], sv[j * D + d], x);
-        acc[a] = x;
+    for (int u = 0; u < U; ++u) {
+      float kx[V];
+      unpack(kr[u], kx);
+      const bool live = t0 + u * RW + grp < t_hi;
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          float qv;
+          if constexpr (kQReg)
+            qv = qr[g][i];
+          else
+            qv = has ? sq[g * D + c * V + i] : 0.f;
+          dot = fmaf(qv, kx[i], dot);
+        }
+#pragma unroll
+        for (int off = LN / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[u][g] = live ? dot * scale : kNegInf;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      if (g >= G) break;
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][g]);
+      const float corr = expf(m[g] - mx);
+      float p[U];
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        p[u] = t0 + u * RW + grp < t_hi ? expf(s[u][g] - mx) : 0.f;
+        sum += p[u];
+      }
+      l[g] = fmaf(l[g], corr, sum);
+      m[g] = mx;
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[g][i] *= corr;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float vx[V];
+        unpack(vr[u], vx);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[g][i] = fmaf(p[u], vx[i], acc[g][i]);
       }
     }
   }
-  __syncthreads();  // sl is final (also when the loop never ran)
 
-  T* ob = out + ((long long)b * H + (long long)kvh * G) * D;
+  // merge the warp's lane groups (rows), then the four warps, in order
 #pragma unroll
-  for (int a = 0; a < kAcc; ++a) {
-    const int i = tid + a * kThreads;
-    if (i < G * D) {
-      const int g = i / D;
-      ob[i] = from_float<T>(acc[a] / fmaxf(sl[g], 1e-30f));
+  for (int off = LN; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mx = fmaxf(m[g], mo);
+      const float a = expf(m[g] - mx), bo = expf(mo - mx);
+      l[g] = fmaf(l[g], a, lo * bo);
+      m[g] = mx;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][i], off);
+        acc[g][i] = fmaf(acc[g][i], a, ao * bo);
+      }
+    }
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      if (has) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) sacc[warp][g][c * V + i] = acc[g][i];
+      }
+      if (c == 0) {
+        sml[warp][g][0] = m[g];
+        sml[warp][g][1] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D, dd = i % D;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sml[w][g][0]);
+    float lt = 0.f, at = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float a = expf(sml[w][g][0] - mx);
+      lt = fmaf(sml[w][g][1], a, lt);
+      at = fmaf(sacc[w][g][dd], a, at);
+    }
+    const long long o = ((long long)b * H + (long long)kvh * G + g) * nsplit +
+                        split;
+    part[o * D + dd] = at;
+    if (dd == 0) {
+      part_ml[2 * o] = mx;
+      part_ml[2 * o + 1] = lt;
     }
   }
 }
 
-template <typename T, int D, typename Rows>
+// One thread per output value: out[b, h, d] = sum_s w_s acc_s[d] /
+// max(sum_s w_s l_s, 1e-30), w_s = exp(m_s - max m), over the slot's live
+// splits in order; a slot with no live key gets exact zeros.
+template <typename T, typename Rows>
+__global__ void __launch_bounds__(kCombineThreads)
+decode_combine(const float* __restrict__ part,
+               const float* __restrict__ part_ml, Rows rows,
+               const int* __restrict__ lengths,
+               const unsigned char* __restrict__ active, T* __restrict__ out,
+               int B, int H, int D, int nsplit) {
+  const long long i = (long long)blockIdx.x * kCombineThreads + threadIdx.x;
+  if (i >= (long long)B * H * D) return;
+  const long long bh = i / D;
+  const int dd = static_cast<int>(i % D);
+  const int b = static_cast<int>(bh / H);
+  const int n = live_length(rows, lengths, active, b);
+  const int ns = (n + kSplit - 1) / kSplit;
+  const float* ml = part_ml + bh * nsplit * 2;
+  const float* p = part + bh * nsplit * D + dd;
+  float mx = kNegInf;
+  for (int s = 0; s < ns; ++s) mx = fmaxf(mx, ml[2 * s]);
+  float lt = 0.f, at = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    const float w = expf(ml[2 * s] - mx);
+    lt = fmaf(w, ml[2 * s + 1], lt);
+    at = fmaf(w, p[(long long)s * D], at);
+  }
+  out[i] = from_float<T>(at / fmaxf(lt, 1e-30f));
+}
+
+template <typename T, int D, int kG, typename Rows>
 cudaError_t launch(const void* q, const void* k, const void* v, Rows rows,
-                   const int* lengths, const unsigned char* active, void* out,
-                   int B, int H, int Hkv, float scale, cudaStream_t stream) {
-  const int smem = smem_bytes<D>(H / Hkv);
-  auto kernel = decode_kernel<T, D, Rows>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(B, Hkv);
-  kernel<<<grid, kThreads, smem, stream>>>(
+                   const int* lengths, const unsigned char* active,
+                   float* part, float* part_ml, void* out, int B, int H,
+                   int Hkv, int nsplit, float scale, cudaStream_t stream) {
+  dim3 grid(nsplit, Hkv, B);
+  decode_partial<T, D, kG, Rows><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), rows, lengths, active, static_cast<T*>(out),
-      H, Hkv, scale);
+      static_cast<const T*>(v), rows, lengths, active, part, part_ml, H, Hkv,
+      nsplit, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long total = (long long)B * H * D;
+  const int blocks =
+      static_cast<int>((total + kCombineThreads - 1) / kCombineThreads);
+  decode_combine<T, Rows><<<blocks, kCombineThreads, 0, stream>>>(
+      part, part_ml, rows, lengths, active, static_cast<T*>(out), B, H, D,
+      nsplit);
   return cudaGetLastError();
 }
 
-// Checks the head counts, then dispatches on dtype and head_dim (a template
-// argument: 16, 32, 64, 112 or 128). Returns the CUDA error code of the
-// launch.
+template <typename T, int D, typename Rows>
+cudaError_t launch_g(int G, const void* q, const void* k, const void* v,
+                     Rows rows, const int* lengths,
+                     const unsigned char* active, float* part,
+                     float* part_ml, void* out, int B, int H, int Hkv,
+                     int nsplit, float scale, cudaStream_t stream) {
+  if (G == 1)
+    return launch<T, D, 1, Rows>(q, k, v, rows, lengths, active, part,
+                                 part_ml, out, B, H, Hkv, nsplit, scale,
+                                 stream);
+  if (G <= 4)
+    return launch<T, D, 4, Rows>(q, k, v, rows, lengths, active, part,
+                                 part_ml, out, B, H, Hkv, nsplit, scale,
+                                 stream);
+  return launch<T, D, kMaxG, Rows>(q, k, v, rows, lengths, active, part,
+                                   part_ml, out, B, H, Hkv, nsplit, scale,
+                                   stream);
+}
+
+// Checks the head counts and the scratch's split count, then dispatches on
+// dtype, head_dim (a template argument: 16, 32, 64, 112 or 128) and group.
+// part is (B, H, nsplit, D) f32 and part_ml (B, H, nsplit, 2) f32, nsplit
+// = ceil(rows.limit() / kSplit). Returns the CUDA error code of the
+// launches.
 template <typename Rows>
 int launch_any(const void* q, const void* k, const void* v, Rows rows,
-               const int* lengths, const unsigned char* active, void* out,
-               int B, int H, int Hkv, int D, float scale, int dtype,
-               void* stream) {
+               const int* lengths, const unsigned char* active, void* part,
+               void* part_ml, void* out, int B, int H, int Hkv, int D,
+               int nsplit, float scale, int dtype, void* stream) {
   if (B == 0 || H == 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxG)
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxG || rows.limit() < 1 ||
+      nsplit != (rows.limit() + kSplit - 1) / kSplit)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_DECODE_CASE(T, DD)                                            \
-  case DD:                                                                  \
-    return static_cast<int>(launch<T, DD, Rows>(q, k, v, rows, lengths,     \
-                                                active, out, B, H, Hkv,     \
-                                                scale, st));
+  float* pa = static_cast<float*>(part);
+  float* pm = static_cast<float*>(part_ml);
+  const int G = H / Hkv;
+#define REPRO_DECODE_CASE(T, DD)                                           \
+  case DD:                                                                 \
+    return static_cast<int>(launch_g<T, DD, Rows>(G, q, k, v, rows,        \
+                                                  lengths, active, pa, pm, \
+                                                  out, B, H, Hkv, nsplit,  \
+                                                  scale, st));
   if (dtype == REPRO_BF16) {
     switch (D) {
       REPRO_DECODE_CASE(__nv_bfloat16, 16)

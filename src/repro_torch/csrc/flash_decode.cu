@@ -10,19 +10,23 @@
 //
 // The kernel body is decode_kernel.cuh's, shared with paged_flash_decode.cu:
 // the slot cache is its identity table (key t of slot b is row b * Skv + t).
-// That header describes the design and what bounds it on the H100.
+// That header describes the design (split-KV at fixed 256-key boundaries
+// with a combine pass) and what bounds it on the H100.
 
 #include "decode_kernel.cuh"
 
 // q (B, H, D); cache_k, cache_v (B, Skv, Hkv, D); lengths (B,) int32;
-// active (B,) uint8 or null; out (B, H, D). Returns the CUDA error code of
-// the launch (0 = success).
+// active (B,) uint8 or null; part (B, H, nsplit, D) and part_ml (B, H,
+// nsplit, 2) f32 scratch, nsplit = ceil(Skv / 256); out (B, H, D). K and V
+// 16-byte aligned. Returns the CUDA error code of the launches (0 =
+// success).
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 const int* lengths,
-                                const unsigned char* active, void* out, int B,
-                                int H, int Hkv, int Skv, int D, float scale,
-                                int dtype, void* stream) {
+                                const unsigned char* active, void* part,
+                                void* part_ml, void* out, int B, int H,
+                                int Hkv, int Skv, int D, int nsplit,
+                                float scale, int dtype, void* stream) {
   return repro::decode::launch_any(q, k, v, repro::decode::ContiguousRows{Skv},
-                                   lengths, active, out, B, H, Hkv, D, scale,
-                                   dtype, stream);
+                                   lengths, active, part, part_ml, out, B, H,
+                                   Hkv, D, nsplit, scale, dtype, stream);
 }

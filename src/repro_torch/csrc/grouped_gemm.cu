@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel `grouped_gemm` (`_gemm_kernel`) of
 // src/repro/kernels/moe_gemm.py: per-expert matmuls with f32 accumulation
-// and the output in the input's dtype. One body serves both entry points
+// and the output in the input's dtype. One source serves both entry points
 // of repro_torch/kernels/moe_gemm.py:
 //   * segments: x (N, d) whose rows are grouped by expert (expert e's
 //     counts[e] rows right after expert e-1's), counts (E,) int32 on the
@@ -11,185 +11,88 @@
 //     three times per layer (gate, up, down).
 //   * the reference's (E, C, d) x (E, d, f) -> (E, C, f): uniform segments
 //     of C rows.
-// Rows past sum(counts) are not written.
+// Rows past sum(counts) are not written. d and f are multiples of 8
+// (DeepSeek's 2048 and 1408), x, w and out 16-byte aligned.
 //
 // The TPU kernel's grid was (E, C / bc, f / bf, d / bd) over a padded
-// (E, C, d) layout with the contraction as its sequential axis, and it
-// asserted d % 512 == 0 at its default tiles, which DeepSeek's expert
-// width 1408 = 11 x 128 fails. Here the grid is (ceil(N / BM) + E,
-// ceil(f / BN)), sized from N and E alone, so no host sync is needed to
-// learn the segment sizes. In each block one warp scans the E counts
-// (tiles per expert, ceil(count / BM), and rows before it) to find which
-// BM-row tile of which expert is its own; the grid's spare tiles, and so
-// the experts no row chose, return at once, and each BN-column strip of an
-// expert's weights is read only by the tiles of that expert. The
-// contraction walks 32-deep slices in a loop; ragged rows, columns and
-// depth are masked to zero, so any d and f that are multiples of 8 work
-// (2048 and 1408 alike).
+// (E, C, d) layout with the contraction as its sequential axis. Here the
+// segment sizes stay on the device: every block scans the E counts into
+// shared memory (tiles per expert and rows before it) and walks a work
+// list of (expert tile, column strip) items built from them, so no host
+// sync is needed and experts no row chose cost nothing.
 //
-// bf16 runs on the tensor cores through the WMMA API (mma.sync, 16 x 16 x
-// 16 fragments, f32 accumulators) on 128 x 128 tiles: eight warps of 32 x
-// 64, the x and w slices of the next 32-deep step copied into shared
-// memory with cp.async (16 bytes each, zero-filled past the edges) while
-// the tensor cores work on the current one (two stages); the wrapper
-// refuses widths that are not multiples of 8 and pointers that are not
-// 16-byte aligned, so every copy and store moves whole 16-byte chunks. f32
-// runs on the CUDA cores on 64 x 64 tiles (4 x 8 outputs a thread).
+// What bounds it on the H100: at a prefill wave (16 x 512 tokens x 6
+// choices = 49 152 rows, ~770 an expert) the tensor cores' bf16 rate
+// (283.5 GFLOP: 0.29 ms); at decode (16 x 6 = 96 rows over 64 experts, 1-2
+// an expert) the weight bytes over the memory rate (318 MB: 0.095 ms). The
+// first design (WMMA mma.sync on 128 x 128 tiles, two cp.async stages, one
+// block per tile) reached 16 % of the first bound and 35 % of the second:
+// mma.sync runs at a fraction of the wgmma rate, two stages hide little
+// latency, and at decode each block multiplied a whole 128-row tile of
+// padding for one or two rows.
 //
-// What bounds it on the H100: at decode (16 tokens x 6 choices = 96 rows
-// over 64 experts) nearly every expert's whole weights are read for one or
-// two rows, so it is bound by the weight bytes over the memory rate; at a
-// prefill wave (16 x 512 x 6 = 49 152 rows, ~770 per expert) it is bound by
-// the tensor cores' bf16 rate. mma.sync reaches a fraction of the wgmma
-// rate, and two stages hide only part of the load latency; a persistent
-// wgmma kernel fed by TMA is later work. PERF.md has its times.
+// The bf16 route now:
+//   * wgmma.mma_async on the tensor cores, fed by TMA (cp.async.bulk.tensor)
+//     into a ring of kStages shared-memory stages guarded by mbarriers
+//     (full: the producer's expect_tx and the TMA bytes; empty: every
+//     consumer thread's arrival). Each stage holds a 64-deep k-slice, 128
+//     bytes wide, 128B-swizzled. One producer thread issues the loads; one
+//     or two consumer warpgroups issue the wgmmas, keeping one k-slice's
+//     group in flight while they release the stage before it.
+//   * w (E, d, f) is read through a 3-D tensor map (f, d, E), so a k-slice
+//     past d is zero-filled by TMA instead of reading the next expert's
+//     weights; w's f is contiguous, so its tiles are MN-major in shared
+//     memory and wgmma takes them through its transpose bit (no copy of the
+//     weights). x is a 2-D map (d, N): rows past N are zero-filled.
+//   * A persistent grid, one block an SM (the wrapper passes the SM count):
+//     block i takes items i, i + grid, ...; the producer runs ahead into
+//     the next item's loads while the consumers store the last one.
+//   * Two tile shapes of one kernel template, chosen on the host from (N,
+//     E) alone (kernels/moe_gemm.py: gemm_shape):
+//       Wide (prefill): 128 rows x 128 columns an item, two consumer
+//       warpgroups of m64n128k16 (rows 0-63 and 64-127).
+//       Narrow, swap-AB (decode): out^T = w^T x^T. An item is 64 columns of
+//       one expert's f (wgmma's M side, from the weight tile) by 16 of its
+//       rows (a narrow N), one consumer warpgroup of m64n16k16: no tensor
+//       work goes to padding rows, and the kernel becomes a stream of
+//       weight bytes kept in flight by a deep ring.
+//   * Partial tiles: rows past an expert's segment belong to the next
+//     expert; they are loaded but never stored. Wide outputs leave through
+//     shared memory: a warpgroup whose 64 rows all belong to the item
+//     hands them to one TMA store and goes on to its next item while the
+//     store runs; a partial one copies its valid rows out in masked
+//     16-byte chunks (a TMA store would write the neighbour's rows).
+//     Narrow outputs (a few hundred KB a decode step) leave straight from
+//     registers under a row and column mask.
+//   * No split-K and no atomics: each output is one accumulator summed in
+//     k order, so two launches on the same inputs give the same bits.
+//
+// Measured on the H100 (PERF.md): at a prefill wave the load pipeline
+// alone, with no wgmma and no store, takes about as long as the whole
+// kernel: every 128 x 128 item streams its x and w k-slices out of the L2
+// again (~5 GB a wave, ~10 TB/s). Wider items or TMA multicast across a
+// cluster of blocks, which cut those bytes, are the next step.
+// f32 runs on the CUDA cores on 64 x 64 tiles (4 x 8 outputs a thread),
+// one block per (row tile + E spare, column strip), as before.
 
-#include <mma.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 
-#include <type_traits>
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace repro {
 namespace gemm {
 
-// rows, columns and threads of a block's tile, by dtype
-template <typename T>
-struct Tile;
-template <>
-struct Tile<float> {
-  static constexpr int BM = 64, BN = 64, kThreads = 128;
-};
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int BM = 128, BN = 128, kThreads = 256;
-};
-
-// 16 bytes global -> shared without passing through registers; src_size 0
-// zero-fills (the source address is then not read, but must be valid).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group
-}
-
-// two floats as the bits of a bf16 pair (the first in the low half)
-__device__ __forceinline__ unsigned pack2(float a, float b) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<unsigned*>(&t);
-}
-
-// bf16 tile: out[r, n0 + c] for r < rows, c < 128, on the tensor cores.
-__device__ void tile_bf16(const __nv_bfloat16* __restrict__ xb,
-                          const __nv_bfloat16* __restrict__ wb,
-                          __nv_bfloat16* __restrict__ ob, int rows, int d,
-                          int f, int n0) {
-  using namespace nvcuda;
-  using bf16 = __nv_bfloat16;
-  constexpr int BM = 128, BN = 128, BK = 32;
-  constexpr int LA = BK + 8;   // padded leading dims (multiples of 8)
-  constexpr int LB = BN + 8;
-  constexpr int kThreads = Tile<bf16>::kThreads;
-  // raw 16-bit storage: a __shared__ array takes no element constructor
-  __shared__ __align__(128) unsigned short As_raw[2 * BM * LA];
-  __shared__ __align__(128) unsigned short Bs_raw[2 * BK * LB];
-  __shared__ __align__(128) float Cs[kThreads / 32 * 16 * 16];
-  bf16* As = reinterpret_cast<bf16*>(As_raw);
-  bf16* Bs = reinterpret_cast<bf16*>(Bs_raw);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;  // 4 x 2 warps of 32 x 64
-  const int nk = (d + BK - 1) / BK;
-
-  auto load = [&](int stage, int k0) {
-    bf16* A = As + stage * BM * LA;
-    bf16* B = Bs + stage * BK * LB;
-    for (int ch = tid; ch < BM * BK / 8; ch += kThreads) {
-      const int r = ch / (BK / 8), kc = (ch % (BK / 8)) * 8;
-      const bool ok = r < rows && k0 + kc < d;  // d % 8 == 0: all 8 or none
-      cp_async16(A + r * LA + kc, ok ? xb + (long long)r * d + k0 + kc : xb,
-                 ok);
-    }
-    for (int ch = tid; ch < BK * BN / 8; ch += kThreads) {
-      const int r = ch / (BN / 8), nc = (ch % (BN / 8)) * 8;
-      const bool ok = k0 + r < d && n0 + nc < f;
-      cp_async16(B + r * LB + nc,
-                 ok ? wb + (long long)(k0 + r) * f + n0 + nc : wb, ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, (kt + 1) * BK);
-    cp_async_commit();     // (an empty group on the last step)
-    cp_async_wait_prev();  // step kt's copies have landed
-    __syncthreads();
-    const bf16* A = As + (kt & 1) * BM * LA;
-    const bf16* B = Bs + (kt & 1) * BK * LB;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-          fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], A + (wm * 32 + i * 16) * LA + kk, LA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], B + kk * LB + wn * 64 + j * 16, LB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();  // step kt's stage is free for step kt + 2's copies
-  }
-
-  // each warp writes its fragments through a 16 x 16 f32 scratch
-  float* cw = Cs + warp * 256;
-  const int r = lane / 2, c0 = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(cw, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = wm * 32 + i * 16 + r;
-      const int col = n0 + wn * 64 + j * 16 + c0;
-      if (row < rows && col < f) {  // f % 8 == 0: all 8 columns in range
-        const float* c = cw + r * 16 + c0;
-        *reinterpret_cast<uint4*>(ob + (long long)row * f + col) =
-            make_uint4(pack2(c[0], c[1]), pack2(c[2], c[3]),
-                       pack2(c[4], c[5]), pack2(c[6], c[7]));
-      }
-      __syncwarp();
-    }
-}
+// ------------------------------------------------------------- f32 ----
+constexpr int kF32BM = 64, kF32BN = 64, kF32Threads = 128;
 
 // f32 tile: out[r, n0 + c] for r < rows, c < 64, on the CUDA cores.
 __device__ void tile_f32(const float* __restrict__ xb,
                          const float* __restrict__ wb, float* __restrict__ ob,
                          int rows, int d, int f, int n0) {
-  constexpr int BM = Tile<float>::BM, BN = Tile<float>::BN;
-  constexpr int kThreads = Tile<float>::kThreads;
+  constexpr int BM = kF32BM, BN = kF32BN, kThreads = kF32Threads;
   constexpr int BK = 16;
   __shared__ float As[BK][BM + 4];  // depth-major: a column per row
   __shared__ float Bs[BK][BN + 4];
@@ -240,95 +143,608 @@ __device__ void tile_f32(const float* __restrict__ xb,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(Tile<T>::kThreads, 2)
-grouped_gemm_kernel(const T* __restrict__ x, const int* __restrict__ counts,
-                    const T* __restrict__ w, T* __restrict__ out, int N,
-                    int E, int d, int f) {
-  constexpr int BM = Tile<T>::BM, BN = Tile<T>::BN;
-  __shared__ int s_tile[3];  // expert, first row, rows
-  const int tid = threadIdx.x;
-
-  // warp 0: inclusive scans of tiles and rows per expert, 32 experts at a
-  // time; the lane whose expert's tile range holds this block's tile
-  // records it
-  if (tid < 32) {
-    const int lane = tid;
-    const int t = blockIdx.x;
-    if (lane == 0) s_tile[0] = -1;
-    __syncwarp();
-    int tiles_base = 0, rows_base = 0;
-    for (int e0 = 0; e0 < E; e0 += 32) {
-      const int e = e0 + lane;
-      const int c = e < E ? max(0, __ldg(counts + e)) : 0;
-      const int nt = (c + BM - 1) / BM;
-      int st = nt, sr = c;
+// Warp 0's inclusive scans of tiles and rows per expert, 32 experts at a
+// time: tile_lo[e] = tiles before expert e, row_lo[e] = rows before it,
+// tile_lo[E] and row_lo[E] the totals. Negative counts count as 0.
+__device__ void scan_counts(const int* __restrict__ counts, int E, int bm,
+                            int* tile_lo, int* row_lo) {
+  const int lane = threadIdx.x % 32;
+  int tiles_base = 0, rows_base = 0;
+  for (int e0 = 0; e0 < E; e0 += 32) {
+    const int e = e0 + lane;
+    const int c = e < E ? max(0, __ldg(counts + e)) : 0;
+    const int nt = (c + bm - 1) / bm;
+    int st = nt, sr = c;
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int a = __shfl_up_sync(0xffffffffu, st, off);
-        const int r = __shfl_up_sync(0xffffffffu, sr, off);
-        if (lane >= off) {
-          st += a;
-          sr += r;
-        }
+    for (int off = 1; off < 32; off <<= 1) {
+      const int a = __shfl_up_sync(0xffffffffu, st, off);
+      const int r = __shfl_up_sync(0xffffffffu, sr, off);
+      if (lane >= off) {
+        st += a;
+        sr += r;
       }
-      const int t_lo = tiles_base + st - nt;
-      if (t >= t_lo && t < t_lo + nt) {
-        const int k = t - t_lo;
-        s_tile[0] = e;
-        s_tile[1] = rows_base + sr - c + k * BM;
-        s_tile[2] = min(BM, c - k * BM);
+    }
+    if (e < E) {
+      tile_lo[e] = tiles_base + st - nt;
+      row_lo[e] = rows_base + sr - c;
+    }
+    tiles_base += __shfl_sync(0xffffffffu, st, 31);
+    rows_base += __shfl_sync(0xffffffffu, sr, 31);
+  }
+  if (lane == 0) {
+    tile_lo[E] = tiles_base;
+    row_lo[E] = rows_base;
+  }
+}
+
+// Which rows tile t is: the expert whose tile range holds it (the last e
+// with tile_lo[e] <= t, so experts with no tile are passed over), its first
+// row and its row count, cut at N. Returns the row count (<= 0: nothing).
+__device__ __forceinline__ int find_tile(const int* tile_lo,
+                                         const int* row_lo, int E, int bm,
+                                         int N, int t, int& e, int& row0) {
+  int lo = 0, hi = E - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (tile_lo[mid] <= t)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  e = lo;
+  const int k = t - tile_lo[e];
+  row0 = row_lo[e] + k * bm;
+  const int rows = min(bm, row_lo[e + 1] - row0);
+  return min(rows, N - row0);
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+grouped_gemm_f32(const float* __restrict__ x, const int* __restrict__ counts,
+                 const float* __restrict__ w, float* __restrict__ out, int N,
+                 int E, int d, int f) {
+  extern __shared__ int s_scan[];  // tile_lo[E + 1], row_lo[E + 1]
+  int* tile_lo = s_scan;
+  int* row_lo = s_scan + E + 1;
+  if (threadIdx.x < 32) scan_counts(counts, E, kF32BM, tile_lo, row_lo);
+  __syncthreads();
+  const int t = blockIdx.x;
+  if (t >= tile_lo[E]) return;  // a spare tile of the grid
+  int e, row0;
+  const int rows = find_tile(tile_lo, row_lo, E, kF32BM, N, t, e, row0);
+  if (rows <= 0) return;  // counts past N are cut at N
+  tile_f32(x + (long long)row0 * d, w + (long long)e * d * f,
+           out + (long long)row0 * f, rows, d, f, blockIdx.y * kF32BN);
+}
+
+// ------------------------------------------------------------ bf16 ----
+using bf16 = __nv_bfloat16;
+constexpr int kBK = 64;             // k-slice: 64 bf16 = 128 bytes
+constexpr int kBox = 64 * 128;      // one 64 x 128-byte TMA box, bytes
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed. A
+// pipeline that never completes the phase (a fault) stops the kernel with
+// an error after some seconds instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  for (long long n = 0; !mbar_try(a, parity); ++n)
+    if (n > (1ll << 26)) __trap();
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the bulk stores issued so far have read their shared-memory source
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// generic-proxy writes to shared memory become visible to TMA
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// a barrier of the 128 threads of one warpgroup (ids 1.., 0 is
+// __syncthreads')
+__device__ __forceinline__ void warpgroup_bar(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128B-swizzled operand: start
+// address, leading and stride byte offsets (all >> 4), layout 1 = 128B.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// m64nNk16, f32 += bf16 x bf16, A and B from shared memory; kTA / kTB set
+// wgmma's transpose bits (1 = the operand is MN-major in shared memory).
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_m64n16(float (&d)[8], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+// Prefill: 128 rows x 128 columns an item, two consumer warpgroups, each
+// m64n128k16 over 64 of the rows: A = the x tile (K-major), B = the w tile
+// (MN-major, two 64-column TMA boxes side by side).
+struct Wide {
+  static constexpr int kRows = 128, kCols = 128, kConsumers = 2;
+  static constexpr int kStages = 5;
+  static constexpr int kXBytes = kRows * 128;  // x: 128 rows x 128 B
+  static constexpr int kWBytes = (kCols / 64) * kBox;
+  static constexpr int kStageBytes = kXBytes + kWBytes;
+  static constexpr int kAcc = 64;  // m64n128: 64 f32 a thread
+
+  __device__ static void mma(float (&acc)[kAcc], const unsigned char* st,
+                             int cw) {
+    const unsigned char* a = st + cw * 64 * 128;
+    const unsigned char* b = st + kXBytes;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_m64n128<0, 1>(acc, smem_desc(a + kk * 32, 16, 1024),
+                          smem_desc(b + kk * 16 * 128, kBox, 1024));
+  }
+
+  // Each consumer warpgroup stages its 64 x 128 bf16 outputs in shared
+  // memory as two 64 x 64 boxes, 128B-swizzled as TMA lays them out (and
+  // free of bank conflicts for the accumulator layout's writes).
+  static constexpr int kStaging = kConsumers * 2 * kBox;
+
+  // accumulator (row r, column c) -> out[row0 + r, n0 + c]. A warpgroup
+  // whose 64 rows all belong to the item hands them to one TMA store and
+  // goes on to its next item while the store runs; a partial one (rows
+  // past the expert's segment are the next expert's) copies its valid
+  // rows out in 16-byte chunks. Columns past f are clipped by the tensor
+  // map or masked.
+  __device__ static void store(const float (&acc)[kAcc], unsigned char* stg,
+                               const CUtensorMap* tmo,
+                               bf16* __restrict__ out, int row0, int rows,
+                               int n0, int f, int cw, int ct) {
+    const int warp = ct / 32, lane = ct % 32;
+    stg += cw * 2 * kBox;
+    if (ct == 0) bulk_wait_read();  // the last store has left the staging
+    warpgroup_bar(1 + cw);
+#pragma unroll
+    for (int nb = 0; nb < kCols / 8; ++nb) {
+      const int box = nb / 8, c16 = nb % 8;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = warp * 16 + lane / 4 + 8 * i;
+        *reinterpret_cast<__nv_bfloat162*>(
+            stg + box * kBox + r * 128 + ((c16 ^ (r & 7)) << 4) +
+            (lane % 4) * 4) =
+            __floats2bfloat162_rn(acc[nb * 4 + i * 2],
+                                  acc[nb * 4 + i * 2 + 1]);
       }
-      tiles_base += __shfl_sync(0xffffffffu, st, 31);
-      rows_base += __shfl_sync(0xffffffffu, sr, 31);
+    }
+    fence_async_shared();
+    warpgroup_bar(1 + cw);
+    const int r0 = cw * 64;  // this warpgroup's first row of the item
+    if (rows >= r0 + 64) {
+      if (ct == 0) {
+        for (int box = 0; box < 2 && n0 + box * 64 < f; ++box)
+          tma_store_2d(tmo, stg + box * kBox, n0 + box * 64, row0 + r0);
+        bulk_commit();
+      }
+      return;
+    }
+    for (int idx = ct; idx < 2 * 64 * 8; idx += 128) {
+      const int box = idx / 512, r = (idx / 8) % 64, c16 = idx % 8;
+      const int col = n0 + box * 64 + c16 * 8;
+      if (r0 + r < rows && col < f)
+        *reinterpret_cast<uint4*>(out + (long long)(row0 + r0 + r) * f +
+                                  col) =
+            *reinterpret_cast<const uint4*>(stg + box * kBox + r * 128 +
+                                            ((c16 ^ (r & 7)) << 4));
     }
   }
-  __syncthreads();
-  const int e = s_tile[0];
-  if (e < 0) return;  // a spare tile of the grid
-  const int row0 = s_tile[1];
-  const int rows = min(s_tile[2], N - row0);  // counts past N are cut at N
-  if (rows <= 0) return;
-  const int n0 = blockIdx.y * BN;
-  const T* xb = x + (long long)row0 * d;
-  const T* wb = w + (long long)e * d * f;
-  T* ob = out + (long long)row0 * f;
-  if constexpr (std::is_same<T, float>::value)
-    tile_f32(xb, wb, ob, rows, d, f, n0);
-  else
-    tile_bf16(xb, wb, ob, rows, d, f, n0);
+};
+
+// Decode, swap-AB: 64 columns x 16 rows an item, one consumer warpgroup of
+// m64n16k16: A = the w tile (its 64 f columns as wgmma's M, MN-major), B =
+// the x tile (its 16 rows as N, K-major).
+struct Narrow {
+  static constexpr int kRows = 16, kCols = 64, kConsumers = 1;
+  static constexpr int kStages = 12;
+  static constexpr int kXBytes = kRows * 128;
+  static constexpr int kWBytes = kBox;
+  static constexpr int kStageBytes = kXBytes + kWBytes;
+  static constexpr int kAcc = 8;  // m64n16: 8 f32 a thread
+
+  __device__ static void mma(float (&acc)[kAcc], const unsigned char* st,
+                             int) {
+    const unsigned char* a = st + kXBytes;
+    const unsigned char* b = st;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_m64n16<1, 0>(acc, smem_desc(a + kk * 16 * 128, kBox, 1024),
+                         smem_desc(b + kk * 32, 16, 1024));
+  }
+
+  static constexpr int kStaging = 0;
+
+  // accumulator (column c of f, row r) -> out[row0 + r, n0 + c], straight
+  // from registers (a decode step's outputs are a few hundred KB)
+  __device__ static void store(const float (&acc)[kAcc], unsigned char*,
+                               const CUtensorMap*, bf16* __restrict__ out,
+                               int row0, int rows, int n0, int f, int,
+                               int ct) {
+    const int warp = ct / 32, lane = ct % 32;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int col = n0 + warp * 16 + lane / 4 + 8 * i;
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int r = nb * 8 + (lane % 4) * 2 + j;
+          if (r < rows && col < f)
+            out[(long long)(row0 + r) * f + col] =
+                __float2bfloat16(acc[nb * 4 + i * 2 + j]);
+        }
+    }
+  }
+};
+
+template <class Cfg>
+int smem_bytes(int E) {
+  return 1024 + Cfg::kStages * Cfg::kStageBytes + Cfg::kStaging +
+         2 * Cfg::kStages * 8 + 2 * (E + 1) * 4;
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const int* counts, const void* w,
-                   void* out, int N, int E, int d, int f,
-                   cudaStream_t stream) {
-  constexpr int BM = Tile<T>::BM, BN = Tile<T>::BN;
-  dim3 grid((N + BM - 1) / BM + E, (f + BN - 1) / BN);
-  grouped_gemm_kernel<T><<<grid, Tile<T>::kThreads, 0, stream>>>(
-      static_cast<const T*>(x), counts, static_cast<const T*>(w),
-      static_cast<T*>(out), N, E, d, f);
+// Warpgroup 0 is the producer (one thread issues every TMA load); the
+// warpgroups after it are the consumers. Both walk the same work list:
+// item it = (tile it / strips, column strip it % strips).
+template <class Cfg>
+__global__ void __launch_bounds__((Cfg::kConsumers + 1) * 128, 1)
+grouped_gemm_bf16(const __grid_constant__ CUtensorMap tmx,
+                  const __grid_constant__ CUtensorMap tmw,
+                  const __grid_constant__ CUtensorMap tmo,
+                  const int* __restrict__ counts, bf16* __restrict__ out,
+                  int N, int E, int d, int f) {
+  constexpr int S = Cfg::kStages, SB = Cfg::kStageBytes;
+  extern __shared__ unsigned char smem_raw[];
+  // 128B-swizzled TMA boxes and wgmma operands want 1024-byte alignment
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* staging = smem + S * SB;  // the wide epilogue's
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + Cfg::kStaging);
+  uint64_t* empty = full + S;
+  int* tile_lo = reinterpret_cast<int*>(empty + S);
+  int* row_lo = tile_lo + E + 1;
+
+  const int tid = threadIdx.x;
+  if (tid < 32) scan_counts(counts, E, Cfg::kRows, tile_lo, row_lo);
+  if (tid == 32) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, Cfg::kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int strips = (f + Cfg::kCols - 1) / Cfg::kCols;
+  const int items = tile_lo[E] * strips;
+  const int nk = (d + kBK - 1) / kBK;
+  const int wg = tid / 128;
+  int stage = 0;
+  uint32_t phase = 0;
+
+  if (wg == 0) {
+    if (tid != 0) return;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      int e, row0;
+      if (find_tile(tile_lo, row_lo, E, Cfg::kRows, N, it / strips, e,
+                    row0) <= 0)
+        continue;
+      const int n0 = (it % strips) * Cfg::kCols;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(empty + stage, phase ^ 1);  // the consumers freed it
+        unsigned char* st = smem + stage * SB;
+        mbar_expect_tx(full + stage, SB);
+        tma_load_2d(st, &tmx, full + stage, kb * kBK, row0);
+#pragma unroll
+        for (int j = 0; j < Cfg::kCols / 64; ++j)
+          tma_load_3d(st + Cfg::kXBytes + j * kBox, &tmw, full + stage,
+                      n0 + j * 64, kb * kBK, e);
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int cw = wg - 1;
+  const int ct = tid % 128;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int e, row0;
+    const int rows = find_tile(tile_lo, row_lo, E, Cfg::kRows, N,
+                               it / strips, e, row0);
+    if (rows <= 0) continue;
+    const int n0 = (it % strips) * Cfg::kCols;
+    float acc[Cfg::kAcc];
+#pragma unroll
+    for (int i = 0; i < Cfg::kAcc; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(full + stage, phase);  // this k-slice has landed
+      wgmma_fence();
+      Cfg::mma(acc, smem + stage * SB, cw);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous k-slice's products are done
+      if (prev >= 0) mbar_arrive(empty + prev);
+      prev = stage;
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    mbar_arrive(empty + prev);
+    Cfg::store(acc, staging, &tmo, out, row0, rows, n0, f, cw, ct);
+  }
+  if (Cfg::kStaging && ct == 0) bulk_wait();  // the last TMA stores
+}
+
+// ------------------------------------------------------------- host ----
+using EncodeFn = PFN_cuTensorMapEncodeTiled_v12000;
+
+EncodeFn encode_fn() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeFn>(p);
+  }
+  return fn;
+}
+
+// x as a 2-D (d, N) map of (64, rows) boxes; w as a 3-D (f, d, E) map of
+// (64, 64, 1) boxes; both 128B-swizzled, out-of-range elements read as 0.
+bool encode_maps(CUtensorMap* mx, CUtensorMap* mw, const void* x,
+                 const void* w, int N, int E, int d, int f, int rows) {
+  EncodeFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint32_t one[3] = {1, 1, 1};
+  const cuuint64_t xdim[2] = {(cuuint64_t)d, (cuuint64_t)N};
+  const cuuint64_t xstride[1] = {(cuuint64_t)d * 2};
+  const cuuint32_t xbox[2] = {64, (cuuint32_t)rows};
+  const cuuint64_t wdim[3] = {(cuuint64_t)f, (cuuint64_t)d, (cuuint64_t)E};
+  const cuuint64_t wstride[2] = {(cuuint64_t)f * 2, (cuuint64_t)d * f * 2};
+  const cuuint32_t wbox[3] = {64, 64, 1};
+  CUresult rx = fn(mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                   const_cast<void*>(x), xdim, xstride, xbox, one,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult rw = fn(mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                   const_cast<void*>(w), wdim, wstride, wbox, one,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rx == CUDA_SUCCESS && rw == CUDA_SUCCESS;
+}
+
+// out as a 2-D (f, N) map of (64, 64) boxes, 128B-swizzled: the wide
+// epilogue's TMA stores, clipped at f and N.
+bool encode_out_map(CUtensorMap* mo, void* out, int N, int f) {
+  EncodeFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint32_t one[2] = {1, 1};
+  const cuuint64_t dim[2] = {(cuuint64_t)f, (cuuint64_t)N};
+  const cuuint64_t stride[1] = {(cuuint64_t)f * 2};
+  const cuuint32_t box[2] = {64, 64};
+  return fn(mo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out, dim, stride, box,
+            one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <class Cfg>
+cudaError_t launch_bf16(const void* x, const int* counts, const void* w,
+                        void* out, int N, int E, int d, int f, int grid,
+                        cudaStream_t stream) {
+  CUtensorMap mx, mw, mo = {};
+  if (!encode_maps(&mx, &mw, x, w, N, E, d, f, Cfg::kRows) ||
+      (Cfg::kStaging && !encode_out_map(&mo, out, N, f)))
+    return cudaErrorInvalidValue;
+  auto kernel = grouped_gemm_bf16<Cfg>;
+  const int smem = smem_bytes<Cfg>(E);
+  static int smem_allowed = 0;  // the largest limit set so far
+  if (smem > smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_allowed = smem;
+  }
+  kernel<<<grid, (Cfg::kConsumers + 1) * 128, smem, stream>>>(
+      mx, mw, mo, counts, static_cast<bf16*>(out), N, E, d, f);
   return cudaGetLastError();
 }
+
+cudaError_t launch_f32(const void* x, const int* counts, const void* w,
+                       void* out, int N, int E, int d, int f,
+                       cudaStream_t stream) {
+  dim3 grid((N + kF32BM - 1) / kF32BM + E, (f + kF32BN - 1) / kF32BN);
+  const int smem = 2 * (E + 1) * 4;
+  grouped_gemm_f32<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(x), counts, static_cast<const float*>(w),
+      static_cast<float*>(out), N, E, d, f);
+  return cudaGetLastError();
+}
+
+constexpr int kMaxE = 4096;  // experts whose scan fits in shared memory
 
 }  // namespace gemm
 }  // namespace repro
 
 // x (N, d) rows grouped by expert; counts (E,) int32; w (E, d, f); out
-// (N, f); d and f multiples of 8, x, w and out 16-byte aligned. Returns
-// the CUDA error code of the launch (0 = success).
+// (N, f); d and f multiples of 8, x, w and out 16-byte aligned. bf16:
+// shape 0 = wide (prefill), 1 = narrow swap-AB (decode), on a persistent
+// grid of `grid` blocks (the SM count); f32 ignores both. Returns the CUDA
+// error code of the launch (0 = success).
 extern "C" int grouped_gemm_fwd(const void* x, const int* counts,
                                 const void* w, void* out, int N, int E, int d,
-                                int f, int dtype, void* stream) {
+                                int f, int dtype, int shape, int grid,
+                                void* stream) {
   if (N == 0 || f == 0) return 0;
-  if (E < 1 || d < 1 || N < 0 || f < 0 || d % 8 != 0 || f % 8 != 0)
+  if (E < 1 || E > repro::gemm::kMaxE || d < 1 || N < 0 || f < 0 ||
+      d % 8 != 0 || f % 8 != 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_BF16)
-    return static_cast<int>(repro::gemm::launch<__nv_bfloat16>(
-        x, counts, w, out, N, E, d, f, st));
+  if (dtype == REPRO_BF16) {
+    if (grid < 1) return cudaErrorInvalidValue;
+    if (shape == 0)
+      return static_cast<int>(repro::gemm::launch_bf16<repro::gemm::Wide>(
+          x, counts, w, out, N, E, d, f, grid, st));
+    if (shape == 1)
+      return static_cast<int>(repro::gemm::launch_bf16<repro::gemm::Narrow>(
+          x, counts, w, out, N, E, d, f, grid, st));
+    return cudaErrorInvalidValue;
+  }
   if (dtype == REPRO_F32)
     return static_cast<int>(
-        repro::gemm::launch<float>(x, counts, w, out, N, E, d, f, st));
+        repro::gemm::launch_f32(x, counts, w, out, N, E, d, f, st));
   return cudaErrorInvalidValue;
 }

@@ -5,10 +5,14 @@ Port of ``repro.kernels.decode_attention``'s ``flash_decode`` (the Pallas
 The kernels are ``csrc/flash_decode.cu`` (one query token per slot against
 the contiguous slot cache, per-slot valid lengths, an optional active mask)
 and ``csrc/paged_flash_decode.cu`` (the same against the paged pool read
-through a per-slot page table); both run ``csrc/decode_kernel.cuh``, the G
-grouped query heads of a KV head in one block. ``paged_mla_decode`` (the
-Pallas ``_paged_mla_kernel``) is ``csrc/paged_mla_decode.cu``: DeepSeek's
-absorbed MLA decode over the paged latents, output in latent space.
+through a per-slot page table); both run ``csrc/decode_kernel.cuh``:
+split-KV over fixed 256-key ranges (``decode_splits``), a partial pass
+whose blocks each take one (split, KV head, slot) and a combine pass that
+weighs a slot's splits in order. ``splitkv_decode_plain`` is the same
+split-and-combine arithmetic in plain torch, for the CPU tests.
+``paged_mla_decode`` (the Pallas ``_paged_mla_kernel``) is
+``csrc/paged_mla_decode.cu``: DeepSeek's absorbed MLA decode over the
+paged latents, output in latent space.
 """
 
 from __future__ import annotations
@@ -24,10 +28,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 112, 128)
 MAX_GROUP = 16  # query heads per KV head one block handles (kMaxG)
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+DECODE_SPLIT = 256    # keys a split of the GQA decode kernel (kSplit)
+
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _PAGED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
-    ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
+    ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _MLA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [
     ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
@@ -76,6 +82,8 @@ def _check_q(kernel: str, q: torch.Tensor, k: torch.Tensor,
                          f"{MAX_GROUP}) not supported")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{kernel} kernel: q and K/V must be contiguous")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{kernel} kernel: K/V must be 16-byte aligned")
     if (lengths.dtype != torch.int32 or lengths.shape != (B,)
             or not lengths.is_contiguous()):
         raise ValueError(f"{kernel} kernel: lengths must be a contiguous "
@@ -97,6 +105,66 @@ def check_inputs(q: torch.Tensor, cache_k: torch.Tensor,
                          "(B,) bool tensor on q's device")
 
 
+def decode_splits(capacity: int) -> int:
+    """Key ranges of the GQA decode kernel over a cache of ``capacity``
+    keys (the slot cache's Skv, or a page table's n * P): split s covers
+    keys [256 s, 256 (s + 1)). The boundaries are fixed key positions, so
+    a slot's keys fall into the same splits in the slot cache and in the
+    paged pool whatever their capacities; the capacity sets only how many
+    splits the scratch holds."""
+    return -(-capacity // DECODE_SPLIT)
+
+
+def splitkv_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor, *, scale: float,
+                         split: int = DECODE_SPLIT) -> torch.Tensor:
+    """The decode kernels' split-and-combine arithmetic in plain torch, f32:
+    q (B, H, D) against k, v (B, T, Hkv, D) with keys at or past
+    ``lengths[b]`` masked. Each ``split``-key range gives an unnormalised
+    accumulator and its (m, l); the live ranges are weighed by exp(m_s -
+    max m) in order and divided by max(l, 1e-30). A slot of length 0 gets
+    zeros."""
+    B, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    n = lengths.long()[:, None]                                  # (B, 1)
+    s_all = torch.einsum("bhd,bthd->bht", q.float(), kf) * scale
+    dev = q.device
+    m_tot = torch.full((B, H), -1e30, device=dev)
+    parts = []
+    for lo in range(0, T, split):
+        pos = torch.arange(lo, min(lo + split, T), device=dev)
+        mask = (pos[None, :] < n)[:, None, :]                    # (B, 1, s)
+        s = torch.where(mask, s_all[..., lo:lo + split],
+                        torch.full((), -1e30, device=dev))
+        m = s.amax(dim=-1)                                       # (B, H)
+        p = torch.where(mask, torch.exp(s - m[..., None]),
+                        torch.zeros((), device=dev))
+        acc = torch.einsum("bht,bthd->bhd", p, vf[:, lo:lo + split])
+        live = (lo < n)                                          # (B, 1)
+        parts.append((m, p.sum(dim=-1), acc, live))
+        m_tot = torch.where(live, torch.maximum(m_tot, m), m_tot)
+    l_tot = torch.zeros((B, H), device=dev)
+    a_tot = torch.zeros((B, H, D), device=dev)
+    for m, l, acc, live in parts:
+        w = torch.where(live, torch.exp(m - m_tot),
+                        torch.zeros((), device=dev))
+        l_tot = l_tot + w * l
+        a_tot = a_tot + w[..., None] * acc
+    return a_tot / torch.clamp(l_tot, min=1e-30)[..., None]
+
+
+def _decode_scratch(B: int, H: int, D: int, nsplit: int,
+                    dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partial pass's f32 accumulators (B, H, nsplit, D) and (m, l)
+    (B, H, nsplit, 2), in one allocation."""
+    n = B * H * nsplit
+    buf = torch.empty(n * (D + 2), dtype=torch.float32, device=dev)
+    return buf[:n * D], buf[n * D:]
+
+
 def flash_decode_cuda(q: torch.Tensor, cache_k: torch.Tensor,
                       cache_v: torch.Tensor, lengths: torch.Tensor, *,
                       scale: float,
@@ -107,14 +175,16 @@ def flash_decode_cuda(q: torch.Tensor, cache_k: torch.Tensor,
     check_inputs(q, cache_k, cache_v, lengths, active)
     B, H, D = q.shape
     Skv, Hkv = cache_k.shape[1], cache_k.shape[2]
+    nsplit = decode_splits(Skv)
+    part, part_ml = _decode_scratch(B, H, D, nsplit, q.device)
     out = torch.empty_like(q)
     lib = _lib("flash_decode", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_decode_fwd(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
         lengths.data_ptr(), active.data_ptr() if active is not None else None,
-        out.data_ptr(), B, H, Hkv, Skv, D, float(scale), _DTYPES[q.dtype],
-        stream)
+        part.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, Hkv, Skv,
+        D, nsplit, float(scale), _DTYPES[q.dtype], stream)
     build.check(lib, "flash_decode", code)
     return out
 
@@ -158,13 +228,16 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     P, Hkv = k_pages.shape[1], k_pages.shape[2]
     n = page_table.shape[1]
     stride = page_table.stride(0) if B > 1 else n
+    nsplit = decode_splits(n * P)
+    part, part_ml = _decode_scratch(B, H, D, nsplit, q.device)
     out = torch.empty_like(q)
     lib = _lib("paged_flash_decode", _PAGED_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.paged_flash_decode_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), stride, n, P, lengths.data_ptr(),
-        out.data_ptr(), B, H, Hkv, D, float(scale), _DTYPES[q.dtype], stream)
+        part.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, Hkv, D,
+        nsplit, float(scale), _DTYPES[q.dtype], stream)
     build.check(lib, "paged_flash_decode", code)
     return out
 

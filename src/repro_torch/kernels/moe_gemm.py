@@ -13,20 +13,38 @@ points:
 
 Both accumulate in f32 and return x's dtype; f32 or bf16; d and f
 multiples of 8 (DeepSeek's 2048 and 1408 are), every tensor 16-byte
-aligned, so the kernel moves whole 16-byte chunks.
+aligned, as TMA requires. The bf16 kernel runs on a persistent grid of one
+block an SM, in one of two tile shapes that ``gemm_shape`` picks from (N,
+E) alone, never from the counts on the device: "wide" 128 x 128 tiles for
+prefill waves, "narrow" swap-AB 64-column x 16-row tiles for decode steps,
+where each expert gets a row or two.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SHAPES = {"wide": 0, "narrow": 1}
+# the narrow (swap-AB) shape up to this many rows an expert on average
+NARROW_MAX_ROWS = 16
+MAX_EXPERTS = 4096  # kMaxE: the experts whose scan fits in shared memory
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SMS: Dict[int, int] = {}
+
+
+def gemm_shape(N: int, E: int) -> str:
+    """The bf16 kernel's tile shape for N rows over E experts: "narrow"
+    (64 columns of an expert's f by 16 of its rows, the weights streamed)
+    when the experts average at most NARROW_MAX_ROWS rows, else "wide"
+    (128 rows x 128 columns on the tensor cores)."""
+    return "narrow" if N <= NARROW_MAX_ROWS * E else "wide"
 
 
 def _lib():
@@ -67,22 +85,40 @@ def check_inputs(x: torch.Tensor, counts: torch.Tensor,
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("grouped_gemm kernel: x and w must be 16-byte "
                          "aligned")
+    if E > MAX_EXPERTS:
+        raise ValueError(f"grouped_gemm kernel: {E} experts (takes at most "
+                         f"{MAX_EXPERTS})")
 
 
 def grouped_gemm_segments_cuda(x: torch.Tensor, counts: torch.Tensor,
-                               w: torch.Tensor) -> torch.Tensor:
+                               w: torch.Tensor,
+                               out: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """x (N, d) grouped by expert; counts (E,) int32; w (E, d, f) -> (N, f)
-    in x's dtype. Rows past sum(counts) are left unwritten. Launches the
-    kernel; raises on a refused launch."""
+    in x's dtype, into ``out`` when given (a contiguous (N, f) tensor of
+    x's dtype and device). Rows past sum(counts) are left unwritten.
+    Launches the kernel; raises on a refused launch."""
     check_inputs(x, counts, w)
     N, d = x.shape
     E, f = w.shape[0], w.shape[2]
-    out = torch.empty((N, f), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((N, f), dtype=x.dtype, device=x.device)
+    elif (out.shape != (N, f) or out.dtype != x.dtype
+          or out.device != x.device or not out.is_contiguous()
+          or out.data_ptr() % 16):
+        raise ValueError(f"grouped_gemm kernel: out must be a contiguous, "
+                         f"16-byte aligned ({N}, {f}) {x.dtype} tensor on "
+                         f"x's device")
+    dev = x.device.index
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.grouped_gemm_fwd(x.data_ptr(), counts.data_ptr(),
                                 w.data_ptr(), out.data_ptr(), N, E, d, f,
-                                _DTYPES[x.dtype], stream)
+                                _DTYPES[x.dtype], _SHAPES[gemm_shape(N, E)],
+                                _SMS[dev], stream)
     build.check(lib, "grouped_gemm", code)
     return out
 

@@ -192,6 +192,123 @@ def test_cuda_flash_attention_q_offset_matches_plain(cuda, H, Hkv, D, dtype):
     assert float((out.float() - exp.float()).abs().max()) < TOL[dtype]
 
 
+def _slot_as_pages(ck, cv, page, npages, seed):
+    """The slot cache's K/V (B, Skv, Hkv, D) laid out in a pool of pages
+    scattered at random, each slot's table npages wide (its columns past
+    Skv / page name the poisoned TRASH page, the pool's last)."""
+    B, Skv, Hkv, D = ck.shape
+    used = Skv // page
+    total = B * used
+    perm = torch.as_tensor(np.random.RandomState(seed).permutation(total),
+                           device=ck.device)
+    kp = torch.full((total + 1, page, Hkv, D), 1e4, dtype=ck.dtype,
+                    device=ck.device)
+    vp = kp.clone()
+    kp[perm] = ck.reshape(total, page, Hkv, D)
+    vp[perm] = cv.reshape(total, page, Hkv, D)
+    pt = torch.full((B, npages), total, dtype=torch.int32, device=ck.device)
+    pt[:, :used] = perm.reshape(B, used).to(torch.int32)
+    return kp, vp, pt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page,npages", [(64, 20), (16, 80), (7, 150)])
+@pytest.mark.parametrize("H,Hkv,D", [(32, 32, 64), (32, 32, 112),
+                                     (8, 2, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_slot_and_paged_bitwise_equal(cuda, page, npages, H,
+                                                  Hkv, D, dtype):
+    """The slot cache (Skv 1024, or 1022 = 146 pages of 7) and a page table
+    of another capacity (n * P = 1280, 1280, 1050) holding the same K/V
+    give the same bits: both sum a slot's keys over the same fixed 256-key
+    splits in the same order. Lengths on and next to split boundaries, a
+    full cache, an empty slot."""
+    Skv = 1024 if 1024 % page == 0 else (1024 // page) * page
+    B = 8
+    q = _rand(0, (B, H, D), cuda, dtype)
+    ck = _rand(1, (B, Skv, Hkv, D), cuda, dtype)
+    cv = _rand(2, (B, Skv, Hkv, D), cuda, dtype)
+    kp, vp, pt = _slot_as_pages(ck, cv, page, npages, 3)
+    assert npages * page != Skv
+    lengths = torch.tensor([0, 1, 255, 256, 257, 512, 700, Skv],
+                           dtype=torch.int32, device=cuda)
+    slot = ops.flash_decode(q, ck, cv, lengths, scale=D ** -0.5)
+    paged = ops.paged_flash_decode(q, kp, vp, pt, lengths, scale=D ** -0.5)
+    assert torch.equal(slot, paged)
+    exp = ref.flash_decode_ref(q, ck, cv, lengths, scale=D ** -0.5)
+    assert float((slot.float() - exp.float()).abs().max()) < TOL[dtype]
+    assert float(slot[0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_split_boundaries_and_determinism(cuda, dtype):
+    """Lengths at split - 1, split, split + 1, two splits and a full cache
+    against the plain version; empty and inactive slots exact zeros; two
+    launches of either entry point give the same bits."""
+    from repro_torch.kernels.decode_attention import DECODE_SPLIT as SP
+    B, H, Hkv, D, Skv = 8, 16, 4, 64, 4 * SP
+    q = _rand(4, (B, H, D), cuda, dtype)
+    ck = _rand(5, (B, Skv, Hkv, D), cuda, dtype)
+    cv = _rand(6, (B, Skv, Hkv, D), cuda, dtype)
+    lengths = torch.tensor([SP - 1, SP, SP + 1, 2 * SP, Skv, 0, 3 * SP + 1,
+                            SP], dtype=torch.int32, device=cuda)
+    active = torch.tensor([True] * 7 + [False], device=cuda)
+    kw = dict(scale=D ** -0.5, active=active)
+    out = ops.flash_decode(q, ck, cv, lengths, **kw)
+    exp = ref.flash_decode_ref(q, ck, cv, lengths, **kw)
+    assert float((out.float() - exp.float()).abs().max()) < TOL[dtype]
+    assert float(out[5:8:2].abs().max()) == 0.0
+    assert torch.equal(out, ops.flash_decode(q, ck, cv, lengths, **kw))
+    kp, vp, pt = _slot_as_pages(ck, cv, 32, Skv // 32 + 3, 7)
+    paged = ops.paged_flash_decode(q, kp, vp, pt, lengths, scale=D ** -0.5)
+    assert torch.equal(paged, ops.paged_flash_decode(q, kp, vp, pt, lengths,
+                                                     scale=D ** -0.5))
+    assert torch.equal(paged[:7], out[:7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["narrow", "wide"])
+@pytest.mark.parametrize("counts,d,f", [
+    ([1, 2, 0, 1, 0, 0, 2, 1] * 8, 2048, 1408),        # a decode step
+    ([5, 130, 3, 0, 200, 17, 0, 64], 1408, 2048),      # mid-tile segments
+    ([40, 0, 77, 9], 1000, 200),                       # depth past 64 * k
+    ([300, 1, 0, 129], 136, 1408)])
+def test_cuda_grouped_gemm_both_shapes_match_plain(cuda, monkeypatch, shape,
+                                                   counts, d, f):
+    """Either tile shape, forced whatever (N, E) would choose, against the
+    plain version: decode-shaped segments of 1-2 rows with empty experts,
+    segments that start mid-tile, a depth no 64-deep k-slice divides read
+    through the 3-D tensor map (zero-filled past d, not the next expert's
+    weights), widths past the last 128-column strip. Output rows past
+    sum(counts) keep a poisoned fill; two launches give the same bits."""
+    from repro_torch.kernels import moe_gemm
+    monkeypatch.setattr(moe_gemm, "gemm_shape", lambda N, E: shape)
+    E, n = len(counts), sum(counts)
+    N = n + 24
+    x = _rand(0, (N, d), cuda, "bfloat16")
+    w = _rand(1, (E, d, f), cuda, "bfloat16") * d ** -0.5
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    out = torch.full((N, f), 7.0, dtype=torch.bfloat16, device=cuda)
+    moe_gemm.grouped_gemm_segments_cuda(x, cnt, w, out=out)
+    exp = ref.grouped_gemm_segments_ref(x[:n], cnt, w)
+    err = float((out[:n].float() - exp.float()).abs().max())
+    assert err <= _gemm_tol("bfloat16", d, exp)
+    assert bool((out[n:] == 7.0).all())
+    again = ops.grouped_gemm_segments(x, cnt, w)
+    assert torch.equal(again[:n], out[:n])
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_gemm_shape_choice_at_the_main_shapes(cuda):
+    """The wrapper picks the narrow shape at a decode step (96 rows over 64
+    experts) and the wide one at a fact-verification wave (3 072) and a
+    prefill wave (49 152), from (N, E) alone."""
+    from repro_torch.kernels.moe_gemm import gemm_shape
+    assert [gemm_shape(n, 64) for n in (96, 3072, 49152)] == [
+        "narrow", "wide", "wide"]
+
+
 @pytest.mark.cuda
 def test_cuda_paged_sharing_engine_kernels_match_plain(cuda):
     """Reduced smollm2 in f32, paged pool with prefix sharing: greedy output

@@ -255,6 +255,93 @@ def test_mla_key_splits_cover_the_table(B, H, max_keys):
     assert blocks >= min(4 * 132, B * -(-H // 2) * min(tiles, 64)) // 2
 
 
+@pytest.mark.parametrize("length", [0, 1, 255, 256, 257, 511, 512, 700,
+                                    1023, 1024])
+def test_decode_splits_cover_each_length_at_fixed_keys(length):
+    """The GQA decode kernels' key ranges: split s is keys [256 s, 256 s +
+    256) cut at the length, together covering [0, length) exactly once,
+    each starting inside the scratch of every capacity that holds the
+    length, the same ranges for a slot cache of 1024 keys and page tables
+    of other capacities (17 pages of 64, 7 of 160, 1 of 1024)."""
+    from repro_torch.kernels.decode_attention import (DECODE_SPLIT,
+                                                      decode_splits)
+    assert DECODE_SPLIT == 256
+    ranges = [(lo, min(lo + DECODE_SPLIT, length))
+              for lo in range(0, length, DECODE_SPLIT)]
+    assert sum(hi - lo for lo, hi in ranges) == length
+    assert all(lo == 256 * s and hi == min(lo + 256, length) and lo < hi
+               for s, (lo, hi) in enumerate(ranges))
+    for cap in (1024, 17 * 64, 7 * 160, 1024 * 1):
+        if length <= cap:
+            assert len(ranges) <= decode_splits(cap)
+            assert (decode_splits(cap) - 1) * 256 < cap <= \
+                decode_splits(cap) * 256
+    assert decode_splits(1024) == 4 and decode_splits(17 * 64) == 5
+
+
+@pytest.mark.parametrize("N,E,shape", [
+    (96, 64, "narrow"), (1, 64, "narrow"), (1024, 64, "narrow"),
+    (1025, 64, "wide"), (3072, 64, "wide"), (49152, 64, "wide"),
+    (12, 4, "narrow"), (4 * 256, 4, "wide")])
+def test_grouped_gemm_tile_shape_from_rows_and_experts(N, E, shape):
+    """The bf16 GEMM's tile shape is a function of (N, E) alone: narrow
+    (swap-AB) while the experts average at most 16 rows, as at a decode
+    step (16 tokens x 6 choices over 64 experts), else wide, as at the
+    fact-verification (3 072 rows) and prefill (49 152) waves."""
+    from repro_torch.kernels.moe_gemm import NARROW_MAX_ROWS, gemm_shape
+    assert NARROW_MAX_ROWS == 16
+    assert gemm_shape(N, E) == shape
+
+
+@pytest.mark.parametrize("B,H,Hkv,D,Skv,split", [
+    (3, 8, 2, 64, 600, 256), (3, 8, 2, 64, 600, 16), (2, 4, 4, 112, 300, 64),
+    (4, 16, 1, 32, 128, 32), (2, 4, 1, 16, 70, 7)])
+def test_split_kv_arithmetic_matches_reference(B, H, Hkv, D, Skv, split):
+    """The decode kernels' split-and-combine algebra in plain torch (f32):
+    per-split (m, l, unnormalised sum), weighed by exp(m_s - max m) in
+    split order, against the reference's flash_decode in interpret mode,
+    with empty slots, lengths on and next to a split boundary and a full
+    cache."""
+    from repro_torch.kernels.decode_attention import splitkv_decode_plain
+    qj, qt = _both(0, (B, H, D), "float32")
+    kj, kt = _both(1, (B, Skv, Hkv, D), "float32")
+    vj, vt = _both(2, (B, Skv, Hkv, D), "float32")
+    lengths = np.array([Skv, split, split + 1, 0][:B], np.int32)
+    exp = jops.flash_decode(qj, kj, vj, jnp.asarray(lengths),
+                            scale=D ** -0.5, block_k=Skv)
+    out = splitkv_decode_plain(qt, kt, vt, torch.from_numpy(lengths),
+                               scale=D ** -0.5, split=split)
+    assert _err(exp, out) < TOL["float32"]
+    if B > 3:
+        assert float(out[3].abs().max()) == 0.0
+
+
+def test_split_kv_paged_and_slot_sum_the_same_ranges():
+    """A slot's keys laid out in the slot cache and scattered over pages
+    of a table with another capacity give the same split-and-combine
+    result bit for bit (the plain rendition over the gathered rows), and
+    match the reference's paged kernel."""
+    from repro_torch.kernels.decode_attention import splitkv_decode_plain
+    B, H, Hkv, D, page, npages = 2, 4, 2, 64, 16, 40      # table: 640 keys
+    Skv = 512
+    kj, kt, vj, vt, pt = _paged_setup(3, B, npages, B * npages, page, Hkv,
+                                      D, "float32")
+    qj, qt = _both(0, (B, H, D), "float32")
+    lengths = np.array([Skv, 257], np.int32)
+    flat = torch.from_numpy(pt).long().reshape(-1)
+    k_rows = kt[flat].reshape(B, npages * page, Hkv, D)
+    v_rows = vt[flat].reshape(B, npages * page, Hkv, D)
+    ln = torch.from_numpy(lengths)
+    paged = splitkv_decode_plain(qt, k_rows, v_rows, ln, scale=D ** -0.5)
+    slot = splitkv_decode_plain(qt, k_rows[:, :Skv].contiguous(),
+                                v_rows[:, :Skv].contiguous(), ln,
+                                scale=D ** -0.5)
+    assert torch.equal(paged, slot)
+    exp = jops.paged_flash_decode(qj, kj, vj, jnp.asarray(pt),
+                                  jnp.asarray(lengths), scale=D ** -0.5)
+    assert _err(exp, paged) < TOL["float32"]
+
+
 def test_paged_mla_decode_inactive_slot_and_trash_poison():
     """A slot of length 0 gets exact zeros (the reference kernel: finite);
     columns past a slot's live pages that name a poisoned TRASH page change
