@@ -16,19 +16,23 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 at the main-path shapes and a few sweep shapes (the paged
                 decode over scattered pages, page sizes 7 and 16, GQA, a
                 poisoned TRASH page; the prefill with per-row query
-                offsets; the paged MLA decode at DeepSeek-V2-Lite's shape
-                and at pages of 7 and 16; the grouped expert GEMM at the
+                offsets, whose bf16 tail rows must equal a whole-prompt
+                call's bit for bit; the paged MLA decode at
+                DeepSeek-V2-Lite's shape and at pages of 7 and 16; the
+                grouped expert GEMM at the
                 reference's sweep and over rows sorted by expert at the
                 decode, prefill and fact-verification (e) dispatches; the
                 slot and paged decode on the same K/V, which must give the
-                same bits; the SSD scan at Zamba2's prefill waves, the
-                reference's sweep and a padded row; the prefill and decode
+                same bits; the SSD scan at Zamba2's prefill waves with B
+                and C per group (as its Mamba2 layers call it) and per
+                head, the reference's sweep and a padded row; the prefill
+                and decode
                 attention at Zamba2's head dim 112), with times beside the
                 least time the card could take (bound_ms), the achieved
                 TB/s or TFLOP/s, and a PyTorch library call computing the
-                same function where there is one (the decode kernels, the
-                grouped GEMM and their library calls timed as device time,
-                replayed from a CUDA graph, and also as eager launches);
+                same function where there is one (every kernel and its
+                library call timed as device time, replayed from a CUDA
+                graph, and also as eager launches);
   4. serve    - full-width SmolLM2-1.7B (seeded random weights, bf16)
                 with the kernels: (a) fact verification, 4 prompt templates
                 x 64 claims, one token each, and (b) 16 long prompts of
@@ -40,7 +44,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 launch counts set to 0 and must show its kernels ran; (a)-
                 (c) through use_kernels=False engines over the same
                 weights must agree; (c) must give (b)'s tokens and (d)'s
-                shared run its cold run's; torch.profiler over (b);
+                shared run its cold run's, first-token logits bitwise;
+                (b) and (c) served again at 32 new tokens, three times
+                with the megastep's per-step stop-flag read and three
+                without, alternating, for its cost in decode tok/s;
+                torch.profiler over (b);
   5. pcm      - a context's cold build, its demote to pinned host memory
                 and its restore, after which (b) decodes identically; then
                 the paged sharing engine of (d) demoted (weights and live
@@ -69,7 +77,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 head dim 112 in every application of the shared block),
                 against a use_kernels=False engine over the same weights:
                 the first-token logits gap and greedy agreement, and the
-                same in f32 with the depth cut to 7 layers; then
+                same in f32 with the depth cut to 7 layers; the plain
+                engine again with its attention rounding P to bf16 before
+                P.V, as the kernel does (a witness of what that rounding
+                adds to the gap); (h) served again with the stop-flag
+                read off and on, as (b); then
                 torch.profiler over (h)'s prompts at 16 new tokens. Its
                 demote/restore (about 19 GB of pinned host memory) is left
                 to the CPU tests.
@@ -101,6 +113,7 @@ from repro_torch.data import HashTokenizer, fever  # noqa: E402
 from repro_torch.data.tokenizer import BOS, LABEL_TOKENS  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import gemm_shape  # noqa: E402
+from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.serving import InferenceEngine, Request  # noqa: E402
@@ -145,10 +158,11 @@ ZAMBA_LOGIT_TOL = 3.0
 # the tail (7 layers), where only the order of f32 sums differs
 ZAMBA_F32_LOGIT_TOL = 2e-3
 # one H100 SXM (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor FLOP/s,
-# f32 FLOP/s outside the tensor cores (the SSD scan's f32 contract)
+# and the SSD scan's rate: f32-accurate products in 3xTF32, three TF32
+# tensor-core MMAs each (TF32 peak 495 TFLOP/s), the route its kernel takes
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
+TF32X3_FLOPS = 495e12 / 3
 # the SSD scan against its plain version, max-abs: the reference's own bound
 # (tests/test_kernels.py::test_ssd_scan_sweep) on outputs of size ~10-100
 SSD_TOL = 2e-3
@@ -311,12 +325,14 @@ def gemm_bound(counts, d, f, elt):
     return nbytes, 2.0 * N * d * f
 
 
-def ssd_bound(B, S, H, N, P):
-    """Least bytes and FLOPs of the SSD scan: C, B, v and log_a read and y
-    written once, the final state written once (all f32), and the
-    sequential form's 4 N P FLOPs per (step, head): the state's decay and
-    outer-product update and the output's dot products."""
-    nbytes = 4 * (B * S * H * (2 * N + 2 * P + 1) + B * H * N * P)
+def ssd_bound(B, S, H, N, P, G=None):
+    """Least bytes and FLOPs of the SSD scan: C and B (per group when G is
+    given, else per head), v and log_a read and y written once, the final
+    state written once (all f32), and the sequential form's 4 N P FLOPs per
+    (step, head): the state's decay and outer-product update and the
+    output's dot products."""
+    G = H if G is None else G
+    nbytes = 4 * (B * S * (2 * G * N + H * (2 * P + 1)) + B * H * N * P)
     return nbytes, 4.0 * N * P * B * S * H
 
 
@@ -328,6 +344,50 @@ def check(name, err, dtype, extra="", tol=None):
     if not ok:
         raise AssertionError(f"{name}: error {err} above tolerance {tol}")
     return err
+
+
+def attn_times(label, kernel, library, plain, nbytes, flops, iters):
+    """The prefill kernel's and its SDPA yardstick's device time (a CUDA
+    graph of ``iters`` calls) and eager time, logged beside the bound."""
+    bms, by = bound_ms(nbytes, flops)
+    row = dict(ms=device_ms(kernel, iters=iters),
+               eager_ms=time_ms(kernel, iters=iters), plain_ms=plain,
+               library_ms=device_ms(library, iters=iters),
+               library_eager_ms=time_ms(library, iters=iters), bound_ms=bms,
+               bound_by=by)
+    log(f"[kernels] flash_attention {label}: kernel {row['ms']:.4f} ms "
+        f"({rate(nbytes, flops, row['ms'], by)}; eager launches "
+        f"{row['eager_ms']:.4f} ms), plain {plain:.4f} ms, SDPA "
+        f"{row['library_ms']:.4f} ms (eager {row['library_eager_ms']:.4f}), "
+        f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP)")
+    return row
+
+
+def attn_prefix_parity() -> None:
+    """The bf16 prefill kernel's prefix-sharing contract: tail rows
+    prefilled at a query offset (a bucket of 32, offsets that are not
+    multiples of the 64-key tile) get the bits of the same rows of a
+    whole-prompt call on the same K/V, at head dims 64 and 112."""
+    gen = np.random.RandomState(5)
+    B, S, H = 4, 256, 32
+    kl = torch.tensor([256, 200, 131, 97], dtype=torch.int32, device="cuda")
+    for D in (64, 112):
+        q, k, v = (randn(gen, (B, S, H, D), torch.bfloat16)
+                   for _ in range(3))
+        kw = dict(causal=True, scale=D ** -0.5, kv_len=kl)
+        whole = ops.flash_attention(q, k, v, **kw)
+        for off in (37, 100, 131, 200):
+            qo = torch.full((B,), off, dtype=torch.int32, device="cuda")
+            tail = ops.flash_attention(q[:, off:off + 32].contiguous(), k, v,
+                                       q_offset=qo, **kw)
+            if not torch.equal(tail, whole[:, off:off + 32]):
+                raise AssertionError(f"flash_attention D {D}: tail rows at "
+                                     f"q_offset {off} differ from the whole "
+                                     f"prompt's")
+    sync()
+    log("[kernels] flash_attention bf16 tails at q_offset 37/100/131/200 "
+        "(bucket 32) bitwise equal to the whole prompt's rows, D 64 and 112")
 
 
 def phase_kernels() -> dict:
@@ -361,26 +421,21 @@ def phase_kernels() -> dict:
                                      0, kv_len.tolist())
     main_err = check("flash_attention main (16,512,32,64) bf16 causal "
                      "ragged kv_len", err, torch.bfloat16)
-    ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
     plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), iters=3)
     pos = torch.arange(S, device="cuda")
     mask = ((pos[None, :] <= pos[:, None])[None]
             & (pos[None, None, :] < kl[:, None, None]))[:, None]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, scale=kw["scale"]))
     nbytes, flops = attention_bound(B, S, H, H, D, kv_len, True, 0, 2)
-    bms, by = bound_ms(nbytes, flops)
-    log(f"[kernels] flash_attention main: kernel {ms:.4f} ms "
-        f"({rate(nbytes, flops, ms, by)}), plain "
-        f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by}: "
-        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    row = attn_times("main", lambda: ops.flash_attention(q, k, v, **kw),
+                     lambda: torch.nn.functional.scaled_dot_product_attention(
+                         qt, kt, vt, attn_mask=mask, scale=kw["scale"]),
+                     plain, nbytes, flops, iters=20)
     rows["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:92",
-        max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=bms,
-        bound_by=by, library_ms=lib)
+        max_abs_err=main_err, **row)
     del q, k, v, mask, qt, kt, vt
 
     *_, err = attn_case(2, 256, 256, 8, 2, 128, torch.float32, True, 64, None)
@@ -406,26 +461,22 @@ def phase_kernels() -> dict:
                                      gen=rng_off)
     off_err = check("flash_attention q_offset (16,32 over 512,32,64) bf16 "
                     "tails at offsets 0..465", err, torch.bfloat16)
-    ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), iters=50)
     plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw))
     qpos = kw["q_offset"][:, None] + torch.arange(S, device="cuda")[None]
     kpos = torch.arange(T, device="cuda")
     mask = ((kpos[None, None, :] <= qpos[:, :, None])
             & (kpos[None, None, :] < kl[:, None, None]))[:, None]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, scale=kw["scale"]), iters=50)
     nbytes, flops = attention_bound(B, S, H, H, D, kv_len, True, 0, 2,
                                     q_offset=offs)
-    bms, by = bound_ms(nbytes, flops)
-    log(f"[kernels] flash_attention q_offset: kernel {ms:.4f} ms "
-        f"({rate(nbytes, flops, ms, by)}), plain "
-        f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by}: "
-        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
     rows["flash_attention"]["q_offset"] = dict(
-        max_abs_err=off_err, ms=ms, plain_ms=plain, bound_ms=bms,
-        bound_by=by, library_ms=lib)
+        max_abs_err=off_err,
+        **attn_times("q_offset", lambda: ops.flash_attention(q, k, v, **kw),
+                     lambda: torch.nn.functional.scaled_dot_product_attention(
+                         qt, kt, vt, attn_mask=mask, scale=kw["scale"]),
+                     plain, nbytes, flops, iters=50))
     del q, k, v, mask, qt, kt, vt
+    attn_prefix_parity()
     *_, err = attn_case(3, 40, 300, 8, 2, 128, torch.float32, True, 0,
                         [30, 117, 290], [0, 77, 250], gen=rng_off)
     check("flash_attention q_offset GQA (3,40 over 300,8/2,128) f32", err,
@@ -793,14 +844,21 @@ def phase_kernels_ssd() -> dict:
     from repro_torch.models.ssm import chunked_linear_attention
     gen = np.random.RandomState(3)
 
-    def inputs(B, S, H, N, P):
+    def inputs(B, S, H, N, P, G=None):
+        G = H if G is None else G
         la = -torch.nn.functional.softplus(randn(gen, (B, S, H),
                                                  torch.float32))
-        return (randn(gen, (B, S, H, N), torch.float32),
-                randn(gen, (B, S, H, N), torch.float32),
+        return (randn(gen, (B, S, G, N), torch.float32),
+                randn(gen, (B, S, G, N), torch.float32),
                 randn(gen, (B, S, H, P), torch.float32), la)
 
+    def per_head(C, Bm, v, la):
+        rep = v.shape[2] // C.shape[2]
+        return (C.repeat_interleave(rep, dim=2),
+                Bm.repeat_interleave(rep, dim=2), v, la)
+
     def plain(C, Bm, v, la):
+        C, Bm, v, la = per_head(C, Bm, v, la)
         B, S, H, N = C.shape
         P = v.shape[-1]
 
@@ -809,14 +867,23 @@ def phase_kernels_ssd() -> dict:
         y, st = ref.ssd_scan_ref(bhs(C), bhs(Bm), bhs(v), bhs(la[..., None]))
         return y.reshape(B, H, S, P).transpose(1, 2), st.reshape(B, H, N, P)
 
+    # Zamba2's waves with B and C per group (2 groups of 56 heads, as its
+    # Mamba2 layers call the kernel) and per head; both bounds beside each
     cases = {}
     for label, shape, timed in (
-            ("main (h) wave (16,512,112,64,64)", (16, 512, 112, 64, 64), True),
-            ("(g) wave, one 32-step tile (16,32,112,64,64)",
+            ("main (h) wave, B/C per group (16,512,112,64,64; G 2)",
+             (16, 512, 112, 64, 64, 2), True),
+            ("(g) wave, B/C per group (16,32,112,64,64; G 2)",
+             (16, 32, 112, 64, 64, 2), True),
+            ("(h) wave, B/C per head (16,512,112,64,64)",
+             (16, 512, 112, 64, 64), True),
+            ("(g) wave, B/C per head (16,32,112,64,64)",
              (16, 32, 112, 64, 64), True),
             ("sweep (1,128,2,16,32)", (1, 128, 2, 16, 32), False),
             ("sweep (2,256,1,64,64)", (2, 256, 1, 64, 64), False),
-            ("sweep (1,64,4,8,16)", (1, 64, 4, 8, 16), False)):
+            ("sweep (1,64,4,8,16)", (1, 64, 4, 8, 16), False),
+            ("sweep B/C per group (2,100,8,32,16; G 2)",
+             (2, 100, 8, 32, 16, 2), False)):
         args = inputs(*shape)
         y, st = ops.ssm_scan(*args)
         sync()
@@ -827,22 +894,28 @@ def phase_kernels_ssd() -> dict:
         check(f"ssd_scan {label} f32 (y and final state)", err,
               torch.float32, tol=SSD_TOL)
         nbytes, flops = ssd_bound(*shape)
-        bms, by = bound_ms(nbytes, flops, F32_FLOPS)
+        bms, by = bound_ms(nbytes, flops, TF32X3_FLOPS)
         case = dict(shape=shape, max_abs_err=err, bound_ms=bms, bound_by=by)
+        if len(shape) == 6:  # per group: the per-head reads' bound beside
+            nb_h, _ = ssd_bound(*shape[:5])
+            case["per_head_bound_ms"] = bound_ms(nb_h, flops, TF32X3_FLOPS)[0]
         if timed:
-            case["ms"] = time_ms(lambda: ops.ssm_scan(*args))
+            case["ms"] = device_ms(lambda: ops.ssm_scan(*args), iters=10)
+            case["eager_ms"] = time_ms(lambda: ops.ssm_scan(*args))
             case["plain_ms"] = time_ms(lambda: plain(*args), iters=2,
                                        warmup=1)
             case["chunked_ms"] = time_ms(
-                lambda: chunked_linear_attention(*args, 256), iters=3,
-                warmup=1)
+                lambda: chunked_linear_attention(*per_head(*args), 256),
+                iters=3, warmup=1)
+            extra = (f", per-head bound {case['per_head_bound_ms']:.4f} ms"
+                     if "per_head_bound_ms" in case else "")
             log(f"[kernels] ssd_scan {label}: kernel {case['ms']:.4f} ms "
-                f"({rate(nbytes, flops, case['ms'], by)}), "
-                f"plain {case['plain_ms']:.4f} ms, chunked torch (the plain "
-                f"engine's path) {case['chunked_ms']:.4f} ms, bound "
-                f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
-                f"{flops / 1e9:.2f} GFLOP at {F32_FLOPS / 1e12:.0f} TFLOP/s "
-                f"f32)")
+                f"({rate(nbytes, flops, case['ms'], by)}; eager launches "
+                f"{case['eager_ms']:.4f} ms), plain {case['plain_ms']:.4f} "
+                f"ms, chunked torch (the plain engine's path) "
+                f"{case['chunked_ms']:.4f} ms, bound {bms:.4f} ms ({by}: "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at "
+                f"{TF32X3_FLOPS / 1e12:.0f} TFLOP/s, 3xTF32){extra}")
         cases[label] = case
         del args, y, st, ye, se
 
@@ -859,7 +932,7 @@ def phase_kernels_ssd() -> dict:
     if not same:
         raise AssertionError("ssd_scan: a padded row's final state differs "
                              "from the unpadded row's")
-    main = cases["main (h) wave (16,512,112,64,64)"]
+    main = cases["main (h) wave, B/C per group (16,512,112,64,64; G 2)"]
     return {"ssd_scan": dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:78",
@@ -884,29 +957,38 @@ def phase_kernels_d112(rows) -> None:
     kw = dict(causal=True, window=0, scale=D ** -0.5, kv_len=kl)
     out = ops.flash_attention(q, k, v, **kw)
     sync()
+    want = ref.flash_attention_ref(q, k, v, **kw)
     err = check("flash_attention D 112 (16,512,32,112) bf16 causal ragged "
-                "kv_len", float((out.float() - ref.flash_attention_ref(
-                    q, k, v, **kw).float()).abs().max()), torch.bfloat16)
+                "kv_len", float((out.float() - want.float()).abs().max()),
+                torch.bfloat16)
+    # the witness: the same rows with P rounded to bf16 as the kernel
+    # rounds it, beside the plain version (which keeps P in f32)
+    wit = p_bf16_attention(q, k, v, **kw)
+    witness = {}
+    for name, other in (("plain", want), ("p_bf16", wit)):
+        d = (out.float() - other.float()).abs()
+        witness[f"kernel_vs_{name}"] = dict(
+            max_abs_err=float(d.max()), mean_abs_err=float(d.mean()),
+            bitwise_equal_share=float((out == other).float().mean()))
+    d = (wit.float() - want.float()).abs()
+    witness["p_bf16_vs_plain"] = dict(
+        max_abs_err=float(d.max()), mean_abs_err=float(d.mean()),
+        bitwise_equal_share=float((wit == want).float().mean()))
+    log(f"[kernels] flash_attention D 112 bf16, P rounded to bf16 (witness): "
+        f"{json.dumps(witness)}")
+    del want, wit, d
     pos = torch.arange(S, device="cuda")
     mask = ((pos[None, :] <= pos[:, None])[None]
             & (pos[None, None, :] < kl[:, None, None]))[:, None]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     nbytes, flops = attention_bound(B, S, H, H, D, kv_len, True, 0, 2)
-    bms, by = bound_ms(nbytes, flops)
-    rows["flash_attention"]["d112"] = case = dict(
-        max_abs_err=err, ms=time_ms(lambda: ops.flash_attention(q, k, v,
-                                                                **kw)),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
-                         iters=3),
-        library_ms=time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, scale=kw["scale"])),
-        bound_ms=bms, bound_by=by)
-    log(f"[kernels] flash_attention D 112: kernel {case['ms']:.4f} ms "
-        f"({rate(nbytes, flops, case['ms'], by)}), plain "
-        f"{case['plain_ms']:.4f} ms, SDPA {case['library_ms']:.4f} ms, bound "
-        f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
-        f"GFLOP)")
+    rows["flash_attention"]["d112"] = dict(
+        max_abs_err=err, p_bf16_witness=witness,
+        **attn_times("D 112", lambda: ops.flash_attention(q, k, v, **kw),
+                     lambda: torch.nn.functional.scaled_dot_product_attention(
+                         qt, kt, vt, attn_mask=mask, scale=kw["scale"]),
+                     time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                             iters=3), nbytes, flops, iters=20))
     del q, k, v, out, mask, qt, kt, vt
 
     q = randn(gen, (B, H, D), torch.bfloat16)
@@ -1118,6 +1200,106 @@ def tokens(reqs):
     return [r.generated for r in reqs]
 
 
+def stop_flag_cost(engine, prompts, ref_tokens, label, max_new=32):
+    """The megastep reads the device's stop flag on the host after each
+    decode step (``InferenceEngine._keep_decoding``). On the warmed engine,
+    serve the mix at ``max_new`` tokens six times, alternating with that
+    read and without it (the loop then runs its host-known step count):
+    with, without, without, with, with, without; each side's median decode
+    tok/s. The runs with the read also time it on the host: the share of
+    decode time the host spends blocked in it bounds what dropping it
+    could save. The tokens must be the main run's first ``max_new``."""
+    want = [t[:max_new] for t in ref_tokens]
+    read = type(engine)._keep_decoding
+    blocked = {"s": 0.0, "reads": 0, "decode_s": 0.0}
+
+    def timed_read(*args):
+        t0 = time.perf_counter()
+        go = read(*args)
+        blocked["s"] += time.perf_counter() - t0
+        blocked["reads"] += 1
+        return go
+
+    runs = {"with_flag_read": [], "without_flag_read": []}
+    steps = set()
+    for with_read in (True, False, False, True, True, False):
+        key = "with_flag_read" if with_read else "without_flag_read"
+        engine._keep_decoding = (timed_read if with_read
+                                 else lambda *args: True)
+        try:
+            reqs, r = serve(engine, prompts, max_new,
+                            f"{label} {key.replace('_', ' ')}")
+        finally:
+            del engine._keep_decoding
+        if tokens(reqs) != want:
+            raise AssertionError(f"{label}: the stop-flag read changed the "
+                                 f"tokens")
+        runs[key].append(r["decode_tok_per_s"])
+        steps.add(r["decode_steps"])
+        if with_read:
+            blocked["decode_s"] += r["decode_tokens"] / r["decode_tok_per_s"]
+    out = {k: dict(decode_tok_per_s=v, median=float(np.median(v)))
+           for k, v in runs.items()}
+    out.update(decode_steps=sorted(steps),
+               median_cost=1.0 - (out["with_flag_read"]["median"]
+                                  / out["without_flag_read"]["median"]),
+               blocked_s=blocked["s"], reads=blocked["reads"],
+               blocked_share=blocked["s"] / blocked["decode_s"])
+    log(f"[serve] {label} decode tok/s at {max_new} new tokens with the "
+        f"per-step stop-flag read {runs['with_flag_read']} (median "
+        f"{out['with_flag_read']['median']:.1f}), without "
+        f"{runs['without_flag_read']} (median "
+        f"{out['without_flag_read']['median']:.1f}): medians differ by "
+        f"{100 * out['median_cost']:.1f} %; the host blocked in "
+        f"{blocked['reads']} reads for {1e3 * blocked['s']:.1f} ms "
+        f"({1e6 * blocked['s'] / max(1, blocked['reads']):.0f} us a read), "
+        f"{100 * out['blocked_share']:.2f} % of those runs' decode time; "
+        f"decode steps {out['decode_steps']}")
+    return out
+
+
+def p_bf16_attention(q, k, v, *, scale, causal, window=0, q_offset=0,
+                     kv_len=None, chunk=None):
+    """The bf16 prefill kernel's arithmetic in plain torch, with
+    ``models.attention.blockwise_attention``'s signature (``chunk`` is
+    ignored): 64-key tiles from position 0, the online softmax in f32, P
+    rounded to bf16 before P.V as the kernel's wgmma takes it, the
+    normaliser summed from the unrounded P. A witness of what the rounding
+    of P adds to the kernel-vs-plain gap, not a kernel's plain version."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    dev = q.device
+    if isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1:
+        qp = q_offset.long()[:, None] + torch.arange(S, device=dev)
+    else:
+        qp = (torch.arange(S, device=dev) + q_offset)[None]     # (1|B, S)
+    qf = q.float() * scale
+    acc = torch.zeros((B, S, H, D), dtype=torch.float32, device=dev)
+    m = torch.full((B, S, H), ref.NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, S, H), dtype=torch.float32, device=dev)
+    for t0 in range(0, T, 64):
+        kp = torch.arange(t0, min(t0 + 64, T), device=dev)
+        s = torch.einsum("bshd,bthd->bsht", qf, k[:, t0:t0 + 64].float())
+        vis = torch.ones(qp.shape + kp.shape, dtype=torch.bool, device=dev)
+        if causal:
+            vis = vis & (kp <= qp[..., None])
+        if window:
+            vis = vis & (qp[..., None] - kp < window)
+        if kv_len is not None:
+            vis = vis & (kp < kv_len.long()[:, None, None])
+        vis = vis[:, :, None, :]                              # (B, S, 1, t)
+        s = torch.where(vis, s, ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(vis, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.where(m_new == m, 1.0, torch.exp(m - m_new))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bsht,bthd->bshd", p.to(torch.bfloat16).float(),
+            v[:, t0:t0 + 64].float())
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
 def compare_dense(label, kern, plain, vocab, tol, phase="zamba2"):
     """Kernel engine vs plain engine on one mix of a dense-path model (no
     routing): the first-token logits gap over every request, held to
@@ -1223,6 +1405,7 @@ def phase_serve() -> dict:
                logits_err_a=compare("(a)", fk, fp, cfg.vocab_size),
                logits_err_b=compare("(b)", lk, lp, cfg.vocab_size),
                long_tokens=tokens(lk))
+    out["stop_flag_b"] = stop_flag_cost(engine, longs, tokens(lk), "(b)")
     out["profile_b"] = profile_mix(engine, longs, 64,
                                    "(b) SmolLM2 slot cache kernels")
     free(plain, engine)
@@ -1239,6 +1422,7 @@ def phase_serve() -> dict:
     if not same:
         raise AssertionError("(c): the paged pool decodes differently from "
                              "the slot cache")
+    out["stop_flag_c"] = stop_flag_cost(pg, longs, tokens(ck), "(c)")
     plain_pg = InferenceEngine(plain_model, device="cuda",
                                prefix_sharing=False, **PAGED_KW)
     cp, _ = serve(plain_pg, longs, 64, "(c) plain path")
@@ -1285,9 +1469,9 @@ def phase_serve() -> dict:
     log(f"[serve] (d) after the run: refcounts check out; slot-held pages "
         f"{held}; live pages {sh._alloc.live_pages} = prefix-cache pages "
         f"{len(sh._prefix_cache.pages())}")
-    if not same:
+    if not same or gap != 0.0:
         raise AssertionError("(d): shared prefill decodes differently from "
-                             "cold prefill")
+                             "cold prefill (tokens or first-token logits)")
     if hits < 48 or cows < 1 or computed > 0.35 * computed_cold or held:
         raise AssertionError("(d): prefix sharing did not do its work")
     out.update(rounds_d=rounds, rounds_d_cold=cold_rounds, prefix_hits=hits,
@@ -1662,11 +1846,27 @@ def phase_zamba2() -> dict:
     (hk, rates_h), out["launches"]["h"] = run_path(
         eng, "(h) Zamba2 long prompts",
         lambda: serve(eng, longs, 64, "(h) Zamba2 long prompts"))
+    out["stop_flag_h"] = stop_flag_cost(eng, longs, tokens(hk), "(h)")
     plain = InferenceEngine(plain_model, device="cuda", **ENGINE_KW)
     plain.generate([[2, 5]], max_new_tokens=2)
     gp, rates_g_plain = serve(plain, facts, 1, "(g) plain path")
     hp, rates_h_plain = serve(plain, longs, 64, "(h) plain path")
+    # the witness: the plain engine with P rounded to bf16 as the kernel
+    # rounds it; its first-token logits against the kernel engine's
+    saved = attn_lib.blockwise_attention
+    attn_lib.blockwise_attention = p_bf16_attention
+    try:
+        gw, _ = serve(plain, facts, 1, "(g) plain path, P in bf16")
+        hw, _ = serve(plain, longs, 1, "(h) plain path, P in bf16")
+    finally:
+        attn_lib.blockwise_attention = saved
     free(plain)
+    out["p_bf16_witness"] = {
+        mix: {k: w[k] for k in ("logits_gap", "first_tokens_equal")}
+        for mix, w in (("g", compare_dense("(g) P in bf16", gk, gw,
+                                           cfg.vocab_size, ZAMBA_LOGIT_TOL)),
+                       ("h", compare_dense("(h) P in bf16", hk, hw,
+                                           cfg.vocab_size, ZAMBA_LOGIT_TOL)))}
     out.update(rates_g=rates_g, rates_h=rates_h, rates_g_plain=rates_g_plain,
                rates_h_plain=rates_h_plain,
                compare_g=compare_dense("(g)", gk, gp, cfg.vocab_size,
@@ -1734,6 +1934,7 @@ class PlantFault:
             def broken_scan(C, B, v, log_a, chunk=128):
                 y, state = scan(C, B, v, log_a)
                 own = (C.float() * B.float()).sum(-1, keepdim=True)
+                own = own.repeat_interleave(v.shape[2] // C.shape[2], dim=2)
                 return y - own * v.float(), state
             ops.ssm_scan = broken_scan
         return self

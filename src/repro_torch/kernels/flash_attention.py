@@ -3,9 +3,11 @@
 Port of ``repro.kernels.flash_attention`` (the Pallas ``flash_attention_bhsd``).
 The kernel is ``csrc/flash_attention.cu``: causal, sliding-window or full
 attention with per-row valid key counts, per-row query offsets and GQA by
-head index, in the reference's public (B, S, H, D) layout. This wrapper
-checks what the kernel takes, allocates the output and launches on
-PyTorch's current stream; it never falls back to another implementation.
+head index, in the reference's public (B, S, H, D) layout: bf16 on
+``wgmma`` fed by TMA (q, k, v and the output 16-byte aligned), f32 on the
+CUDA cores. This wrapper checks what the kernel takes, allocates the
+output and launches on PyTorch's current stream; it never falls back to
+another implementation.
 """
 
 from __future__ import annotations

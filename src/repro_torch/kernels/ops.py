@@ -142,16 +142,22 @@ def ssm_scan(C_mat: torch.Tensor, B_mat: torch.Tensor, v: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba2/SSD entry point, the reference's contract: C_mat (q-like)
     and B_mat (k-like) (B, S, H, N); v (B, S, H, P); log_a (B, S, H) ->
-    (y (B, S, H, P) f32, final state (B, H, N, P) f32). ``chunk`` is the
+    (y (B, S, H, P) f32, final state (B, H, N, P) f32). C_mat and B_mat may
+    also come once per group, (B, S, G, N) with H % G == 0: head h reads
+    group ``h // (H // G)`` (the reference's ``jnp.repeat``), and the kernel
+    reads each group's B and C in place of H / G copies. ``chunk`` is the
     reference's chunk length; the kernel picks its own tile length, and the
     plain version scans step by step, so neither reads it."""
     C_mat, B_mat, v, log_a = (t.float() for t in (C_mat, B_mat, v, log_a))
     if _on_cpu(C_mat, "ssm_scan"):
-        Bb, S, H, N = C_mat.shape
-        P = v.shape[-1]
+        Bb, S, H, P = v.shape
+        N = C_mat.shape[-1]
+        rep = H // C_mat.shape[2]
 
         def bhs(t):
             return t.transpose(1, 2).reshape(Bb * H, S, t.shape[-1])
+        C_mat, B_mat = (t.repeat_interleave(rep, dim=2)
+                        for t in (C_mat, B_mat))
         y, state = ref.ssd_scan_ref(bhs(C_mat), bhs(B_mat), bhs(v),
                                     bhs(log_a[..., None]))
         return (y.reshape(Bb, H, S, P).transpose(1, 2),

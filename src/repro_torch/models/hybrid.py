@@ -120,20 +120,22 @@ class Hybrid(nn.Module):
         return self._logits(self.final_norm(x))
 
     def init_cache(self, batch: int, cache_len: int,
-                   dtype: Optional[torch.dtype] = None) -> Cache:
-        """Zeroed cache: K/V of every shared-block application and every
-        Mamba2 layer's states (the SSM state in f32, the rest in ``dtype``,
-        default the compute dtype)."""
+                   dtype: Optional[torch.dtype] = None,
+                   device=None) -> Cache:
+        """Zeroed cache on ``device`` (default: the model's): K/V of every
+        shared-block application and every Mamba2 layer's states (the SSM
+        state in f32, the rest in ``dtype``, default the compute dtype)."""
         cfg = self.cfg
         dtype = dtype or cdt(cfg)
+        device = device or self.device
         kv = (self.n_groups, batch, cache_len, cfg.n_kv_heads,
               cfg.resolved_head_dim)
-        cache = {n: torch.zeros(kv, dtype=dtype, device=self.device)
+        cache = {n: torch.zeros(kv, dtype=dtype, device=device)
                  for n in self.cache_names}
         for n, t in ssm.mamba2_init_cache(cfg, batch, dtype,
                                           "meta").items():
             cache[n] = torch.zeros((cfg.n_layers,) + t.shape, dtype=t.dtype,
-                                   device=self.device)
+                                   device=device)
         return cache
 
     def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor,

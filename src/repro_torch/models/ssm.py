@@ -6,7 +6,8 @@ with the xLSTM slice). Mamba2 is a gated outer-product recurrence
 decay ``a = exp(-exp(A_log) * dt)``, ``k = B`` (group-broadcast), ``q =
 C`` and ``v = dt * x`` (ZOH discretization), plus the D skip and a gated
 RMSNorm. Prefill runs the chunked form (``chunked_linear_attention``), or
-with ``cfg.use_kernels`` the SSD scan kernel behind ``ops.ssm_scan``;
+with ``cfg.use_kernels`` the SSD scan kernel behind ``ops.ssm_scan``,
+which takes B and C once per group;
 decode is one ``linear_attention_step``.
 
 Parameters live on a ``Mamba2`` module in the reference's layouts (the
@@ -157,10 +158,10 @@ def _ragged_conv_state(x_raw: torch.Tensor, K: int,
 def _mamba2_core_inputs(p: Mamba2, xBC: torch.Tensor, dt: torch.Tensor,
                         cfg, valid: Optional[torch.Tensor] = None):
     """Post-conv split into the SSD core's operands: x (B, S, H, P), B and
-    C group-broadcast to (B, S, H, N) (heads [g*rep, (g+1)*rep) read group
-    g), v = x * dt (f32) and log_a (B, S, H) f32. ``valid`` (B, S)
-    bool makes padding steps exact state no-ops (dt -> 0: decay 1, zero
-    input)."""
+    C once per group (B, S, G, N) (heads [g*rep, (g+1)*rep) read group g:
+    ``_per_head`` broadcasts them), v = x * dt (f32) and log_a (B, S, H)
+    f32. ``valid`` (B, S) bool makes padding steps exact state no-ops (dt
+    -> 0: decay 1, zero input)."""
     s = cfg.ssm
     d_in, n_heads, _ = mamba2_dims(cfg)
     B_sz, S = xBC.shape[0], xBC.shape[1]
@@ -168,15 +169,18 @@ def _mamba2_core_inputs(p: Mamba2, xBC: torch.Tensor, dt: torch.Tensor,
     x = xBC[..., :d_in].reshape(B_sz, S, n_heads, s.head_dim)
     Bm = xBC[..., d_in:d_in + gn].reshape(B_sz, S, s.n_groups, s.state_dim)
     Cm = xBC[..., d_in + gn:].reshape(B_sz, S, s.n_groups, s.state_dim)
-    rep = n_heads // s.n_groups
-    Bm = Bm.repeat_interleave(rep, dim=2)
-    Cm = Cm.repeat_interleave(rep, dim=2)
     dt = F.softplus(dt.float() + p.dt_bias[None, None, :])
     if valid is not None:
         dt = dt * valid[:, :, None].to(dt.dtype)
     log_a = -torch.exp(p.A_log)[None, None, :] * dt
     v = x.float() * dt[..., None]
     return x, Bm, Cm, v, log_a
+
+
+def _per_head(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, G, N) group operands -> (B, S, H, N): head h reads group
+    ``h // (H // G)``."""
+    return t.repeat_interleave(n_heads // t.shape[2], dim=2)
 
 
 def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -235,10 +239,13 @@ def mamba2_prefill(p: Mamba2, u: torch.Tensor, cfg,
     xBC = torch.cat([x_c, bc_c], dim=-1)
     x, Bm, Cm, v, log_a = _mamba2_core_inputs(p, xBC, dt, cfg,
                                                  valid=valid)
-    if cfg.use_kernels:
+    if cfg.use_kernels:  # the kernel reads B and C once per group
         y, state = kops.ssm_scan(Cm, Bm, v, log_a, chunk=cfg.ssm.chunk)
     else:
-        y, state = chunked_linear_attention(Cm, Bm, v, log_a, cfg.ssm.chunk)
+        H = v.shape[2]
+        y, state = chunked_linear_attention(_per_head(Cm, H),
+                                            _per_head(Bm, H), v, log_a,
+                                            cfg.ssm.chunk)
     out = _finish(p, y, x, z, u, cfg)
     cache = ({"ssm": state, "conv_x": conv_x_state,
               "conv_bc": conv_bc_state} if return_state else None)
@@ -258,8 +265,10 @@ def mamba2_decode(p: Mamba2, u: torch.Tensor, cfg,
                                        state=cache["conv_bc"])
     xBC = torch.cat([x_c, bc_c], dim=-1)
     x, Bm, Cm, v, log_a = _mamba2_core_inputs(p, xBC, dt, cfg)
-    y, state = linear_attention_step(cache["ssm"], Cm[:, 0], Bm[:, 0],
-                                     v[:, 0], torch.exp(log_a[:, 0]))
+    H = v.shape[2]
+    y, state = linear_attention_step(cache["ssm"], _per_head(Cm, H)[:, 0],
+                                     _per_head(Bm, H)[:, 0], v[:, 0],
+                                     torch.exp(log_a[:, 0]))
     out = _finish(p, y[:, None], x, z, u, cfg)
     return out, {"ssm": state, "conv_x": conv_x_state,
                  "conv_bc": conv_bc_state}

@@ -283,10 +283,12 @@ class Transformer(nn.Module):
         return self._logits(self.final_norm(x))
 
     def init_cache(self, batch: int, cache_len: int,
-                   dtype: Optional[torch.dtype] = None) -> Cache:
-        """Zeroed cache in ``dtype`` (default: the compute dtype): {"k",
-        "v"} of shape (L, batch, cache_len, Hkv, D), or for MLA {"ckv":
-        (L, batch, cache_len, R), "krope": (L, batch, cache_len, dr)}."""
+                   dtype: Optional[torch.dtype] = None,
+                   device=None) -> Cache:
+        """Zeroed cache in ``dtype`` (default: the compute dtype) on
+        ``device`` (default: the model's): {"k", "v"} of shape (L, batch,
+        cache_len, Hkv, D), or for MLA {"ckv": (L, batch, cache_len, R),
+        "krope": (L, batch, cache_len, dr)}."""
         cfg = self.cfg
         lead = (cfg.n_layers, batch, cache_len)
         if cfg.attention == "mla":
@@ -294,7 +296,8 @@ class Transformer(nn.Module):
         else:
             tails = ((cfg.n_kv_heads, cfg.resolved_head_dim),) * 2
         dtype = dtype or cdt(cfg)
-        return {n: torch.zeros(lead + t, dtype=dtype, device=self.device)
+        device = device or self.device
+        return {n: torch.zeros(lead + t, dtype=dtype, device=device)
                 for n, t in zip(self.cache_names, tails)}
 
     def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor,

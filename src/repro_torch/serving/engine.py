@@ -20,14 +20,15 @@ for the first tokens and the done flags.
 slot with every mask on the device: free and finished slots sample
 nothing, advance nothing and write nothing live, and stop-token,
 max-new-token and cache-overflow checks run on the device. The host syncs
-ONCE per megastep, for a (slots, K) token block, per-slot produced counts
-and the active mask. PyTorch runs eagerly, so the number of decode steps
-is fixed before launch from what the host knows: the largest remaining
-budget of an active slot, or, when requests are queued under continuous
-admission, the smallest (the earliest slot that can free up), capped at K.
-A slot that stops on a stop token mid-megastep idles until the megastep
-ends; greedy outputs are the same for every K and whatever shares the
-batch.
+once per megastep for a (slots, K) token block, per-slot produced counts
+and the active mask. The loop ends on the reference's condition: when no
+slot is active, or, with requests queued under continuous admission, when
+a slot active at entry has stopped (so the waiting work is admitted
+promptly). PyTorch runs eagerly, so after each step but the last the host
+reads that one-flag condition from the device; the step count is capped
+beforehand from what the host knows (the largest remaining budget of an
+active slot, or the smallest when requests wait, at most K). Greedy
+outputs are the same for every K and whatever shares the batch.
 
 **Paged KV storage (``paged=True``).** The slot cache is replaced by a
 pool of ``num_pages`` pages of ``page_size`` tokens behind a per-slot page
@@ -201,6 +202,8 @@ class InferenceEngine:
         else:
             self.cache = model.init_cache(slots, cache_len, cache_dtype)
             self.page_table = None
+            self._seq_leaves = kvcache.seq_leaves(
+                model.init_cache, self.cache, slots, cache_len, cache_dtype)
         # the K/V leaves' dtype: a hybrid's cache also holds f32 states
         self._cache_dtype = self.cache[model.cache_names[0]].dtype
 
@@ -804,12 +807,24 @@ class InferenceEngine:
                 return b
         return self.max_pages
 
+    @staticmethod
+    def _keep_decoding(act: torch.Tensor, entry_active: torch.Tensor,
+                       waiting: bool) -> bool:
+        """The reference's loop condition, read on the host (one flag):
+        some slot is active and, with requests waiting, no slot active at
+        entry has stopped."""
+        go = act.any()
+        if waiting:  # a slot freed up for the queued work
+            go = go & ~(entry_active & ~act).any()
+        return bool(go)
+
     @torch.no_grad()
     def _megastep_wave(self) -> List[Request]:
         t0 = time.monotonic()
         if self._prefix_cache is not None:
             self._decode_cow()
         n_steps = self._megastep_steps()
+        waiting = bool(self.queue) and self.admission == "continuous"
         B, K = self.slots, self.megastep
         lengths, last = self.lengths, self.last_tokens
         act, gen = self.active_mask, self.gen_counts
@@ -836,7 +851,11 @@ class InferenceEngine:
                                                   view, active=act)
         block = torch.zeros((B, K), dtype=torch.int32, device=self.device)
         produced = torch.zeros(B, dtype=torch.int32, device=self.device)
+        steps = 0
         for step in range(n_steps):
+            if step and not self._keep_decoding(act, entry_active, waiting):
+                break
+            steps += 1
             logits = decode(last, lengths, act)
             toks = sample(logits, self._gen, self.temps,
                           vocab_size=self.cfg.vocab_size, active=act,
@@ -859,7 +878,7 @@ class InferenceEngine:
         # host tracks real lengths in its shadow)
         self.lengths = torch.where(act, lengths, 0)
         self.last_tokens, self.active_mask, self.gen_counts = last, act, gen
-        self.stats.decode_steps += n_steps
+        self.stats.decode_steps += steps
 
         # the single host sync for up to K tokens across all slots
         host = torch.cat([block, produced[:, None],
@@ -910,8 +929,9 @@ class InferenceEngine:
     def snapshot(self) -> Dict:
         """Engine-state summary. ``capacity_bytes`` is the allocated KV
         store (what device memory pays), ``live_bytes`` what a snapshot
-        would ship: the exact live pages on the paged path, the active
-        slots' share pro-rated by host-tracked lengths on the slot cache."""
+        would ship: the exact live pages on the paged path; on the slot
+        cache the sequence leaves pro-rated by the active slots'
+        host-tracked lengths and the recurrent states whole."""
         if self.offloaded:
             cap = live = 0
         elif self._paged:
@@ -922,8 +942,9 @@ class InferenceEngine:
             cap = kvcache.capacity_bytes(self.cache)
             live_tokens = sum(int(self._host_lengths[s])
                               for s in self.active)
-            live = int(cap * min(1.0, live_tokens
-                                 / (self.slots * self.cache_len)))
+            live = kvcache.live_bytes(self.cache, self._seq_leaves,
+                                      live_tokens,
+                                      self.slots * self.cache_len)
         return {
             "active": len(self.active), "queued": len(self.queue),
             "free_slots": len(self.free_slots),

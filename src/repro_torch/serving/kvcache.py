@@ -17,14 +17,17 @@ discovery (the reference's ``batch_axes``): helpers take one layer's
 * ``select_slots`` keeps masked rows bit for bit: the megastep's decode
   writes go through it, so free slots are untouched without the
   reference's post-loop restore of the whole cache.
-* ``capacity_bytes`` is the allocated cache, what device memory pays.
+* ``capacity_bytes`` is the allocated cache, what device memory pays;
+  ``live_bytes`` what a snapshot of the live context would ship: the
+  leaves with a sequence axis (``seq_leaves``) pro-rated by the
+  live-token share, the rest (a recurrent state) whole.
 
 The paged pool is ``repro_torch.serving.paged``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, FrozenSet, Optional
 
 import torch
 
@@ -59,3 +62,32 @@ def select_slots(old: torch.Tensor, new: torch.Tensor,
 def capacity_bytes(cache: Dict[str, torch.Tensor]) -> int:
     """Allocated bytes of the whole cache, however much context is live."""
     return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def seq_leaves(init_cache: Callable, cache: Dict[str, torch.Tensor],
+               slots: int, cache_len: int,
+               dtype: Optional[torch.dtype]) -> FrozenSet[str]:
+    """Names of the leaves of ``cache`` (built by ``init_cache(slots,
+    cache_len, dtype)``) that have a sequence axis, found as the
+    reference's ``seq_axes`` finds them: the leaves whose shape changes
+    with the cache length. The second shape comes from the meta device,
+    so nothing is allocated. A leaf with no sequence axis (a recurrent
+    state, whatever its name) keeps its shape."""
+    probe = init_cache(slots, cache_len + 1, dtype, device="meta")
+    return frozenset(n for n, t in cache.items()
+                     if probe[n].shape != t.shape)
+
+
+def live_bytes(cache: Dict[str, torch.Tensor], seq: FrozenSet[str],
+               live_tokens: int, capacity_tokens: int) -> int:
+    """Estimated bytes of the live context in a slot cache: each leaf named
+    in ``seq`` (``seq_leaves``: K/V, MLA latents) pro-rated by
+    ``live_tokens / capacity_tokens`` (capacity = slots x cache_len), each
+    other leaf (a recurrent state) counted whole, as the reference's
+    ``kvcache.live_bytes`` does."""
+    frac = min(1.0, live_tokens / max(1, capacity_tokens))
+    total = 0
+    for name, t in cache.items():
+        nbytes = t.numel() * t.element_size()
+        total += int(nbytes * frac) if name in seq else nbytes
+    return total

@@ -54,7 +54,8 @@ def _gemm_tol(dtype, d, exp):
 @pytest.mark.parametrize("B,S,H,Hkv,D,causal,window", [
     (2, 128, 4, 4, 64, True, 0), (2, 256, 8, 2, 128, True, 64),
     (2, 200, 4, 4, 64, False, 0), (3, 77, 4, 1, 64, True, 0),
-    (2, 160, 4, 4, 112, True, 0)])
+    (2, 160, 4, 4, 112, True, 0), (2, 50, 4, 2, 16, True, 0),
+    (2, 70, 4, 2, 32, False, 0), (1, 20, 2, 2, 112, True, 8)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain(cuda, B, S, H, Hkv, D, causal,
                                             window, dtype):
@@ -190,6 +191,27 @@ def test_cuda_flash_attention_q_offset_matches_plain(cuda, H, Hkv, D, dtype):
     out = ops.flash_attention(q, k, v, **kw)
     exp = ref.flash_attention_ref(q, k, v, **kw)
     assert float((out.float() - exp.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 112])
+def test_cuda_flash_attention_tail_rows_bitwise_equal_whole_prompt(cuda, D):
+    """The prefix-sharing contract of the bf16 (wgmma) route: tail rows
+    prefilled at query offsets that are not multiples of the 64-key tile,
+    in a bucket of 32 (rows past a prompt's end included), get the bits of
+    the same rows of a whole-prompt call on the same K/V."""
+    B, S, H = 4, 256, 8
+    q, k, v = (_rand(i, (B, S, H, D), cuda, "bfloat16") for i in range(3))
+    kl = torch.tensor([256, 200, 131, 97], dtype=torch.int32, device=cuda)
+    kw = dict(causal=True, scale=D ** -0.5, kv_len=kl)
+    whole = ops.flash_attention(q, k, v, **kw)
+    for off in (1, 37, 100, 131, 200, 224):
+        qo = torch.full((B,), off, dtype=torch.int32, device=cuda)
+        tail = ops.flash_attention(q[:, off:off + 32].contiguous(), k, v,
+                                   q_offset=qo, **kw)
+        assert torch.equal(tail, whole[:, off:off + 32]), off
+    exp = ref.flash_attention_ref(q, k, v, **kw)
+    assert float((whole.float() - exp.float()).abs().max()) < TOL["bfloat16"]
 
 
 def _slot_as_pages(ck, cv, page, npages, seed):
@@ -581,6 +603,47 @@ def test_cuda_ssd_scan_matches_plain(cuda, B, S, H, N, P):
     assert y.dtype == st.dtype == torch.float32
     assert float((y - ye).abs().max()) < 2e-3
     assert float((st - se).abs().max()) < 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,G,N,P", [
+    (2, 100, 8, 2, 32, 16), (1, 64, 4, 1, 8, 64), (2, 70, 6, 3, 64, 32),
+    (16, 512, 112, 2, 64, 64)])
+def test_cuda_ssd_scan_group_bc_matches_plain(cuda, B, S, H, G, N, P):
+    """B and C once per group (B, S, G, N) against the plain version on
+    the repeated per-head copies, at the reference's 2e-3, and against the
+    kernel's per-head call on those copies (Zamba2's wave: 112 heads over
+    2 groups)."""
+    C = _rand(0, (B, S, G, N), cuda, "float32")
+    Bm = _rand(1, (B, S, G, N), cuda, "float32")
+    v = _rand(2, (B, S, H, P), cuda, "float32")
+    la = -torch.nn.functional.softplus(_rand(3, (B, S, H), cuda, "float32"))
+    before = ops.LAUNCHES["ssm_scan"]
+    y, st = ops.ssm_scan(C, Bm, v, la)
+    assert ops.LAUNCHES["ssm_scan"] == before + 1
+    Ch, Bh = (t.repeat_interleave(H // G, dim=2) for t in (C, Bm))
+    ye, se = _ssd_plain(Ch, Bh, v, la)
+    assert float((y - ye).abs().max()) < 2e-3
+    assert float((st - se).abs().max()) < 2e-3
+    yh, sth = ops.ssm_scan(Ch, Bh, v, la)
+    assert float((y - yh).abs().max()) < 2e-3
+    assert float((st - sth).abs().max()) < 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_group_bc_padded_row_bitwise(cuda):
+    """A row padded as Mamba2 pads (log_a = 0, v = 0) ends in its unpadded
+    state bit for bit with B and C per group too."""
+    B, S, H, G, N, P, n = 2, 100, 4, 2, 16, 32, 45
+    C = _rand(4, (B, S, G, N), cuda, "float32")
+    Bm = _rand(5, (B, S, G, N), cuda, "float32")
+    v = _rand(6, (B, S, H, P), cuda, "float32")
+    la = -torch.nn.functional.softplus(_rand(7, (B, S, H), cuda, "float32"))
+    v[0, n:], la[0, n:] = 0.0, 0.0
+    y, st = ops.ssm_scan(C, Bm, v, la)
+    y0, st0 = ops.ssm_scan(*(t[:1, :n].contiguous() for t in (C, Bm, v, la)))
+    assert torch.equal(st[0], st0[0])
+    assert torch.equal(y[0, :n], y0[0])
 
 
 @pytest.mark.cuda

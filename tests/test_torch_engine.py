@@ -67,7 +67,7 @@ def jax_greedy(smol):
             "paged8": pe.generate(prompts(9), max_new_tokens=8)}
 
 
-@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("K", [1, 4, 8])
 def test_greedy_matches_reference_engine(smol, jax_greedy, K):
     out = engine(smol[2], megastep=K).generate(prompts(9), max_new_tokens=8)
     assert out == jax_greedy["tokens8"]
@@ -358,6 +358,104 @@ def test_paged_capacity_vs_live_bytes(smol):
     assert pg.stats.live_pages > 0
     pg.run_to_completion()
     assert pg.snapshot()["live_bytes"] == 0
+
+
+def test_hybrid_slot_live_bytes_match_reference(hy):
+    """The slot cache's live_bytes pro-rates the K/V leaves only: the
+    Mamba2 states (ssm, conv_x, conv_bc) count whole, as in the reference
+    (kvcache.live_bytes), idle and with a 12-token prompt in flight."""
+    jmodel, params, _, kern = hy
+    ref = JaxEngine(jmodel, params, **ENGINE)
+    eng = engine(kern)
+    assert eng.snapshot()["live_bytes"] == ref.snapshot()["live_bytes"] \
+        == 545792
+    prompt = prompts(1, seed=21)[0] + list(range(8, 20))
+    prompt = prompt[:12]
+    assert len(prompt) == 12
+    for e in (ref, eng):
+        e.submit(Request(prompt=prompt, max_new_tokens=8))
+        e.step()
+    assert eng.snapshot()["live_bytes"] == ref.snapshot()["live_bytes"] \
+        == 559104
+    assert eng.snapshot()["live_bytes"] < eng.snapshot()["capacity_bytes"]
+
+
+def test_seq_leaves_from_shapes_not_names(smol, hy):
+    """Which leaves live_bytes pro-rates is read from the shapes, as the
+    reference's seq_axes reads it: the K/V leaves of both models, no
+    Mamba2 state, and a recurrent leaf of any name counts whole."""
+    from repro_torch.serving import kvcache
+    for model, want in ((smol[2], {"k", "v"}), (hy[3], {"k", "v"})):
+        cache = model.init_cache(2, 16, torch.float32)
+        assert kvcache.seq_leaves(model.init_cache, cache, 2, 16,
+                                  torch.float32) == want
+
+    def init_cache(batch, cache_len, dtype, device="cpu"):
+        return {"kv": torch.zeros((3, batch, cache_len, 4), dtype=dtype,
+                                  device=device),
+                "cell": torch.zeros((3, batch, 16, 4), dtype=dtype,
+                                    device=device)}
+    cache = init_cache(2, 16, torch.float32)
+    seq = kvcache.seq_leaves(init_cache, cache, 2, 16, torch.float32)
+    assert seq == {"kv"}
+    # half the tokens live: the sequence leaf halves, the state stays whole
+    assert kvcache.live_bytes(cache, seq, 16, 32) == (3 * 2 * 16 * 4 * 4
+                                                      * 3 // 2)
+
+
+def _counting_reference(jmodel):
+    """The reference model with a host counter on every decode step the
+    megastep's while_loop runs (a debug callback inside the traced
+    step)."""
+    import dataclasses
+    count = [0]
+
+    def bump():
+        count[0] += 1
+
+    def decode_step(*args, **kw):
+        jax.debug.callback(bump)
+        return jmodel.decode_step(*args, **kw)
+    return dataclasses.replace(jmodel, decode_step=decode_step), count
+
+
+@pytest.mark.parametrize("queued", [False, True])
+def test_megastep_stop_token_ends_loop_like_reference(smol, queued):
+    """With K = 8, a request whose stop token comes at its first decode
+    step ends the megastep after one step, as the reference's while_loop
+    does; with a request queued under continuous admission, the first
+    slot to stop ends it while another slot still decodes. The port's
+    decode-step count equals the reference's, tokens too."""
+    jmodel, params, model = smol
+    ps = prompts(6, seed=17)
+    firsts = engine(model).generate(ps, max_new_tokens=2)
+    # a prompt whose first decode token differs from its prefill token
+    i = next(i for i, f in enumerate(firsts) if f[0] != f[1])
+    ps = [ps[i]] + ps[:i] + ps[i + 1:]
+    first = firsts[i]
+    stop = first[1]  # the token of the first decode step
+    trace = ([(ps[0], (stop,))] if not queued else
+             [(ps[0], (stop,)), (ps[1], ()), (ps[2], ())])
+    cfg = dict(ENGINE, slots=2 if queued else 4, megastep=8)
+    counted, ref_steps = _counting_reference(jmodel)
+    ref = JaxEngine(counted, params, **cfg)
+    ref_out = [ref.submit(Request(prompt=list(p), max_new_tokens=12,
+                                  stop_tokens=st)) for p, st in trace]
+    ref.run_to_completion()
+    outs = {}
+    for early in (True, False):
+        eng = InferenceEngine(model, device="cpu", **cfg)
+        if not early:  # the loop without its exit: the host-known cap only
+            eng._keep_decoding = lambda *args: True
+        reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=12,
+                                   stop_tokens=st)) for p, st in trace]
+        eng.run_to_completion()
+        outs[early] = ([r.generated for r in reqs], eng.stats.decode_steps)
+    assert ref_out[0].generated == [first[0], stop]
+    assert outs[True][0] == outs[False][0] == [r.generated for r in ref_out]
+    assert outs[True][1] == ref_steps[0]
+    # the host-known step cap alone would run more steps: not vacuous
+    assert outs[False][1] > ref_steps[0]
 
 
 def test_paged_offload_restore_midstream(smol):

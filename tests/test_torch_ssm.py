@@ -224,6 +224,24 @@ def test_ssm_scan_matches_reference_pallas(B, S, H, N, P, chunk):
     assert _err(ey, y) < SCAN_TOL and _err(es, st) < SCAN_TOL
 
 
+@pytest.mark.parametrize("H,G", [(8, 2), (4, 1), (6, 6)])
+def test_ssm_scan_group_bc_equals_per_head(H, G):
+    """B and C given once per group (B, S, G, N), head h reading group
+    h // (H // G) as the reference's jnp.repeat makes them: the same bits
+    as the per-head call on the repeated copies, and the reference's
+    ops.ssm_scan on those copies within its 2e-3."""
+    B, S, N, P = 2, 40, 16, 16
+    C, Bm = _rand(0, (B, S, G, N)), _rand(1, (B, S, G, N))
+    v, la = _rand(2, (B, S, H, P)), _log_decay(3, (B, S, H))
+    y, st = ops.ssm_scan(*_t(C, Bm, v, la))
+    Ch, Bh = (np.repeat(a, H // G, axis=2) for a in (C, Bm))
+    yh, sth = ops.ssm_scan(*_t(Ch, Bh, v, la))
+    assert y.shape == (B, S, H, P) and st.shape == (B, H, N, P)
+    assert torch.equal(y, yh) and torch.equal(st, sth)
+    ey, es = jax_ops.ssm_scan(*map(jnp.asarray, (Ch, Bh, v, la)), chunk=8)
+    assert _err(ey, y) < SCAN_TOL and _err(es, st) < SCAN_TOL
+
+
 def test_ssm_scan_padded_row_final_state():
     """Right padding as _mamba2_core_inputs makes it (dt = 0: log_a = 0
     and v = 0): a row padded from 37 to 64 steps ends in the state of its
