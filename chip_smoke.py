@@ -65,7 +65,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 over the same weights: greedy agreement, the first-token
                 logits gap and the routing decisions that differed. Its
                 demote/restore (31 GB of pinned host memory) is left to the
-                CPU tests;
+                CPU tests; then torch.profiler over (f) on the kernel
+                engine;
   7. zamba2   - full-width Zamba2-7B (81 Mamba2 layers and one shared
                 attention block applied 13 times, 6.79 B parameters,
                 seeded random bf16 weights drawn on the card) on the slot
@@ -666,13 +667,12 @@ def route_counts(gen, tokens, k=6, experts=64):
     return counts
 
 
-def phase_kernels_mla_moe() -> dict:
-    """Phase 3 for the DeepSeek path's kernels, on their own generator (the
-    earlier cases draw what they drew before these existed)."""
-    gen = np.random.RandomState(2)
-    rows = {}
-
-    # --- paged_mla_decode --------------------------------------------------
+def phase_kernels_mla(gen) -> dict:
+    """Phase 3's paged MLA decode: DeepSeek-V2-Lite's decode shape in bf16
+    against the plain version (max-abs error, the share of bf16 outputs
+    equal to the plain version's, two calls giving the same bits), its
+    device time and gather + SDPA's, then pages of 7 and 16 in f32 over a
+    poisoned TRASH page."""
     def mla_case(B, H, R, Dr, P, n, num_pages, dtype, lengths, scale,
                  poison=False):
         ql = randn(gen, (B, H, R), dtype)
@@ -700,7 +700,7 @@ def phase_kernels_mla_moe() -> dict:
                                  "exact zeros")
         if not torch.isfinite(out).all():
             raise AssertionError("paged_mla_decode: non-finite output")
-        return args, err
+        return args, err, out, exp
 
     # DeepSeek-V2-Lite's decode: 16 slots, 16 heads, latent 512, rope 64,
     # 16 pages of 64 per slot scattered over a 256-page pool
@@ -708,12 +708,23 @@ def phase_kernels_mla_moe() -> dict:
     lengths = gen.randint(2, n * P, size=B)
     lengths[:3] = (0, 1, n * P)
     scale = (128 + 64) ** -0.5
-    args, err = mla_case(B, H, R, Dr, P, n, 256, torch.bfloat16,
-                         lengths.tolist(), scale)
+    args, err, out, exp = mla_case(B, H, R, Dr, P, n, 256, torch.bfloat16,
+                                   lengths.tolist(), scale)
     main_err = check("paged_mla_decode main (16,16,512+64) P 64 n 16 bf16 "
                      "lengths with 0/1/1024, scattered pages", err,
                      torch.bfloat16)
-    ms = time_ms(lambda: ops.paged_mla_decode(*args, scale=scale), iters=50)
+    live = lengths > 0
+    equal = float((out[live] == exp[live]).float().mean())
+    again = ops.paged_mla_decode(*args, scale=scale)
+    if not torch.equal(again, out):
+        raise AssertionError("paged_mla_decode: two calls on the same "
+                             "inputs gave different bits")
+    del out, exp, again
+
+    def kernel():
+        return ops.paged_mla_decode(*args, scale=scale)
+    ms = device_ms(kernel, iters=50)
+    eager = time_ms(kernel, iters=50)
     plain = time_ms(lambda: ref.paged_mla_decode_ref(*args, scale=scale))
     ql, qr, ckv, kr, pt, ln = args
     pos = torch.arange(n * P, device="cuda")
@@ -728,25 +739,37 @@ def phase_kernels_mla_moe() -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             q, k.expand(B, H, n * P, R + Dr), c.expand(B, H, n * P, R),
             attn_mask=mask, scale=scale)
-    lib = time_ms(library, iters=50)
+    lib = device_ms(library, iters=50)
+    lib_eager = time_ms(library, iters=50)
     nbytes, flops = mla_bound(B, H, R, Dr, lengths, P, 2)
     bms, by = bound_ms(nbytes, flops)
     log(f"[kernels] paged_mla_decode main: kernel {ms:.4f} ms "
-        f"({rate(nbytes, flops, ms, by)}), plain "
-        f"{plain:.4f} ms, gather+SDPA {lib:.4f} ms, bound {bms:.4f} ms "
-        f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-    rows["paged_mla_decode"] = dict(
+        f"({rate(nbytes, flops, ms, by)}; eager launches {eager:.4f} ms), "
+        f"plain {plain:.4f} ms, gather+SDPA {lib:.4f} ms (eager "
+        f"{lib_eager:.4f}), bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e9:.3f} GFLOP); bf16 outputs equal to the plain "
+        f"version's {100 * equal:.3f} %, two calls bitwise equal")
+    row = dict(
         name="paged_mla_decode", route="cuda",
         source="src/repro_torch/csrc/paged_mla_decode.cu",
         replaces="src/repro/kernels/decode_attention.py:308",
         max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=bms,
-        bound_by=by, library_ms=lib)
+        bound_by=by, library_ms=lib, eager_ms=eager,
+        library_eager_ms=lib_eager, equal_share=equal)
     del args, ql, qr, ckv, kr, mask
     for P, n, lens in ((7, 5, [35, 17, 1, 0]), (16, 4, [64, 33, 0, 5])):
-        _, err = mla_case(4, 16, 512, 64, P, n, 6 * n, torch.float32, lens,
-                          scale, poison=True)
+        _, err, _, _ = mla_case(4, 16, 512, 64, P, n, 6 * n, torch.float32,
+                                lens, scale, poison=True)
         check(f"paged_mla_decode P {P} n {n} (16,512+64) f32 lengths {lens}, "
               f"poisoned TRASH", err, torch.float32)
+    return row
+
+
+def phase_kernels_mla_moe() -> dict:
+    """Phase 3 for the DeepSeek path's kernels, on their own generator (the
+    earlier cases draw what they drew before these existed)."""
+    gen = np.random.RandomState(2)
+    rows = {"paged_mla_decode": phase_kernels_mla(gen)}
 
     # --- grouped_gemm -------------------------------------------------------
     def gemm_tol(dtype, d, exp):
@@ -1343,12 +1366,13 @@ def compare(label, kern, plain, vocab):
 
 def profile_mix(engine, prompts, max_new, label) -> dict:
     """Device busy share and the heaviest kernels of one run of a mix,
-    under torch.profiler (whose own host cost lowers the share a little)."""
+    under torch.profiler (whose own host cost lowers the share a little).
+    It traces the device alone: the host's op events add nothing to these
+    readings and slow the profiler's processing of a long run."""
     from torch.profiler import ProfilerActivity, profile
     sync()
     t_all = time.monotonic()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         engine.generate(prompts, max_new_tokens=max_new)
         sync()
@@ -1765,6 +1789,8 @@ def phase_deepseek() -> dict:
             raise AssertionError(f"deepseek ({mix}) kernels vs plain: "
                                  f"{out[f'compare_{mix}']['failures']}")
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["profile_f"] = profile_mix(eng, longs, 64,
+                                   "(f) DeepSeek long prompts, kernel engine")
     free(eng)
     return out
 

@@ -39,9 +39,11 @@ _MLA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [
     ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
     ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 MLA_MAX_LATENT = 512  # widest latent R the MLA kernel's accumulators hold
-_MLA_TILE = 32        # keys per tile of the MLA kernel (kBK)
+_MLA_TILE = 64        # keys per tile of the bf16 MLA kernel (tc::kBK)
+_MLA_HEADS = 16       # heads per block of the bf16 MLA kernel (tc::kHG)
 _MLA_MAX_SPLITS = 64  # key ranges per slot the combine pass takes
 _SMS: Dict[int, int] = {}
+_MLA_WIDTH: Dict[torch.dtype, int] = {}
 
 
 def _lib(name: str, argtypes):
@@ -248,8 +250,9 @@ def check_mla_inputs(q_lat: torch.Tensor, q_rope: torch.Tensor,
     """What the MLA kernel requires: one CUDA device; f32 or bf16 of one
     dtype; q_lat (B, H, R), q_rope (B, H, Dr), ckv_pages (NP+1, P, R) and
     krope_pages (NP+1, P, Dr), all contiguous, R <= 512, R and Dr
-    multiples of 8, both pools 16-byte aligned; the table as the paged
-    decode's; lengths a contiguous (B,) int32 tensor."""
+    multiples of 8, R + Dr at most ``mla_max_width``, both pools 16-byte
+    aligned; the table as the paged decode's; lengths a contiguous (B,)
+    int32 tensor."""
     dev = q_lat.device
     ts = (q_lat, q_rope, ckv_pages, krope_pages)
     if not (q_lat.is_cuda and all(t.device == dev for t in ts)
@@ -275,6 +278,11 @@ def check_mla_inputs(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if R % 8 or Dr % 8:
         raise ValueError(f"paged_mla_decode kernel: R and Dr must be "
                          f"multiples of 8, got {R}, {Dr}")
+    width = mla_max_width(q_lat.dtype)
+    if R + Dr > width:
+        raise ValueError(f"paged_mla_decode kernel: R + Dr = {R + Dr} above "
+                         f"{width}, the widest {q_lat.dtype} row its shared "
+                         f"memory stages")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged_mla_decode kernel: q and the pages must be "
                          "contiguous")
@@ -288,13 +296,24 @@ def check_mla_inputs(q_lat: torch.Tensor, q_rope: torch.Tensor,
     _check_table("paged_mla_decode", page_table, B, dev)
 
 
+def mla_max_width(dtype: torch.dtype) -> int:
+    """The widest R + Dr whose rows the MLA kernel stages in ``dtype``,
+    read from the built library, which holds the shared-memory budget."""
+    if dtype not in _MLA_WIDTH:
+        fn = build.library("paged_mla_decode").paged_mla_decode_max_width
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        _MLA_WIDTH[dtype] = fn(_DTYPES[dtype])
+    return _MLA_WIDTH[dtype]
+
+
 def mla_splits(B: int, H: int, max_keys: int, sms: int) -> Tuple[int, int]:
     """(splits, keys a split) of the MLA kernel's key axis: ranges of
-    whole 32-key tiles, enough of them for about four blocks an SM over
-    the B x ceil(H / 2) (slot, head pair) blocks. Sized from the table's
-    capacity, never from the lengths on the device."""
+    whole 64-key tiles, enough of them for about two blocks an SM over the
+    B x ceil(H / 16) (slot, head group) blocks (the bf16 kernel takes one
+    block an SM; ranges past a slot's length exit at once). Sized from the
+    table's capacity, never from the lengths on the device."""
     tiles = max(1, -(-max_keys // _MLA_TILE))
-    want = -(-4 * sms // (B * -(-H // 2)))
+    want = -(-2 * sms // (B * -(-H // _MLA_HEADS)))
     per = -(-tiles // max(1, min(want, tiles, _MLA_MAX_SPLITS)))
     return -(-tiles // per), per * _MLA_TILE
 

@@ -418,6 +418,52 @@ def test_cuda_paged_mla_decode_table_slice_and_trash(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_mla_decode_two_head_groups(cuda, dtype):
+    """H = 20: two 16-head groups a slot in bf16, the second holding 4
+    heads (its zero query rows are never written); f32's head pairs."""
+    B, H, R, Dr, page, npages = 3, 20, 512, 64, 64, 4
+    ckv, kr, pt = _mla_pool(7, B, npages, 2 * B * npages, page, R, Dr, cuda,
+                            dtype)
+    ql = _rand(0, (B, H, R), cuda, dtype)
+    qr = _rand(3, (B, H, Dr), cuda, dtype)
+    lengths = torch.tensor([npages * page, 77, 1], dtype=torch.int32,
+                           device=cuda)
+    scale = (128 + Dr) ** -0.5
+    out = ops.paged_mla_decode(ql, qr, ckv, kr, pt, lengths, scale=scale)
+    exp = ref.paged_mla_decode_ref(ql, qr, ckv, kr, pt, lengths, scale=scale)
+    assert out.shape == (B, H, R)
+    assert float((out.float() - exp.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_mla_decode_every_split_live_and_deterministic(cuda,
+                                                                  dtype):
+    """One slot filling a 8 192-key table, so every split is live and each
+    walks eight 64-key tiles through the double buffer, beside slots of
+    length 0 and 1 in the same call; two calls give the same bits."""
+    from repro_torch.kernels.decode_attention import mla_splits
+    B, H, R, Dr, page, npages = 16, 16, 512, 64, 64, 128
+    splits, keys = mla_splits(B, H, npages * page, 132)
+    assert keys >= 8 * 64 and splits * keys >= npages * page
+    ckv, kr, pt = _mla_pool(9, B, npages, B * npages, page, R, Dr, cuda,
+                            dtype)
+    ql = _rand(0, (B, H, R), cuda, dtype)
+    qr = _rand(3, (B, H, Dr), cuda, dtype)
+    lens = [npages * page, 0, 1] + np.random.RandomState(4).randint(
+        2, npages * page, size=B - 3).tolist()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    scale = (128 + Dr) ** -0.5
+    out = ops.paged_mla_decode(ql, qr, ckv, kr, pt, lengths, scale=scale)
+    again = ops.paged_mla_decode(ql, qr, ckv, kr, pt, lengths, scale=scale)
+    exp = ref.paged_mla_decode_ref(ql, qr, ckv, kr, pt, lengths, scale=scale)
+    assert float((out.float() - exp.float()).abs().max()) < TOL[dtype]
+    assert float(out[1].abs().max()) == 0.0
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("E,C,d,f", [(2, 128, 256, 128), (8, 256, 128, 256),
                                      (4, 70, 1408, 200)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -477,6 +523,71 @@ def test_cuda_kernels_refuse_widths_not_multiple_of_8(cuda):
     lengths = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="multiples of 8"):
         ops.paged_mla_decode(ql, qr, ckv, kr, pt, lengths, scale=0.1)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_bf16_widest_row_runs_and_wider_is_refused(cuda):
+    """The bf16 MLA kernel stages two 64-key tiles of R + Dr values and q in
+    shared memory: the widest row the library reports (at least
+    DeepSeek's 512 + 64) launches and matches the plain version, one 8
+    wider is refused by the wrapper."""
+    from repro_torch.kernels.decode_attention import mla_max_width
+    B, H, R, page, npages = 2, 16, 512, 16, 5
+    width = mla_max_width(torch.bfloat16)
+    assert width >= R + 64 and width % 8 == 0
+    for Dr in (width - R, width - R + 8):
+        ckv, kr, pt = _mla_pool(2, B, npages, 2 * B * npages, page, R, Dr,
+                                cuda, "bfloat16")
+        ql = _rand(0, (B, H, R), cuda, "bfloat16")
+        qr = _rand(3, (B, H, Dr), cuda, "bfloat16")
+        lengths = torch.tensor([npages * page, 37], dtype=torch.int32,
+                               device=cuda)
+        args = (ql, qr, ckv, kr, pt, lengths)
+        if R + Dr > width:
+            with pytest.raises(ValueError, match=f"above {width}"):
+                ops.paged_mla_decode(*args, scale=0.05)
+            continue
+        out = ops.paged_mla_decode(*args, scale=0.05)
+        exp = ref.paged_mla_decode_ref(*args, scale=0.05)
+        assert float((out.float() - exp.float()).abs().max()) < TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mla_entry_refuses_splits_short_of_the_table(cuda, dtype):
+    """The C entry itself refuses key ranges that do not cover the table
+    (splits * split_keys < npages * page_size), before any launch, and
+    takes the same call with one range more."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import (_DTYPES, _MLA_ARGTYPES,
+                                                      _lib)
+    B, H, R, Dr, page, npages = 2, 16, 32, 16, 16, 5  # 80 keys a slot
+    ckv, kr, pt = _mla_pool(4, B, npages, 2 * B * npages, page, R, Dr, cuda,
+                            dtype)
+    ql = _rand(0, (B, H, R), cuda, dtype)
+    qr = _rand(3, (B, H, Dr), cuda, dtype)
+    lengths = torch.tensor([npages * page, 41], dtype=torch.int32,
+                           device=cuda)
+    lib = _lib("paged_mla_decode", _MLA_ARGTYPES)
+    for splits in (1, 2):  # 64-key ranges: 64 keys short, 128 covering
+        part = torch.empty((B, H, splits, R), dtype=torch.float32,
+                           device=cuda)
+        part_ml = torch.empty((B, H, splits, 2), dtype=torch.float32,
+                              device=cuda)
+        out = torch.empty_like(ql)
+        code = lib.paged_mla_decode_fwd(
+            ql.data_ptr(), qr.data_ptr(), ckv.data_ptr(), kr.data_ptr(),
+            pt.data_ptr(), npages, npages, page, lengths.data_ptr(),
+            part.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, R, Dr,
+            0.1, splits, 64, _DTYPES[ql.dtype],
+            torch.cuda.current_stream().cuda_stream)
+        if splits == 1:
+            assert code != 0
+            continue
+        build.check(lib, "paged_mla_decode", code)
+        exp = ref.paged_mla_decode_ref(ql, qr, ckv, kr, pt, lengths,
+                                       scale=0.1)
+        assert float((out.float() - exp.float()).abs().max()) < TOL[dtype]
 
 
 @pytest.mark.cuda

@@ -243,16 +243,18 @@ def test_paged_mla_decode_matches_reference(page, npages, dtype):
     (16, 16, 1024), (4, 16, 35), (3, 16, 1024), (1, 5, 56), (64, 16, 64),
     (16, 16, 16 * 2048)])
 def test_mla_key_splits_cover_the_table(B, H, max_keys):
-    """The MLA kernel's key ranges: whole 32-key tiles, at most 64, every
-    range starting inside the table, together covering it; about four
-    (slot, head pair, range) blocks an SM where the table has the tiles."""
+    """The MLA kernel's key ranges: whole 64-key tiles (so whole tiles of
+    the f32 route's 32 too), at most 64, every range starting inside the
+    table, together covering it; about two (slot, head group of 16, range)
+    blocks an SM where the table has the tiles."""
     from repro_torch.kernels.decode_attention import mla_splits
     splits, keys = mla_splits(B, H, max_keys, 132)
-    assert keys % 32 == 0 and 1 <= splits <= 64
+    assert keys % 64 == 0 and 1 <= splits <= 64
     assert (splits - 1) * keys < max_keys <= splits * keys
-    tiles = -(-max_keys // 32)
-    blocks = B * -(-H // 2) * splits
-    assert blocks >= min(4 * 132, B * -(-H // 2) * min(tiles, 64)) // 2
+    tiles = -(-max_keys // 64)
+    groups = -(-H // 16)
+    blocks = B * groups * splits
+    assert blocks >= min(2 * 132, B * groups * min(tiles, 64)) // 2
 
 
 @pytest.mark.parametrize("length", [0, 1, 255, 256, 257, 511, 512, 700,
