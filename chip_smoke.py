@@ -55,6 +55,22 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 pages only), restored and run on (d) again (every wave
                 hits, same tokens), and a template of it cloned into a
                 twin that serves (c) with the same tokens and no build;
+  5b. runtime - full-width SmolLM2-1.7B through the PCM runtime
+                (repro_torch.core): the seeded weights written with the
+                port's CheckpointManager; a 2-worker PCMManager whose
+                workers build their context with launch/serve.py's
+                build_context from that checkpoint (slot cache, 16 slots,
+                256 tokens, bf16 cache); fact verification, 4 templates x
+                64 claims in batches of 16, two new tokens each, through
+                context_app, with worker 0 preempted after 4 batches and a
+                replacement added; then one context DEVICE -> HOST_RAM ->
+                LOCAL_DISK -> DEVICE, streamed, and one more batch. Prints
+                claims/s against a bare engine's, each worker's cold build,
+                the fetch_log, builder calls, restore and stage seconds and
+                the bytes moved; every claim's tokens must equal the bare
+                engine's, the replacement must come from the pool or a
+                peer, the builder may run only for the workers that built
+                cold, and the kernels must launch;
   6. deepseek - full-width DeepSeek-V2-Lite-16B (MLA + MoE, 27 layers,
                 15.7 B parameters, seeded random bf16 weights drawn on the
                 card) on the paged pool with the kernels: (e) fact
@@ -100,6 +116,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -109,11 +126,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import (ContextMode, PCMManager, Tier,  # noqa: E402
+                              context_app, make_recipe)
 from repro_torch.data import HashTokenizer, fever  # noqa: E402
 from repro_torch.data.tokenizer import BOS, LABEL_TOKENS  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import gemm_shape  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
@@ -1618,6 +1639,234 @@ def phase_pcm_paged(eng, fewshot, fewshot_tokens, longs, paged_tokens,
                 clone_s=clone_s)
 
 
+# ---------------------------------------------------------- 5b. runtime ----
+# the runtime mix: the engine each worker builds (slot cache, 16 slots,
+# 0.8 GB of bf16 cache) and fact verification as launch/serve.py runs it:
+# 4 templates x 64 claims in batches of 16, two new tokens each
+RUNTIME_KW = dict(slots=16, cache_len=256, prefill_buckets=(32, 128),
+                  megastep=8, cache_dtype=torch.bfloat16)
+RUNTIME_BATCH = 16
+
+
+def runtime_batches():
+    """(template, claim indices) of each batch, in submission order."""
+    return [(t, list(range(i, i + RUNTIME_BATCH)))
+            for t in fever.PROMPT_CANDIDATES
+            for i in range(0, 64, RUNTIME_BATCH)]
+
+
+def phase_runtime() -> dict:
+    """Full-width SmolLM2-1.7B through the PCM runtime: the seeded weights
+    written with the port's CheckpointManager, a 2-worker PCMManager whose
+    workers build their context with ``launch/serve.build_context`` from
+    that checkpoint, the fact-verification sweep through ``context_app``
+    with worker 0 preempted after the first 4 batches and a replacement
+    added, then one context taken DEVICE -> HOST_RAM -> LOCAL_DISK ->
+    DEVICE (streamed) and one more batch. Every claim's two tokens must
+    equal a bare engine's on the same weights and prompts, the replacement
+    must bootstrap from the pool or a peer, and the builder may run only
+    for the workers that built cold."""
+    cfg = dataclasses.replace(get_config("smollm2-1.7b"), use_kernels=True)
+    tmp = tempfile.TemporaryDirectory(prefix="runtime_smoke_")
+    ckdir, spill = Path(tmp.name) / "ckpt", Path(tmp.name) / "pool"
+    model = build_model(cfg, device="cuda", seed=0)
+    t0 = time.monotonic()
+    CheckpointManager(str(ckdir)).save(0, dict(model.state_dict()))
+    ckpt_s = time.monotonic() - t0
+    ckpt_bytes = sum(f.stat().st_size for f in ckdir.rglob("*"))
+    log(f"[runtime] seeded weights written with CheckpointManager: "
+        f"{ckpt_bytes / 1e9:.3f} GB in {ckpt_s:.3f} s")
+
+    # the bare engine: the same batches, one generate each, as a task runs
+    batches = runtime_batches()
+    tok = HashTokenizer(cfg.vocab_size)
+
+    def prompts_of(template, idx):
+        return [tok.encode(fever.render_prompt(c, template))
+                for c in fever.claim_batch(idx)]
+
+    bare = InferenceEngine(model, device="cuda", **RUNTIME_KW)
+    bare.generate([[2, 5]], max_new_tokens=2)
+    sync()
+    t0 = time.monotonic()
+    want = [bare.generate(prompts_of(t, idx), max_new_tokens=2)
+            for t, idx in batches]
+    sync()
+    bare_s = time.monotonic() - t0
+    free(bare)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    bare_rate = len(batches) * RUNTIME_BATCH / bare_s
+    log(f"[runtime] bare engine: {len(batches) * RUNTIME_BATCH} claims in "
+        f"{bare_s:.3f} s = {bare_rate:.1f} claims/s")
+
+    ops.reset_launches()
+    t_phase = time.monotonic()
+    mgr = PCMManager(mode=ContextMode.FULL, n_workers=2,
+                     spill_dir=str(spill))
+    try:
+        recipe = make_recipe(
+            "smollm2-1.7b.ctx", serve_cli.build_context,
+            ("smollm2-1.7b", RUNTIME_KW["slots"], RUNTIME_KW["cache_len"],
+             RUNTIME_KW["megastep"], cfg, "cuda", str(ckdir),
+             RUNTIME_KW["prefill_buckets"], RUNTIME_KW["cache_dtype"]))
+
+        @context_app(recipe=recipe, manager=mgr, n_items=RUNTIME_BATCH)
+        def verify_batch(indices, template):
+            return serve_cli.verify_claims(indices, template)
+
+        # both workers build cold, at the same moment (each loads the
+        # checkpoint; their threads load the kernel libraries together)
+        t0 = time.monotonic()
+        mgr.warm_up(recipe)
+        warm_s = time.monotonic() - t0
+        first = next(iter(mgr.workers))
+        t0 = time.monotonic()
+        futs = [verify_batch(idx, t) for t, idx in batches]
+        for f in futs[:4]:
+            f.result(timeout=600)
+        t_four = time.monotonic() - t0
+        victim = mgr.workers[first]
+        mgr.preempt_worker(first)
+        victim.join(300)                # its context is in the pool now
+        retire_s = time.monotonic() - t0 - t_four
+        joiner = mgr.add_worker()
+        log(f"[runtime] both workers built in {warm_s:.3f} s; 4 batches "
+            f"done at {t_four:.3f} s; {first} preempted and retired (its "
+            f"context demoted to the pool) in {retire_s:.3f} s while "
+            f"{len(mgr.workers) - 1} worker served; {joiner} added")
+        got = [f.result(timeout=600) for f in futs]
+        sweep_s = time.monotonic() - t0
+        claims = len(batches) * RUNTIME_BATCH
+        rate_rt = claims / sweep_s
+        same = [g[0] for g in got] == want
+        accuracy = {t[:24]: float(np.mean([v for (tt, _), g in
+                                           zip(batches, got) if tt == t
+                                           for v in g[1]]))
+                    for t in fever.PROMPT_CANDIDATES}
+        st = mgr.stats()
+        fetches = [(d.worker_id, d.source.name, d.donor,
+                    d.degraded_from.name if d.degraded_from else None)
+                   for d in mgr.fetch_history(recipe)]
+        workers = {w.worker_id: dict(
+            tasks=len(w.library.records),
+            builder_calls=w.library.builder_calls,
+            build_stages=[w.library.context(k).value["build_stages"]
+                          for k in w.library.resident_keys],
+            build_s=w.library.build_seconds_total,
+            restores=w.library.restores,
+            restore_s=w.library.restore_seconds_total,
+            peer_installs=w.library.peer_installs,
+            peer_install_s=w.library.peer_install_seconds)
+            for w in mgr._spawned}
+        log(f"[runtime] sweep: {claims} claims in {sweep_s:.3f} s = "
+            f"{rate_rt:.1f} claims/s (bare engine {bare_rate:.1f}, "
+            f"{rate_rt / bare_rate:.3f}x); tokens identical to the bare "
+            f"engine: {same}; accuracy per template {accuracy}")
+        log(f"[runtime] fetch_log {fetches}")
+        log(f"[runtime] workers {json.dumps(workers)}")
+        log(f"[runtime] stats: builder calls {st['builder_calls']}, cold "
+            f"invocations {st['cold_invocations']}, warm "
+            f"{st['warm_invocations']}, restores {st['context_restores']}, "
+            f"peer installs {st['peer_installs']}, striping "
+            f"{st['striping']}")
+        built = sum(1 for w in workers.values() if w["builder_calls"])
+        joined = [f for f in fetches if f[0] == joiner]
+        if not same:
+            raise AssertionError("runtime: tokens differ from the bare "
+                                 "engine's")
+        if not joined or joined[0][1] not in ("POOL", "PEER") or \
+                workers[joiner]["builder_calls"]:
+            raise AssertionError(f"runtime: the replacement did not "
+                                 f"bootstrap from the pool or a peer: "
+                                 f"{joined}")
+        if st["builder_calls"] != built or any(
+                w["builder_calls"] > 1 for w in workers.values()):
+            raise AssertionError("runtime: the builder ran more often than "
+                                 "the workers that built cold")
+
+        # the same sweep again on the two warm workers, no preemption:
+        # the runtime's own cost against the bare engine
+        t0 = time.monotonic()
+        steady = [f.result(timeout=600) for f in
+                  [verify_batch(idx, t) for t, idx in batches]]
+        steady_s = time.monotonic() - t0
+        rate_steady = claims / steady_s
+        log(f"[runtime] steady sweep on 2 warm workers: {claims} claims in "
+            f"{steady_s:.3f} s = {rate_steady:.1f} claims/s "
+            f"({rate_steady / bare_rate:.3f}x the bare engine); tokens "
+            f"identical {[g[0] for g in steady] == want}")
+        if [g[0] for g in steady] != want:
+            raise AssertionError("runtime: the steady sweep's tokens differ")
+
+        # one context through the disk: the other worker retires (its copy
+        # goes to the pool), the replacement demotes to LOCAL_DISK, and the
+        # next batch restores it streamed
+        retiring = [w for wid, w in mgr.workers.items() if wid != joiner]
+        for w in retiring:
+            mgr.preempt_worker(w.worker_id)
+        for w in retiring:                  # its demotion has landed
+            w.join(300)
+        eng = mgr.workers[joiner].library.context(recipe.key()) \
+            .value["engine"]
+        compiles0 = eng.stats.compiles
+        calls0 = mgr.stats()["builder_calls"]
+        t0 = time.monotonic()
+        mgr.demote_context(recipe, tier=Tier.LOCAL_DISK,
+                           worker_ids=[joiner])
+        demote_s = time.monotonic() - t0
+        snap = mgr.snapshots.peek(recipe.key())
+        if snap is None or mgr.snapshots.tier(recipe.key()) != \
+                Tier.LOCAL_DISK:
+            raise AssertionError("runtime: the context is not on disk")
+        spill_bytes = mgr.snapshots.stats()["disk_used_bytes"]
+        t, idx = batches[-1]
+        again = verify_batch(idx, t).result(timeout=600)
+        ctx = mgr.workers[joiner].library.context(recipe.key())
+        eng = ctx.value["engine"]
+        same_rt = again[0] == want[-1]
+        stage = {k: [int(v[0]), float(v[1])]
+                 for k, v in ctx.stage_seconds.items()}
+        log(f"[runtime] disk round trip: demote + spill {demote_s:.3f} s "
+            f"({snap.nbytes / 1e9:.3f} GB snapshot, "
+            f"{spill_bytes / 1e9:.3f} GB on disk); streamed restore "
+            f"{ctx.restore_seconds:.3f} s, stages {stage} (cold build "
+            f"{workers[first]['build_s']:.3f} s); tokens identical "
+            f"{same_rt}; compiles {eng.stats.compiles}; builder calls "
+            f"{mgr.stats()['builder_calls'] - calls0} new")
+        if not same_rt or not ctx.restored or eng.stats.compiles != \
+                compiles0 or mgr.stats()["builder_calls"] != calls0 or \
+                set(stage) != {"disk", "h2d"}:
+            raise AssertionError("runtime: the disk round trip decoded "
+                                 "differently, built or did not stream")
+    finally:
+        mgr.shutdown()
+    launches = dict(ops.LAUNCHES)
+    phase_s = time.monotonic() - t_phase
+    log(f"[runtime] launches {launches}; phase {phase_s:.1f} s")
+    if launches["flash_attention"] <= 0 or launches["flash_decode"] <= 0:
+        raise AssertionError("runtime: the prefill or decode kernel never "
+                             "launched")
+    tmp.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(checkpoint_s=ckpt_s, checkpoint_bytes=ckpt_bytes,
+                warm_up_s=warm_s, four_batches_s=t_four,
+                retire_s=retire_s, bare_s=bare_s, bare_claims_per_s=bare_rate,
+                sweep_s=sweep_s, claims_per_s=rate_rt,
+                steady_s=steady_s, steady_claims_per_s=rate_steady,
+                accuracy=accuracy, fetch_log=fetches, workers=workers,
+                stats={k: st[k] for k in (
+                    "builder_calls", "cold_invocations", "warm_invocations",
+                    "context_restores", "peer_installs", "striping")},
+                disk=dict(demote_spill_s=demote_s, snapshot_bytes=snap.nbytes,
+                          spill_bytes=spill_bytes,
+                          restore_s=ctx.restore_seconds,
+                          stage_seconds=stage),
+                phase_s=phase_s, launches={"runtime": launches})
+
+
 # --------------------------------------------------------- 6. deepseek ----
 class RouteLog:
     """Records every MoE routing decision while active: for each call of
@@ -2097,6 +2346,8 @@ def main() -> int:
     del sharing
     gc.collect()
     torch.cuda.empty_cache()
+    report["runtime"] = phase_runtime()
+    phase_done("runtime")
     report["deepseek"] = phase_deepseek()
     phase_done("deepseek")
     gc.collect()
@@ -2108,8 +2359,8 @@ def main() -> int:
     # a kernel's launches on the main paths, summed over its entry points
     entries = {"grouped_gemm": ("grouped_gemm", "grouped_gemm_segments"),
                "ssd_scan": ("ssm_scan",)}
-    runs = [run for phase in (serve_out, report["deepseek"],
-                              report["zamba2"])
+    runs = [run for phase in (serve_out, report["runtime"],
+                              report["deepseek"], report["zamba2"])
             for run in phase["launches"].values()]
     kernels = []
     for name, row in rows.items():

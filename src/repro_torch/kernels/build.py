@@ -8,6 +8,12 @@ compiler flags, so an edited source builds anew and an unchanged one loads
 from disk. The build happens at first use, all missing sources compiled
 together (one ``nvcc`` each, started at once); nothing is built when a
 module is imported, and nothing here runs for tensors on the CPU.
+
+Builds and loads are safe across threads: one module lock serializes
+``build_all`` and ``library``, so a second caller waits for the first
+build and then loads its result instead of starting its own, and each
+``nvcc`` writes a temporary file named by process and thread before it is
+renamed into place.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -29,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -58,7 +66,13 @@ def build_all() -> Dict:
 
     Returns ``{"built": [names], "seconds": wall time, "ptxas": {name:
     register/shared-memory report}}``; raises with the compiler's output
-    when a build fails."""
+    when a build fails. A caller that finds another thread building waits
+    for it, and then finds the libraries on disk."""
+    with _LOCK:
+        return _build_missing()
+
+
+def _build_missing() -> Dict:
     t0 = time.monotonic()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -66,7 +80,8 @@ def build_all() -> Dict:
         out = library_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        tmp = out.with_suffix(
+            f".tmp{os.getpid()}.{threading.get_ident()}.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -89,16 +104,20 @@ def build_all() -> Dict:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _LIBS.get(name)
-    if lib is None:
-        if name not in SOURCES:
-            raise KeyError(f"unknown kernel library {name!r}")
-        path = library_path(name)
-        if not path.exists():
-            build_all()
-        lib = ctypes.CDLL(str(path))
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    if name not in SOURCES:
+        raise KeyError(f"unknown kernel library {name!r}")
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                _build_missing()
+            lib = ctypes.CDLL(str(path))
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            _LIBS[name] = lib
     return lib
 
 

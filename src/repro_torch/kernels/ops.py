@@ -9,11 +9,13 @@ raises: there is no fallback), a CPU tensor runs the plain version in
 
 ``LAUNCHES`` counts kernel launches per entry point: one is added where a
 kernel launches and nowhere else, so a run can show that its main path
-went through the kernels.
+went through the kernels. The PCM runtime's worker threads launch
+concurrently, so the counts change under a lock.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -35,9 +37,18 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0,
                             "ssm_scan": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _launched(name: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _on_cpu(x: torch.Tensor, name: str) -> bool:
@@ -63,7 +74,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                        q_offset=q_offset)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                scale=scale, kv_len=kv_len, q_offset=q_offset)
-    LAUNCHES["flash_attention"] += 1
+    _launched("flash_attention")
     return out
 
 
@@ -77,7 +88,7 @@ def flash_decode(q: torch.Tensor, cache_k: torch.Tensor,
                                     active=active)
     out = flash_decode_cuda(q, cache_k, cache_v, lengths, scale=scale,
                             active=active)
-    LAUNCHES["flash_decode"] += 1
+    _launched("flash_decode")
     return out
 
 
@@ -92,7 +103,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                                     scale=scale)
     out = paged_flash_decode_cuda(q, k_pages, v_pages, page_table, lengths,
                                   scale=scale)
-    LAUNCHES["paged_flash_decode"] += 1
+    _launched("paged_flash_decode")
     return out
 
 
@@ -110,7 +121,7 @@ def paged_mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
                                         scale=scale)
     out = paged_mla_decode_cuda(q_lat, q_rope, ckv_pages, krope_pages,
                                 page_table, lengths, scale=scale)
-    LAUNCHES["paged_mla_decode"] += 1
+    _launched("paged_mla_decode")
     return out
 
 
@@ -120,7 +131,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _on_cpu(x, "grouped_gemm"):
         return ref.grouped_gemm_ref(x, w)
     out = grouped_gemm_cuda(x, w)
-    LAUNCHES["grouped_gemm"] += 1
+    _launched("grouped_gemm")
     return out
 
 
@@ -133,7 +144,7 @@ def grouped_gemm_segments(x: torch.Tensor, counts: torch.Tensor,
     if _on_cpu(x, "grouped_gemm_segments"):
         return ref.grouped_gemm_segments_ref(x, counts, w)
     out = grouped_gemm_segments_cuda(x, counts, w)
-    LAUNCHES["grouped_gemm_segments"] += 1
+    _launched("grouped_gemm_segments")
     return out
 
 
@@ -163,7 +174,7 @@ def ssm_scan(C_mat: torch.Tensor, B_mat: torch.Tensor, v: torch.Tensor,
         return (y.reshape(Bb, H, S, P).transpose(1, 2),
                 state.reshape(Bb, H, N, P))
     out = ssd_scan_cuda(C_mat, B_mat, v, log_a)
-    LAUNCHES["ssm_scan"] += 1
+    _launched("ssm_scan")
     return out
 
 

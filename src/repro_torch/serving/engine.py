@@ -66,8 +66,12 @@ into (pinned) host tensors and frees the device memory; a paged engine
 ships only its live pages, each once, with their refcounts.
 ``restore_device_state()`` copies them back. A restored engine decodes
 bit-identically to one that never left the device, and rebuilds nothing:
-the restore costs the transfer only. ``export_template`` and
-``clone_offloaded`` bootstrap a twin engine from the weights alone.
+the restore costs the transfer only. ``export_template`` (or its two halves,
+``export_template_device`` and ``export_template_host``, for a streamed
+export) and ``clone_offloaded`` bootstrap a twin engine from the weights
+alone. ``warm_executables`` loads every kernel library the model launches
+(building it at first use), the warm-up a PCM context runs once when it
+is built.
 """
 
 from __future__ import annotations
@@ -77,7 +81,7 @@ import copy
 import sys
 import time
 import traceback
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -302,6 +306,9 @@ class InferenceEngine:
             host["_paged_live_ids"] = live
             host["_paged_refcounts"] = np.array(
                 [self._alloc.refcount(int(p)) for p in live], np.int32)
+            # the page axis of each gathered leaf: a spill chunks the
+            # leaves along it, so every chunk boundary is a page boundary
+            host["_paged_page_axes"] = {n: np.int32(1) for n in cache}
         self._sync()
         for p in params.values():
             p.data = torch.empty((0,), dtype=p.dtype, device=self.device)
@@ -365,20 +372,23 @@ class InferenceEngine:
                 "memory) — restore the context before use")
 
     # ------------------------------------------- P2P template transfer -----
-    def export_template(self) -> Dict:
-        """Donor side of a peer-to-peer context bootstrap: a host copy of
-        the weights and the RNG state plus the per-slot decode state of a
-        pristine engine (all slots free, empty KV store), without detaching
-        anything from this engine, which keeps serving. A paged template
-        ships no pages at all and an all-TRASH page table, so its size is
-        the weights'. Restored into ``clone_offloaded()``'s twin it decodes
-        as a freshly built engine does, with no kernel build."""
+    def export_template_device(self) -> Dict:
+        """Device half of the template: the fields that ship verbatim from
+        this engine's device memory — the weights, as device tensors (no
+        host copy; a chunk-streamed export copies them to the host chunk
+        by chunk between serving turns, which the weights allow because
+        they never change after the build) — and the RNG state."""
         self._require_resident()
-        host: Dict = {
-            "params": {n: self._host_copy(p)
-                       for n, p in self.model.named_parameters()},
-            "_rng": self._gen.get_state(),
-        }
+        return {"params": dict(self.model.named_parameters()),
+                "_rng": self._gen.get_state()}
+
+    def export_template_host(self) -> Dict:
+        """Host half of the template: every other field of a pristine
+        engine (all slots free, empty KV store), made from shapes alone
+        with no copy from the device. A paged template ships no pages at
+        all and an all-TRASH page table, so its size is the weights'."""
+        self._require_resident()
+        host: Dict = {}
         for name in ("lengths", "last_tokens", "temps", "gen_counts",
                      "max_news", "active_mask"):
             a = getattr(self, name)
@@ -395,6 +405,20 @@ class InferenceEngine:
         else:
             host["cache"] = {n: torch.zeros(t.shape, dtype=t.dtype)
                              for n, t in self.cache.items()}
+        return host
+
+    def export_template(self) -> Dict:
+        """Donor side of a peer-to-peer context bootstrap: a host copy of
+        the weights and the RNG state plus the per-slot decode state of a
+        pristine engine (all slots free, empty KV store), without detaching
+        anything from this engine, which keeps serving. The monolithic form
+        of the two halves above. Restored into ``clone_offloaded()``'s twin
+        it decodes as a freshly built engine does, with no kernel build."""
+        host = self.export_template_host()
+        device = self.export_template_device()
+        host["params"] = {n: self._host_copy(p)
+                          for n, p in device["params"].items()}
+        host["_rng"] = device["_rng"]
         self._sync()
         return host
 
@@ -425,6 +449,48 @@ class InferenceEngine:
         for name in self._state_fields:
             setattr(clone, name, None)
         return clone
+
+    def _kernel_libraries(self) -> Tuple[str, ...]:
+        """The kernel libraries (``kernels.build.SOURCES``) this engine's
+        model launches: none on the CPU or without ``use_kernels``; the
+        prefill kernel and the decode kernel of the engine's cache for
+        dense attention; the paged MLA decode for MLA on the paged pool
+        (its prefill and slot-cache decode are torch); the grouped GEMM for
+        MoE; the SSD scan for Mamba2."""
+        cfg = self.cfg
+        if not (cfg.use_kernels and self.device.type == "cuda"):
+            return ()
+        names = []
+        if cfg.attention == "mla":
+            if self._paged:
+                names.append("paged_mla_decode")
+        else:
+            names += ["flash_attention", "paged_flash_decode" if self._paged
+                      else "flash_decode"]
+        if cfg.moe.enabled:
+            names.append("grouped_gemm")
+        if cfg.family == "hybrid":
+            names.append("ssd_scan")
+        return tuple(names)
+
+    def warm_executables(self) -> float:
+        """Load every kernel library the model launches, building any that
+        is not on disk yet (``kernels.build``; a build counts in
+        ``stats.compiles``). PCM materialization calls it once per context
+        so that no task pays for a load or a build; returns the seconds
+        spent (about 0 when already warm). Kernels are all there is to
+        prepare: PyTorch runs eagerly and captures no graphs."""
+        self._require_resident()
+        t0 = time.monotonic()
+        names = self._kernel_libraries()
+        if names:
+            from repro_torch.kernels import build
+            missing = [n for n in names if not build.library_path(n).exists()]
+            if missing:
+                self.stats.compiles += len(build.build_all()["built"])
+            for name in names:
+                build.library(name)
+        return time.monotonic() - t0
 
     # -------------------------------------------------------------- public --
     def submit(self, req: Request) -> Request:

@@ -37,11 +37,15 @@ StateDict = Dict[str, torch.Tensor]
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     """Nested dicts and lists -> {dotted path: array}; list items are named
-    by their index (``dense0.0.mlp.up``)."""
+    by their index (``dense0.0.mlp.up``). Tensor leaves (a reference
+    checkpoint read by ``repro_torch.checkpoint``, bf16 ones too) come out
+    as f32 arrays."""
     if isinstance(tree, Mapping):
         items = tree.items()
     elif isinstance(tree, Sequence) and not isinstance(tree, str):
         items = enumerate(tree)
+    elif isinstance(tree, torch.Tensor):
+        return {prefix[:-1]: tree.detach().float().cpu().numpy()}
     else:
         return {prefix[:-1]: np.asarray(tree)}
     out = {}
@@ -84,8 +88,10 @@ def _split_layers(path: str, arr: np.ndarray, cfg) -> Dict[str, np.ndarray]:
 def from_jax_params(params_np: Mapping, cfg,
                     device: torch.device) -> StateDict:
     """The reference's params pytree (nested dicts and lists of numpy
-    arrays, e.g. ``jax.device_get(model.init(key))``) -> the port's state
-    dict on ``device``, in ``cfg.param_dtype`` (``F32_LEAVES`` in f32)."""
+    arrays, e.g. ``jax.device_get(model.init(key))``, or of CPU tensors,
+    e.g. a reference checkpoint loaded by ``repro_torch.checkpoint``) ->
+    the port's state dict on ``device``, in ``cfg.param_dtype``
+    (``F32_LEAVES`` in f32)."""
     state: StateDict = {}
     for path, arr in _flatten(params_np).items():
         arr = np.array(arr, dtype=np.float32)  # a writable copy

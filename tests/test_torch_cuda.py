@@ -11,6 +11,7 @@ JAX is not installed:
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -801,3 +802,111 @@ def test_cuda_hybrid_engine_kernels_match_plain(cuda):
     assert ops.LAUNCHES["flash_attention"] == 2 * waves
     assert ops.LAUNCHES["flash_decode"] == 2 * eng.stats.decode_steps
     assert with_kernels == InferenceEngine(plain, **kw).generate(ps, 8)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_build_runs_once_across_threads(cuda, tmp_path,
+                                                    monkeypatch):
+    """Threads that load kernels at the same moment on an empty build
+    directory run nvcc once per source between them, and every thread gets
+    a library that answers."""
+    import subprocess
+    import threading
+
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    popen, runs = subprocess.Popen, []
+
+    def counted(cmd, **kw):
+        runs.append(cmd[cmd.index("-o") + 1])
+        return popen(cmd, **kw)
+
+    monkeypatch.setattr(build.subprocess, "Popen", counted)
+    names = list(build.SOURCES) * 2
+    start = threading.Barrier(len(names))
+    got, errors = {}, []
+
+    def worker(i, name):
+        try:
+            start.wait()
+            got[i] = (name, build.library(name))
+        except BaseException as e:          # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i, n))
+               for i, n in enumerate(names)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not errors, errors
+    assert len(runs) == len(build.SOURCES) == len(set(runs))
+    for name, lib in got.values():
+        assert lib is build.library(name)
+        assert lib.repro_cuda_error_string(0)
+    assert not list(tmp_path.glob("*.tmp*"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streamed", [False, True])
+def test_cuda_runtime_round_trip(cuda, tmp_path, streamed):
+    """Reduced smollm2 with the kernels through the PCM runtime on the
+    card: DEVICE -> HOST_RAM -> LOCAL_DISK -> DEVICE with no builder call
+    and no build, greedy tokens equal to the never-demoted engine's; then
+    a worker preempted and a replacement that restores the context from
+    the node pool with the same tokens."""
+    from repro_torch.core import (ContextMode, Library, PCMManager,
+                                  SnapshotPool, Tier, load_context,
+                                  make_recipe)
+
+    cfg = get_reduced_config("smollm2-1.7b", use_kernels=True)
+    state = dict(build_model(cfg, device=cuda, seed=0).state_dict())
+    rng = np.random.RandomState(0)
+    ps = [list(rng.randint(8, cfg.vocab_size, size=rng.randint(3, 30)))
+          for _ in range(6)]
+    kw = dict(device=cuda, slots=4, cache_len=64, prefill_buckets=(16, 32),
+              megastep=4)
+    want = InferenceEngine(build_model(cfg, device=cuda, params=state),
+                           **kw).generate(ps, 8)
+    builds = []
+
+    def build():
+        builds.append(1)
+        return {"engine": InferenceEngine(
+            build_model(cfg, device=cuda, params=state), **kw)}
+
+    rec = make_recipe("cuda-rt", build, host_bytes=0)
+    pool = SnapshotPool(spill_dir=str(tmp_path))
+    lib = Library("w0", snapshots=pool, streamed=streamed)
+    eng = lib.ensure(rec).value["engine"]
+    before = torch.cuda.memory_allocated()
+    lib.demote(rec.key())
+    assert torch.cuda.memory_allocated() < before
+    assert pool.spill(rec.key())
+    ctx = lib.ensure(rec)
+    assert ctx.value["engine"] is eng and ctx.restore_seconds > 0
+    assert eng.model.device.type == "cuda"
+    ops.reset_launches()
+    assert eng.generate(ps, 8) == want
+    assert ops.LAUNCHES["flash_attention"] > 0
+    assert ops.LAUNCHES["flash_decode"] > 0
+    assert builds == [1] and eng.stats.compiles == 0
+
+    mgr = PCMManager(mode=ContextMode.FULL, n_workers=1, streamed=streamed,
+                     spill_dir=str(tmp_path / "pool"))
+    try:
+        mgr.warm_up(rec)
+        mgr.preempt_worker(next(iter(mgr.workers)))
+        deadline = time.monotonic() + 60
+        while mgr.snapshots.tier(rec.key()) != Tier.HOST_RAM:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        mgr.add_worker()
+        got = mgr.submit(lambda: load_context("engine").generate(ps, 8),
+                         recipe=rec).result(timeout=120)
+        assert got == want and len(builds) == 2
+        assert mgr.stats()["context_restores"] == 1
+    finally:
+        mgr.shutdown()

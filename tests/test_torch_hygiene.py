@@ -1,5 +1,6 @@
-"""Boundaries of the PyTorch port: it imports nothing of JAX or of the JAX
-package, and its entry points refuse to run on the CPU unless asked to."""
+"""Boundaries of the PyTorch port: it imports nothing of JAX, of the JAX
+package or of ``ml_dtypes`` (the card's machine has no JAX), and its entry
+points refuse to run on the CPU unless asked to."""
 
 import ast
 from pathlib import Path
@@ -33,7 +34,7 @@ def _imports(path):
 def test_port_imports_no_jax_and_no_reference(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "flax", "repro"), \
+        assert top not in ("jax", "jaxlib", "flax", "repro", "ml_dtypes"), \
             f"{path.name} imports {name}"
 
 
@@ -41,7 +42,8 @@ def test_port_file_list_is_complete():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "attention.py", "transformer.py", "moe.py",
             "ops.py", "moe_gemm.py", "build.py", "weights.py", "ssm.py",
-            "hybrid.py", "ssm_scan.py", "chip_smoke.py"} <= names
+            "hybrid.py", "ssm_scan.py", "chip_smoke.py", "io.py",
+            "context.py", "scheduler.py", "manager.py", "serve.py"} <= names
 
 
 def test_every_kernel_has_its_source():
@@ -87,3 +89,14 @@ def test_unported_architectures_name_their_slice():
         get_config("no-such-model")
     assert get_config("deepseek-v2-lite-16b").family == "moe"
     assert get_config("zamba2-7b").family == "hybrid"
+
+
+def test_runtime_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_context("smollm2-1.7b", 2, 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--claims", "4"])
+    ctx = serve.build_context("smollm2-1.7b", 2, 32, device="cpu")
+    assert ctx["engine"].device.type == "cpu"
