@@ -71,6 +71,20 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 engine's, the replacement must come from the pool or a
                 peer, the builder may run only for the workers that built
                 cold, and the kernels must launch;
+  5c. multihost - the same mix from two worker node processes on the card
+                (python -m repro_torch.cluster.node, a CUDA context each)
+                joined to PCMManager.listen() over loopback, from 5b's
+                checkpoint: node A builds the context cold and serves the
+                first 4 batches; node B joins with --aot-cache at the
+                build directory and bootstraps the 4.2 GB context from A
+                by PEER over the socket (striped, sha256-verified chunks)
+                while A serves the other 12; a steady sweep of the 16 on
+                both nodes (claims/s against 5b's bare engine); a sweep
+                during which A is killed with SIGKILL, its task requeued to
+                B. Every batch's tokens and verdicts must equal the bare
+                engine's, B must build nothing (each kernel library a
+                cache hit) and each task's kernel launches, counted in its
+                node, must match its waves and decode steps;
   6. deepseek - full-width DeepSeek-V2-Lite-16B (MLA + MoE, 27 layers,
                 15.7 B parameters, seeded random bf16 weights drawn on the
                 card) on the paged pool with the kernels: (e) fact
@@ -113,11 +127,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import importlib
 import json
+import os
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -128,8 +146,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.cluster.node import spawn_node_process  # noqa: E402
 from repro_torch.core import (ContextMode, PCMManager, Tier,  # noqa: E402
-                              context_app, make_recipe)
+                              context_app, load_context, make_recipe)
 from repro_torch.data import HashTokenizer, fever  # noqa: E402
 from repro_torch.data.tokenizer import BOS, LABEL_TOKENS  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -1848,7 +1867,6 @@ def phase_runtime() -> dict:
     if launches["flash_attention"] <= 0 or launches["flash_decode"] <= 0:
         raise AssertionError("runtime: the prefill or decode kernel never "
                              "launched")
-    tmp.cleanup()
     gc.collect()
     torch.cuda.empty_cache()
     return dict(checkpoint_s=ckpt_s, checkpoint_bytes=ckpt_bytes,
@@ -1864,7 +1882,226 @@ def phase_runtime() -> dict:
                           spill_bytes=spill_bytes,
                           restore_s=ctx.restore_seconds,
                           stage_seconds=stage),
-                phase_s=phase_s, launches={"runtime": launches})
+                phase_s=phase_s, launches={"runtime": launches},
+                # for the multihost phase, popped by main: the checkpoint
+                # (cleaned up after that phase), the recipe's arguments
+                # and the bare engine's tokens and rate
+                handoff=dict(tmp=tmp, ckdir=str(ckdir), cfg=cfg,
+                             batches=batches, want=want,
+                             bare_rate=bare_rate))
+
+
+# -------------------------------------------------------- 5c. multihost ----
+MULTIHOST_LIBRARIES = 2          # flash_attention and flash_decode
+
+
+def multihost_task(indices, template):
+    """A task of the multihost phase, run in a worker node process:
+    ``launch/serve.verify_claims`` on the node's held context, with the
+    node's pid, its engine's build counters, and the prefill waves, decode
+    steps and kernel launches (``ops.LAUNCHES`` deltas) the task made."""
+    eng = load_context("engine")
+    st0 = eng.stats.as_dict()
+    l0 = dict(ops.LAUNCHES)
+    outs, verdicts = serve_cli.verify_claims(indices, template)
+    st = eng.stats.as_dict()
+    return dict(pid=os.getpid(), tokens=outs, verdicts=verdicts,
+                waves=st["prefill_batches"] - st0["prefill_batches"],
+                steps=st["decode_steps"] - st0["decode_steps"],
+                launches={k: v - l0[k] for k, v in ops.LAUNCHES.items()},
+                compiles=st["compiles"],
+                aot_cache_hits=st["aot_cache_hits"])
+
+
+def phase_multihost(handoff) -> dict:
+    """Full-width SmolLM2-1.7B in two worker node processes on the one
+    card (``python -m repro_torch.cluster.node``, each with a CUDA context
+    of its own), joined to ``PCMManager.listen()`` over loopback, from the
+    runtime phase's checkpoint: node A builds the context cold and serves
+    mix (a)'s first 4 batches; node B joins with ``--aot-cache`` at the
+    build directory and bootstraps the context from A by PEER over the
+    socket while A serves the other 12; a steady sweep of the 16 batches
+    on both; a sweep during which A is killed with SIGKILL (its task
+    requeues to B). Every batch's tokens and verdicts must equal the bare
+    engine's, B must build nothing (each library a cache hit), and every
+    task's kernel launches must match its waves and steps."""
+    mh = importlib.import_module("chip_smoke")     # tasks pickle by name
+    cfg, batches, want = handoff["cfg"], handoff["batches"], handoff["want"]
+    bare_rate = handoff["bare_rate"]
+    want_verdicts = [[int((o[0] if o else -1) == LABEL_TOKENS[c.label])
+                      for o, c in zip(outs, fever.claim_batch(idx))]
+                     for outs, (_, idx) in zip(want, batches)]
+    shape = types.SimpleNamespace(
+        cfg=cfg, stats=types.SimpleNamespace(decode_path="full"))
+    recipe = make_recipe(
+        "smollm2-1.7b.ctx", serve_cli.build_context,
+        ("smollm2-1.7b", RUNTIME_KW["slots"], RUNTIME_KW["cache_len"],
+         RUNTIME_KW["megastep"], cfg, "cuda", handoff["ckdir"],
+         RUNTIME_KW["prefill_buckets"], RUNTIME_KW["cache_dtype"]))
+    results = []                    # every task result, in arrival order
+
+    def check(label, got, which):
+        for res, i in zip(got, which):
+            results.append(res)
+            expect, _ = expected_launches(shape, res["waves"], res["steps"])
+            if res["tokens"] != want[i] or res["verdicts"] != \
+                    want_verdicts[i]:
+                raise AssertionError(f"multihost {label}: batch {i} differs "
+                                     f"from the bare engine")
+            if res["launches"] != expect:
+                raise AssertionError(
+                    f"multihost {label}: batch {i} launched "
+                    f"{res['launches']}, its path {expect}")
+
+    def sweep(label, which, timeout=600):
+        futs = [mgr.submit(mh.multihost_task, args=(batches[i][1],
+                                                    batches[i][0]),
+                           recipe=recipe, n_items=RUNTIME_BATCH)
+                for i in which]
+        return futs, lambda: check(label, [f.result(timeout=timeout)
+                                           for f in futs], which)
+
+    ops.reset_launches()
+    t_phase = time.monotonic()
+    mgr = PCMManager(mode=ContextMode.FULL, n_workers=0)
+    procs = {}
+
+    def spawn(wid):
+        t0 = time.monotonic()
+        procs[wid] = spawn_node_process(
+            mgr.address, wid, device="cuda", aot_cache=str(build.BUILD_DIR),
+            extra_path=(str(ROOT),))
+        mgr.wait_for_workers([wid], timeout=180)
+        return time.monotonic() - t0
+
+    try:
+        mgr.listen(heartbeat=1.0, lost_after=60.0)
+        join_a = spawn("nodeA")
+        t0 = time.monotonic()
+        mgr.warm_up(recipe, worker_ids=["nodeA"])
+        build_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        _, done = sweep("first 4 batches on A", range(4))
+        done()
+        four_s = time.monotonic() - t0
+        log(f"[multihost] node A joined in {join_a:.3f} s, built the "
+            f"context cold in {build_s:.3f} s, served 4 batches in "
+            f"{four_s:.3f} s")
+
+        join_b = spawn("nodeB")
+        t_submit = mgr.now
+        futs, done = sweep("PEER sweep", range(4, 16))
+        peer_bytes, deadline = 0, time.monotonic() + 600
+        while mgr.residency(recipe).get("nodeB") != Tier.DEVICE:
+            if time.monotonic() > deadline:
+                raise AssertionError("multihost: node B never became warm")
+            with mgr._lock:
+                for sf in mgr._stripes.values():
+                    if sf.receiver_id == "nodeB":
+                        peer_bytes = max(peer_bytes, sf.buffer.nbytes)
+            time.sleep(0.005)
+        t_warm = mgr.now
+        done()
+        fetches = [(d.worker_id, d.source.name, d.donor, d.t)
+                   for d in mgr.fetch_history(recipe)]
+        peer = [f for f in fetches if f[0] == "nodeB"]
+        striping = dict(mgr.stats()["striping"])
+        mirror_b = mgr.workers["nodeB"].library
+        if not peer or peer[0][1] != "PEER" or peer[0][2] != "nodeA" or \
+                mirror_b.builder_calls:
+            raise AssertionError(f"multihost: node B did not bootstrap from "
+                                 f"A by PEER: {fetches}")
+        peer_s = t_warm - peer[0][3]
+        how = "striped chunks" if striping["stripes"] else "one wire blob"
+        on_b = [r for r in results if r["pid"] == procs["nodeB"].pid]
+        log(f"[multihost] node B joined in {join_b:.3f} s and took the "
+            f"context from A by PEER as {how}: {peer_bytes / 1e9:.3f} GB "
+            f"in {peer_s:.3f} s from the decision "
+            f"({peer_bytes / 1e9 / peer_s:.3f} GB/s; striping {striping}; "
+            f"B restored it in {mirror_b.peer_install_seconds:.3f} s); B "
+            f"served {len(on_b)} of 12 batches, decision at "
+            f"{peer[0][3] - t_submit:.3f} s after the submit")
+
+        t0 = time.monotonic()
+        _, done = sweep("steady sweep", range(16))
+        done()
+        steady_s = time.monotonic() - t0
+        claims = len(batches) * RUNTIME_BATCH
+        steady_rate = claims / steady_s
+        per_node = {w: sum(1 for r in results[-16:] if r["pid"] == p.pid)
+                    for w, p in procs.items()}
+        log(f"[multihost] steady sweep on 2 warm nodes: {claims} claims in "
+            f"{steady_s:.3f} s = {steady_rate:.1f} claims/s "
+            f"({steady_rate / bare_rate:.3f}x the bare engine's "
+            f"{bare_rate:.1f}); batches per node {per_node}")
+        on_b = [r for r in results if r["pid"] == procs["nodeB"].pid]
+        if not on_b or any(r["compiles"] or r["aot_cache_hits"] !=
+                           MULTIHOST_LIBRARIES for r in on_b):
+            raise AssertionError(
+                f"multihost: node B served nothing, built or missed the "
+                f"cache: "
+                f"{[(r['compiles'], r['aot_cache_hits']) for r in on_b]}")
+
+        t0 = time.monotonic()
+        futs, done = sweep("kill sweep", range(16))
+
+        def a_running():
+            with mgr._lock:
+                return sum(f.done for f in futs) >= 4 and any(
+                    e[0] == "nodeA" for e in mgr.scheduler.running.values())
+
+        deadline = time.monotonic() + 300
+        while not a_running():
+            if time.monotonic() > deadline:
+                raise AssertionError("multihost: node A ran no task after "
+                                     "the sweep's fourth result")
+            time.sleep(0.002)
+        n_done = sum(f.done for f in futs)
+        os.kill(procs["nodeA"].pid, signal.SIGKILL)
+        kill_at = time.monotonic() - t0
+        done()
+        kill_s = time.monotonic() - t0
+        attempts = [mgr.lookup_task(f.task_id).attempts for f in futs]
+        a_gone = "nodeA" not in mgr.workers
+        log(f"[multihost] kill sweep: node A killed with SIGKILL at "
+            f"{kill_at:.3f} s with {n_done} of 16 batches done; the sweep "
+            f"finished at {kill_s:.3f} s; requeued tasks "
+            f"{sum(a > 0 for a in attempts)}; A left the pool: {a_gone}")
+        if not a_gone or max(attempts) < 1:
+            raise AssertionError("multihost: the killed node's task was "
+                                 "not requeued")
+        st = mgr.stats()
+    finally:
+        mgr.shutdown(timeout=60)
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        for p in procs.values():
+            p.wait(timeout=60)
+    launches = {}
+    for wid, p in procs.items():
+        mine = [r["launches"] for r in results if r["pid"] == p.pid]
+        launches[wid] = {k: sum(m[k] for m in mine) for k in ops.LAUNCHES}
+        if launches[wid]["flash_attention"] <= 0 or \
+                launches[wid]["flash_decode"] <= 0:
+            raise AssertionError(f"multihost: {wid} never launched the "
+                                 f"prefill or decode kernel")
+    phase_s = time.monotonic() - t_phase
+    log(f"[multihost] launches per node {launches}; phase {phase_s:.1f} s")
+    return dict(join_a_s=join_a, join_b_s=join_b, build_s=build_s,
+                four_batches_s=four_s, peer_s=peer_s, peer_bytes=peer_bytes,
+                peer_how=how, striping=striping,
+                peer_restore_s=mirror_b.peer_install_seconds,
+                fetch_log=[f[:3] for f in fetches],
+                steady_s=steady_s, steady_claims_per_s=steady_rate,
+                steady_vs_bare=steady_rate / bare_rate,
+                batches_per_node=per_node, kill_at_s=kill_at,
+                kill_sweep_s=kill_s, requeued=sum(a > 0 for a in attempts),
+                stats={k: st[k] for k in ("builder_calls",
+                                          "cold_invocations",
+                                          "warm_invocations",
+                                          "peer_installs", "striping")},
+                phase_s=phase_s, launches=launches)
 
 
 # --------------------------------------------------------- 6. deepseek ----
@@ -2348,6 +2585,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["runtime"] = phase_runtime()
     phase_done("runtime")
+    handoff = report["runtime"].pop("handoff")
+    report["multihost"] = phase_multihost(handoff)
+    handoff["tmp"].cleanup()
+    del handoff
+    phase_done("multihost")
     report["deepseek"] = phase_deepseek()
     phase_done("deepseek")
     gc.collect()
@@ -2360,7 +2602,8 @@ def main() -> int:
     entries = {"grouped_gemm": ("grouped_gemm", "grouped_gemm_segments"),
                "ssd_scan": ("ssm_scan",)}
     runs = [run for phase in (serve_out, report["runtime"],
-                              report["deepseek"], report["zamba2"])
+                              report["multihost"], report["deepseek"],
+                              report["zamba2"])
             for run in phase["launches"].values()]
     kernels = []
     for name, row in rows.items():

@@ -154,6 +154,8 @@ def to_tensor(arr: np.ndarray, name: str) -> torch.Tensor:
 def leaf_nbytes(leaf) -> int:
     if isinstance(leaf, torch.Tensor):
         return leaf.numel() * leaf.element_size()
+    if isinstance(leaf, LeafSpec):
+        return int(np.prod(leaf.shape, dtype=np.int64)) * leaf.dtype.itemsize
     return int(np.asarray(leaf).nbytes)
 
 

@@ -1,7 +1,7 @@
 """Pervasive Context Management — the paper's primary contribution, in the
 PyTorch port.
 
-Port of ``repro.core`` for in-process workers on one card. The user entry
+Port of ``repro.core``. The user entry
 point is the **PCMClient session API** (api.py): declare contexts as
 first-class handles (``client.context`` -> pin / release / warm_up /
 residency), attach one or several named contexts to tasks
@@ -30,12 +30,19 @@ Module map:
                ElasticRunner over a capacity callable
   manager.py   live concurrent runtime (worker actor threads + mailboxes,
                physical preemption demotion, peer context transfer) +
-               Future
+               Future; with ``listen()`` workers may be PROCESSES
+               (``repro_torch.cluster.node``; RemoteWorker proxies
+               translating the same mailbox vocabulary into frames)
+  transport.py length-prefixed socket frames with per-connection IO
+               threads, heartbeats, and two-layer loss detection (EOF +
+               declared-lost) feeding the normal preemption path
+  wire.py      versioned wire format for snapshots/templates: arrays via
+               checkpoint/io's chunked-sha256 path, engines as recipes
+               (receivers load the kernels from the build directory)
   backend.py   ExecutionBackend protocol
   api.py       PCMClient / ContextHandle / FutureBatch (+ @context_app)
 
-Not ported yet: the simulator backend (with the cluster model), remote
-workers over the socket transport (``wire.py``, ``transport.py``), and
+Not ported yet: the simulator backend (with the cluster model) and
 streaming sessions through the front door (ROADMAP.md, queue 1).
 """
 
@@ -60,6 +67,11 @@ from repro_torch.core.store import (ContextMode, ContextStore, SnapshotPool,
                                     Tier, TierFullError)
 from repro_torch.core.transfer import (FetchSource, TransferPlan,
                                        TransferPlanner)
+from repro_torch.core.transport import (Connection, Listener, Router,
+                                        TransportError)
+from repro_torch.core.wire import (WireError, decode_snapshot,
+                                   decode_template, encode_snapshot,
+                                   encode_template)
 
 __all__ = [
     "ContextHandle", "FutureBatch", "PCMClient", "context_app",
@@ -73,4 +85,7 @@ __all__ = [
     "FetchDecision", "Task", "WorkerPhase",
     "ContextMode", "ContextStore", "SnapshotPool", "Tier", "TierFullError",
     "FetchSource", "TransferPlan", "TransferPlanner",
+    "Connection", "Listener", "Router", "TransportError",
+    "WireError", "decode_snapshot", "decode_template", "encode_snapshot",
+    "encode_template",
 ]

@@ -2,11 +2,10 @@
 runner that drives a LIVE PCMManager from a capacity trace.
 
 Port of ``repro.core.factory`` over a plain capacity callable: the
-reference's capacity traces (``cluster/traces.py``) and device profiles
-(``cluster/devices.py``) arrive with the port slice for the cluster model,
-and whole worker processes (the reference's ``spawn_remote``) with the one
-for ``cluster/node.py``; until then a join carries the profile object that
-``profiles`` maps its name to, or none.
+reference's capacity traces (``cluster/traces.py``) arrive with the port
+slice for the cluster simulator; until then a join carries the profile
+object that ``profiles`` maps its name to (``repro_torch.cluster.devices.
+PROFILES`` is such a map), or none.
 
 :class:`WorkerFactory` watches the opportunistic capacity signal (a trace
 in simulation; a cluster API in production) and reconciles the worker pool
@@ -108,6 +107,18 @@ class ElasticRunner:
     ``profiles`` maps trace profile names to profile objects (default:
     none, so joins are anonymous). ``time_scale`` compresses trace time
     against the manager clock.
+
+    With ``spawn_remote=True`` a ``join`` directive spawns a WHOLE WORKER
+    PROCESS (``repro_torch.cluster.node``) that connects to the manager's
+    socket transport instead of an in-process actor thread — the manager
+    must be ``listen()``-ing first. Joins become asynchronous (the worker
+    appears when its HELLO lands), which is exactly how an opportunistic
+    cluster behaves; ``leave`` retires the node through the same
+    preemption path (its contexts demote over the wire into the manager
+    pool) and the process exits on the BYE handshake. ``node_kwargs``
+    passes through to :func:`repro_torch.cluster.node.spawn_node_process`
+    (device, kernel build directory, extra import paths, heartbeat
+    cadence).
     """
 
     def __init__(self, manager, capacity_fn: Callable[[float], List[str]],
@@ -115,13 +126,18 @@ class ElasticRunner:
                  reconcile_every: float = 0.25,
                  time_scale: float = 1.0,
                  max_workers: int = 10_000,
-                 name_prefix: str = "w"):
+                 name_prefix: str = "w",
+                 spawn_remote: bool = False,
+                 node_kwargs: Optional[Dict] = None):
         self.manager = manager
         self.profiles = {} if profiles is None else profiles
         self.factory = WorkerFactory(capacity_fn, max_workers=max_workers,
                                      name_prefix=name_prefix)
         self.reconcile_every = reconcile_every
         self.time_scale = time_scale
+        self.spawn_remote = spawn_remote
+        self.node_kwargs = dict(node_kwargs or {})
+        self.procs: Dict[str, object] = {}        # worker_id -> Popen
         self.events: List[PoolDirective] = []     # every applied directive
         self.joins = 0
         self.preemptions = 0
@@ -141,17 +157,56 @@ class ElasticRunner:
         applied: List[PoolDirective] = []
         for d in self.factory.reconcile(t):
             if d.kind == "join":
-                self.manager.add_worker(
-                    worker_id=d.worker_id,
-                    profile=self.profiles.get(d.profile_name))
+                if self.spawn_remote:
+                    self._spawn_node(d)
+                else:
+                    self.manager.add_worker(
+                        worker_id=d.worker_id,
+                        profile=self.profiles.get(d.profile_name))
                 self.joins += 1
             else:
-                # no-warning reclaim: contexts demote to the node pool
-                self.manager.preempt_worker(d.worker_id)
+                self._leave(d.worker_id)
                 self.preemptions += 1
             applied.append(d)
         self.events.extend(applied)
+        self._reap()
         return applied
+
+    def _spawn_node(self, d: PoolDirective):
+        from repro_torch.cluster.node import spawn_node_process
+        addr = self.manager.address
+        if addr is None:
+            raise RuntimeError(
+                "spawn_remote=True requires manager.listen() before the "
+                "first join directive")
+        profile = d.profile_name \
+            if d.profile_name in self.profiles else None
+        self.procs[d.worker_id] = spawn_node_process(
+            addr, d.worker_id, profile=profile, **self.node_kwargs)
+
+    def _leave(self, worker_id: str):
+        proc = self.procs.get(worker_id)
+        if proc is not None and worker_id not in self.manager.workers:
+            # reclaimed before its HELLO ever landed: nothing to retire —
+            # kill the half-started process so it cannot join a pool that
+            # no longer wants it
+            self.procs.pop(worker_id, None)
+            try:
+                proc.terminate()
+            except Exception:
+                pass
+            return
+        # joined workers (thread or process) retire through the normal
+        # no-warning preemption path (contexts demote to the node pool);
+        # a node process exits on the BYE handshake and is reaped on a
+        # later step
+        self.manager.preempt_worker(worker_id)
+
+    def _reap(self):
+        """Collect node processes that exited after retiring."""
+        for wid, proc in list(self.procs.items()):
+            if getattr(proc, "poll", lambda: None)() is not None:
+                self.procs.pop(wid, None)
 
     def run_for(self, wall_seconds: float):
         """Blocking drive loop for ``wall_seconds`` of wall time."""
@@ -195,4 +250,5 @@ class ElasticRunner:
     def stats(self) -> Dict:
         return {"pool_size": self.size, "joins": self.joins,
                 "preemptions": self.preemptions,
+                "node_procs": len(self.procs),
                 "trace_now": self.trace_now()}

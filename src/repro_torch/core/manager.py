@@ -1,10 +1,10 @@
-"""PCMManager — the live concurrent (in-process) PCM runtime.
+"""PCMManager — the live concurrent PCM runtime.
 
-Port of ``repro.core.manager`` for workers that are threads of this
-process. Actor-style execution core. Each logical worker is a **thread
-with a mailbox** (:class:`LiveWorker`) that owns its :class:`Library` and
-:class:`ContextStore`: builds, invocations, demotions and restores for a
-worker all happen on its own thread, serialized by the mailbox. The
+Port of ``repro.core.manager``. Actor-style execution core. Each logical
+worker is a **thread with a mailbox** (:class:`LiveWorker`) that owns its
+:class:`Library` and :class:`ContextStore`: builds, invocations,
+demotions and restores for a worker all happen on its own thread,
+serialized by the mailbox. The
 manager side — the ContextAwareScheduler, the Future table and the task
 clock — lives behind one lock; every runtime event (submit, fetch-done,
 task-done, join, leave) enters through that lock, asks the scheduler for
@@ -26,10 +26,11 @@ claim, executed for real.
 
 Every worker thread issues its kernels and copies on the default stream
 of the one device, so the work of different workers serializes on the
-card; per-worker streams are later work. Workers that are processes on
-other nodes (the reference's ``RemoteWorker``, ``listen`` and the
-wire-blob install) arrive with the port slice for ``core/wire.py``,
-``core/transport.py`` and ``cluster/node.py``.
+card; per-worker streams are later work. With ``listen()`` workers may
+also be PROCESSES (``repro_torch.cluster.node``), each with a CUDA
+context of its own: :class:`RemoteWorker` proxies translate the same
+mailbox vocabulary into transport frames (``core/transport.py``), and
+contexts cross the process boundary as wire blobs (``core/wire.py``).
 
 All scheduler event timestamps come from one clock source: ``self.now``
 (monotonic seconds since the manager started).
@@ -42,6 +43,7 @@ from __future__ import annotations
 
 import atexit
 import itertools
+import pickle
 import queue
 import sys
 import threading
@@ -50,6 +52,7 @@ import traceback
 import weakref
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
+from repro_torch.core import wire as pcm_wire
 from repro_torch.core.context import (GB, ContextRecipe, ContextSnapshot,
                                       export_context, restore_context,
                                       stripe_export_state,
@@ -60,10 +63,14 @@ from repro_torch.core.scheduler import (Action, ContextAwareScheduler,
 from repro_torch.core.store import (ContextStore, SnapshotPool, Tier,
                                     TierFullError)
 from repro_torch.core.streaming import (ChunkCorruptionError, ChunkPlan,
-                                        StripeBuffer, assign_lanes,
+                                        ChunkRef, StripeBuffer, assign_lanes,
                                         chunk_digest, host_chunk)
 from repro_torch.core.transfer import (FetchSource, TransferPlan,
                                        TransferPlanner)
+from repro_torch.core.transport import (Connection, Listener, Router,
+                                        TransportError)
+
+_PICKLE = pickle.HIGHEST_PROTOCOL
 
 
 class Future:
@@ -279,6 +286,10 @@ class LiveWorker:
                 elif kind == "install":
                     self._handle_install(msg[1], msg[2], msg[3],
                                          msg[4] if len(msg) > 4 else None)
+                elif kind == "install_wire":
+                    self._handle_install_wire(msg[1], msg[2], msg[3],
+                                              msg[4] if len(msg) > 4
+                                              else None)
                 elif kind == "warm":
                     self._handle_warm(msg[1], msg[2], msg[3])
                 elif kind == "demote":
@@ -313,7 +324,7 @@ class LiveWorker:
                 self._mgr._stripe_failed(msg[1])
             elif kind == "fetch":
                 self._mgr._flow_done(msg[2], failed=True)
-            elif kind == "install":
+            elif kind in ("install", "install_wire"):
                 self._mgr._flow_done(msg[3], failed=True)
             for part in msg:
                 if isinstance(part, threading.Event):
@@ -465,7 +476,8 @@ class LiveWorker:
                 self.library.peer_exports += 1
                 mgr._stripe_template(stripe_id, plan, clone, host_halves,
                                      host_nbytes + plan.total_bytes,
-                                     ctx.build_seconds, ctx.aot_seconds)
+                                     ctx.build_seconds, ctx.aot_seconds,
+                                     device_tree=device)
                 spec = dict(spec, with_template=False)
             if spec.get("ref_ids") is not None:
                 refs = [r for r in plan.refs if r.id in spec["ref_ids"]]
@@ -589,6 +601,7 @@ class LiveWorker:
         with mgr._cond:
             mgr._stripes.pop(stripe_id, None)
             sf.done = True
+            mgr._cancel_remote_lanes(sf)
             mgr._flow_done_locked(sf.plan, measured_seconds=measured,
                                   failed=failed)
             self._drain_stage_obs_locked()
@@ -649,6 +662,25 @@ class LiveWorker:
             mgr._dispatch(acts)
             mgr._cond.notify_all()
 
+    def _handle_install_wire(self, recipe: ContextRecipe, blob: bytes,
+                             plan: Optional[TransferPlan],
+                             degraded_from: Optional[FetchSource] = None):
+        """Receiver side of a PEER transfer whose snapshot arrived as a
+        WIRE blob (the donor is a remote process; the manager forwards the
+        bytes without materializing them). Decode locally — chunk-level
+        sha256 verification plus component reconstruction from wire
+        recipes — then delegate to the one install codepath. A decode
+        failure degrades to the normal fetch ladder exactly like a failed
+        donation."""
+        snap = None
+        try:
+            snap = pcm_wire.decode_snapshot(blob)
+        except BaseException:
+            traceback.print_exc(file=sys.stderr)
+        self._handle_install(recipe, snap, plan,
+                             degraded_from if snap is not None
+                             else (degraded_from or FetchSource.PEER))
+
     def _handle_warm(self, recipe: ContextRecipe, event: threading.Event,
                      errors: List[BaseException]):
         mgr = self._mgr
@@ -685,6 +717,736 @@ class LiveWorker:
                         pass
         finally:
             event.set()
+
+
+class _MirrorRecord:
+    """Invocation record replayed from a remote worker's status reports —
+    just the field the manager aggregates (cold vs warm)."""
+
+    __slots__ = ("cold",)
+
+    def __init__(self, cold: bool):
+        self.cold = cold
+
+
+class _RemoteLibraryMirror:
+    """Manager-side view of a remote worker's Library.
+
+    The real Library lives in the node process; every reply frame carries a
+    status dict (absolute counters, plus deltas of invocation records,
+    fetch sources and stage observations) that this mirror folds in. It
+    duck-types the Library surface the manager reads — counters for
+    ``stats()``/``_absorb_library``, ``has()`` for demotion targeting,
+    ``pin``/``unpin`` (forwarded as frames) — so PCMManager code paths stay
+    identical for local and remote workers.
+    """
+
+    def __init__(self, worker_id: str, send: Callable):
+        self.worker_id = worker_id
+        self._send = send
+        self._lock = threading.Lock()
+        self._resident: set = set()
+        self.pinned: set = set()
+        self.records: List[_MirrorRecord] = []
+        self.fetch_sources: List[FetchSource] = []
+        self.stage_observations: List[tuple] = []
+        self.build_seconds_total = 0.0
+        self.restore_seconds_total = 0.0
+        self.aot_seconds_total = 0.0
+        self.builder_calls = 0
+        self.restores = 0
+        self.demotions = 0
+        self.peer_installs = 0
+        self.peer_exports = 0
+        self.peer_install_seconds = 0.0
+        self.absorbed = False
+
+    def has(self, key: str) -> bool:
+        with self._lock:
+            return key in self._resident
+
+    @property
+    def resident_keys(self):
+        with self._lock:
+            return set(self._resident)
+
+    def pin(self, key: str):
+        self.pinned.add(key)
+        self._send("pin", {"key": key})
+
+    def unpin(self, key: str):
+        self.pinned.discard(key)
+        self._send("unpin", {"key": key})
+
+    def update(self, status: Optional[Dict], mgr: "PCMManager"):
+        """Fold one status report in. Counters are ABSOLUTE (idempotent
+        under frame reordering-free TCP); records/sources/stage timings
+        are node-side deltas, appended."""
+        if not status:
+            return
+        stage_obs = status.get("stage_obs") or []
+        with self._lock:
+            for k, v in (status.get("counters") or {}).items():
+                if hasattr(self, k) and not k.startswith("_"):
+                    setattr(self, k, v)
+            for cold in status.get("records") or []:
+                self.records.append(_MirrorRecord(bool(cold)))
+            for name in status.get("sources") or []:
+                try:
+                    self.fetch_sources.append(FetchSource[name])
+                except KeyError:
+                    pass
+            if "resident" in status:
+                self._resident = set(status.get("resident") or [])
+        if stage_obs:
+            with mgr._lock:
+                for stage, nbytes, secs in stage_obs:
+                    mgr.planner.observe_stage(stage, int(nbytes),
+                                              float(secs))
+
+
+class _RemoteStripeTracker:
+    """StripeBuffer stand-in when a stripe's RECEIVER is a remote worker.
+
+    Chunks still funnel through ``PCMManager._stripe_deliver`` (one
+    codepath for fault injection, lane accounting and install triggering),
+    but instead of buffering them this tracker re-verifies each digest and
+    FORWARDS the chunk over the receiver's connection; the node process
+    runs the real :class:`StripeBuffer` and does the assemble/restore.
+    ``complete()`` therefore means "every expected ref was forwarded" —
+    the node's STRIPE_DONE/STRIPE_LANE_LOST frames reconcile the
+    authoritative receiver-side view back into this one.
+    """
+
+    def __init__(self, mgr: "PCMManager", stripe_id: int, worker):
+        self._mgr = mgr
+        self._sid = stripe_id
+        self._worker = worker
+        self._tlock = threading.Lock()
+        self._expected: Optional[Dict] = None
+        self._forwarded: set = set()
+        self.plan: Optional[ChunkPlan] = None
+        self.clone = None
+        self.host_halves = None
+        self.nbytes = 0
+        self.build_seconds = 0.0
+        self.aot_seconds = 0.0
+        self.lane_seconds: Dict[int, float] = {}
+        self.chunks_delivered = 0
+        self.install_posted = False     # guarded by the manager's lock
+
+    # ------------------------------------------------------------ filling --
+    def set_template_remote(self, plan: ChunkPlan, recipe, chunk_bytes: int,
+                            clone, host_halves, nbytes: int,
+                            build_seconds: float, aot_seconds: float,
+                            device_tree=None,
+                            wire_blob: Optional[bytes] = None):
+        with self._tlock:
+            self.plan = plan
+            self.nbytes = nbytes
+            self.build_seconds = build_seconds
+            self.aot_seconds = aot_seconds
+            self._expected = {r.id: r for r in plan.refs}
+        sid, mgr = self._sid, self._mgr
+        conn = self._worker.conn
+        if wire_blob is not None:
+            # remote donor -> remote receiver: the blob passes through
+            # verbatim (the manager only decoded its spec section)
+            conn.send("stripe_template", {"sid": sid}, wire_blob)
+            return
+
+        def thunk():
+            # local donor -> remote receiver: wire-encode on the WRITER
+            # thread (host-half pack + pickles; the spec map reads only
+            # shapes/dtypes — no copy from the device here)
+            try:
+                blob = pcm_wire.encode_template(
+                    recipe, clone, host_halves, device_tree, nbytes,
+                    build_seconds, aot_seconds, chunk_bytes=chunk_bytes)
+            except BaseException:
+                traceback.print_exc(file=sys.stderr)
+                mgr._stripe_failed(sid)
+                return None
+            return ("stripe_template", {"sid": sid}, blob)
+
+        conn.send_lazy(thunk)
+
+    def deliver(self, ref: ChunkRef, arr, sha: str, lane: int = 0):
+        if chunk_digest(arr) != sha:
+            raise ChunkCorruptionError(
+                f"stripe chunk {ref.index} of {ref.key!r} from lane {lane} "
+                "failed verification (forwarding)")
+        with self._tlock:
+            if ref.id in self._forwarded:
+                return
+            self._forwarded.add(ref.id)
+            self.chunks_delivered += 1
+        meta = {"sid": self._sid,
+                "ref": [ref.key, ref.index, ref.count, ref.axis,
+                        ref.start, ref.stop],
+                "sha": sha, "lane": lane, **pcm_wire.chunk_meta(arr)}
+        self._worker.conn.send_lazy(
+            lambda: ("stripe_chunk", meta, pcm_wire.chunk_bytes_of(arr)))
+
+    def add_lane_seconds(self, lane: int, seconds: float):
+        with self._tlock:
+            self.lane_seconds[lane] = \
+                self.lane_seconds.get(lane, 0.0) + seconds
+
+    # ----------------------------------------------------------- querying --
+    def complete(self) -> bool:
+        with self._tlock:
+            return (self._expected is not None
+                    and len(self._forwarded) >= len(self._expected))
+
+    def missing_refs(self, assigned: List[ChunkRef]) -> List[ChunkRef]:
+        with self._tlock:
+            return [r for r in assigned if r.id not in self._forwarded]
+
+    def reconcile(self, delivered_ids):
+        """Replace the forwarded set with the NODE's verified set (frames
+        queued but lost with a dying lane must be re-forwarded)."""
+        with self._tlock:
+            self._forwarded = set(delivered_ids)
+
+    @property
+    def export_seconds(self) -> float:
+        with self._tlock:
+            return max(self.lane_seconds.values(), default=0.0)
+
+
+class RemoteWorker:
+    """Manager-side proxy for a worker living in another OS process.
+
+    Duck-types :class:`LiveWorker` where the manager touches it (``post``,
+    ``alive``, ``store``, ``library``, ``profile``, ``join``): ``post``
+    translates the mailbox vocabulary into transport frames — expensive
+    encodes (task pickles, snapshot wire blobs) deferred to the
+    connection's writer thread via ``send_lazy`` so nothing heavy ever
+    runs under the manager lock — and the reply frames replay the exact
+    completion blocks a LiveWorker would have run under ``mgr._cond``.
+    The node orders frames like a mailbox (single consumer, in order), so
+    preemption/retire semantics carry over unchanged.
+    """
+
+    is_remote = True
+
+    def __init__(self, worker_id: str, manager: "PCMManager", profile=None):
+        self.worker_id = worker_id
+        self.profile = profile
+        self._mgr = manager
+        self.conn: Optional[Connection] = None     # set before start
+        self.library = _RemoteLibraryMirror(worker_id, self._send)
+        hbm_gb = getattr(profile, "hbm_gb", None)
+        self.store = ContextStore(device_bytes=int(hbm_gb * GB)) \
+            if hbm_gb else ContextStore()
+        self.alive = True
+        self._tokens = itertools.count()
+        self._pending: Dict[int, tuple] = {}
+        self._plock = threading.Lock()
+        self._finalized = False
+        self._closed_evt = threading.Event()
+
+    def _send(self, kind: str, meta: Dict, payload: bytes = b""):
+        if self.conn is not None and not self.conn.closed:
+            self.conn.send(kind, meta, payload)
+
+    def join(self, timeout: Optional[float] = None):
+        # unlike a thread join, an unresponsive REMOTE process must not
+        # wedge shutdown forever: cap the default wait
+        self._closed_evt.wait(timeout if timeout is not None else 10.0)
+
+    # -------------------------------------------------- mailbox -> frames --
+    def post(self, msg: tuple):
+        kind = msg[0]
+        if kind == "start":
+            self._post_start(msg[1])
+        elif kind == "fetch":
+            self._post_fetch(msg[1], msg[2])
+        elif kind == "donate":
+            self._post_donate(msg[1], msg[2], msg[3])
+        elif kind == "donate_chunks":
+            self._post_donate_chunks(msg[1], msg[2], msg[3], msg[4])
+        elif kind == "install":
+            self._post_install(msg[1], msg[2], msg[3],
+                               msg[4] if len(msg) > 4 else None)
+        elif kind == "install_wire":
+            self._post_install_wire(msg[1], msg[2], msg[3],
+                                    msg[4] if len(msg) > 4 else None)
+        elif kind == "install_stripe":
+            self._send("install_stripe", {"sid": msg[1]})
+        elif kind == "warm":
+            self._post_warm(msg[1], msg[2], msg[3])
+        elif kind == "demote":
+            self._post_demote(msg[1], msg[2], msg[3], msg[4])
+        elif kind == _RETIRE:
+            self._send("retire", {})
+        elif kind == _STOP:
+            self._send("stop", {})
+        else:                            # e.g. "stripe_pool" never routes here
+            print(f"RemoteWorker({self.worker_id}): unroutable mailbox "
+                  f"message {kind!r}", file=sys.stderr)
+
+    def _pool_promotion_thunk(self, recipe: ContextRecipe):
+        """Writer-thread resolve of the manager-pool rung for a task
+        heading to this node. In-process workers share the manager's
+        SnapshotPool through their Library, so a task-time ``ensure``
+        promotes a demoted context transparently; the node's library has
+        its OWN pool, so a pooled snapshot must cross the wire — queued
+        BEFORE the task frame, it is resident by the time the task runs."""
+        mgr = self._mgr
+        key = recipe.key()
+
+        def thunk():
+            if self.library.has(key):
+                return None
+            snap = mgr.snapshots.take(key)
+            if snap is None:
+                return None
+            src = "DISK" if snap.spilled else "POOL"
+            try:
+                if snap.spilled:
+                    snap.unspill(mgr.snapshots.spill_store())
+                blob = pcm_wire.encode_snapshot(
+                    snap, chunk_bytes=mgr.chunk_bytes)
+            except BaseException:
+                traceback.print_exc(file=sys.stderr)
+                return None        # node falls down its own ladder
+            return ("install", {"token": -1, "key": key, "op": "promote",
+                                "source": src, "wire": True}, blob)
+
+        return thunk
+
+    def _post_start(self, task_id: str):
+        mgr = self._mgr
+        with mgr._lock:
+            task = mgr.scheduler.tasks.get(task_id)
+            if task is None:
+                return
+            payload = (task.payload,
+                       dict(zip(task.context_names, task.recipes)))
+        for recipe in payload[1].values():
+            if not self.library.has(recipe.key()):
+                self.conn.send_lazy(self._pool_promotion_thunk(recipe))
+
+        def thunk():
+            try:
+                return ("task", {"task_id": task_id},
+                        pickle.dumps(payload, _PICKLE))
+            except BaseException as exc:
+                self._task_failed_local(task_id, RuntimeError(
+                    f"task {task_id} payload is not picklable for remote "
+                    f"worker {self.worker_id}: {exc}"))
+                return None
+
+        self.conn.send_lazy(thunk)
+
+    def _task_failed_local(self, task_id: str, error: BaseException):
+        mgr = self._mgr
+        with mgr._cond:
+            entry = mgr.scheduler.running.get(task_id)
+            if not self.alive or entry is None \
+                    or entry[0] != self.worker_id:
+                return
+            task = mgr.scheduler.tasks[task_id]
+            fut = mgr._futures.get(task.duplicates_of or task_id)
+            if fut is not None:
+                fut.set_exception(error)
+            acts = mgr.scheduler.on_task_done(self.worker_id, task_id,
+                                              mgr.now)
+            mgr._fail_unresolved()
+            mgr._dispatch(acts)
+            mgr._cond.notify_all()
+
+    def _post_fetch(self, recipe: ContextRecipe,
+                    plan: Optional[TransferPlan]):
+        token = next(self._tokens)
+        with self._plock:
+            self._pending[token] = ("fetch", recipe, plan, None)
+        mgr = self._mgr
+        key = recipe.key()
+
+        def thunk():
+            # the POOL/DISK rungs live in the MANAGER's node pool: resolve
+            # them here (writer thread) and ship the snapshot as a wire
+            # blob; anything else falls to the node's own FS/BUILD ladder
+            snap = mgr.snapshots.take(key)
+            if snap is not None:
+                src = "DISK" if snap.spilled else "POOL"
+                try:
+                    if snap.spilled:
+                        snap.unspill(mgr.snapshots.spill_store())
+                    blob = pcm_wire.encode_snapshot(
+                        snap, chunk_bytes=mgr.chunk_bytes)
+                    return ("install", {"token": token, "key": key,
+                                        "op": "fetch", "source": src,
+                                        "wire": True}, blob)
+                except BaseException:
+                    traceback.print_exc(file=sys.stderr)
+            return ("fetch", {"token": token, "key": key},
+                    pickle.dumps(recipe, _PICKLE))
+
+        self.conn.send_lazy(thunk)
+
+    def _post_donate(self, recipe: ContextRecipe, receiver_id: str,
+                     plan: Optional[TransferPlan]):
+        token = next(self._tokens)
+        with self._plock:
+            self._pending[token] = ("donate", recipe, plan, receiver_id)
+        self._send("donate", {"token": token, "key": recipe.key()})
+
+    def _post_donate_chunks(self, stripe_id: int, recipe: ContextRecipe,
+                            receiver_id: str, spec: dict):
+        spec_w = dict(spec)
+        if spec_w.get("ref_ids") is not None:
+            spec_w["ref_ids"] = [list(t) for t in spec_w["ref_ids"]]
+
+        def thunk():
+            return ("donate_chunks",
+                    {"sid": stripe_id, "key": recipe.key(),
+                     "spec": spec_w},
+                    pickle.dumps(recipe, _PICKLE))
+
+        self.conn.send_lazy(thunk)
+
+    def _post_install(self, recipe: ContextRecipe, snap,
+                      plan: Optional[TransferPlan],
+                      degraded_from: Optional[FetchSource]):
+        token = next(self._tokens)
+        with self._plock:
+            self._pending[token] = ("install", recipe, plan, degraded_from)
+        key = recipe.key()
+        mgr = self._mgr
+
+        def thunk():
+            if snap is not None:
+                try:
+                    if snap.spilled:
+                        snap.unspill(mgr.snapshots.spill_store())
+                    blob = pcm_wire.encode_snapshot(
+                        snap, chunk_bytes=mgr.chunk_bytes)
+                    return ("install", {"token": token, "key": key,
+                                        "op": "install", "source": "PEER",
+                                        "wire": True}, blob)
+                except BaseException:
+                    traceback.print_exc(file=sys.stderr)
+            dfrom = degraded_from or (FetchSource.PEER if snap is not None
+                                      else None)
+            return ("install",
+                    {"token": token, "key": key, "op": "install",
+                     "wire": False,
+                     "degraded_from": dfrom.name if dfrom else None},
+                    pickle.dumps(recipe, _PICKLE))
+
+        self.conn.send_lazy(thunk)
+
+    def _post_install_wire(self, recipe: ContextRecipe, blob: bytes,
+                           plan: Optional[TransferPlan],
+                           degraded_from: Optional[FetchSource]):
+        token = next(self._tokens)
+        with self._plock:
+            self._pending[token] = ("install", recipe, plan, degraded_from)
+        self._send("install", {"token": token, "key": recipe.key(),
+                               "op": "install", "source": "PEER",
+                               "wire": True}, blob)
+
+    def _post_warm(self, recipe: ContextRecipe, event: threading.Event,
+                   errors: List[BaseException]):
+        token = next(self._tokens)
+        with self._plock:
+            self._pending[token] = ("warm", event, errors, recipe)
+        if not self.library.has(recipe.key()):
+            self.conn.send_lazy(self._pool_promotion_thunk(recipe))
+
+        def thunk():
+            try:
+                return ("warm", {"token": token},
+                        pickle.dumps(recipe, _PICKLE))
+            except BaseException as exc:
+                with self._plock:
+                    self._pending.pop(token, None)
+                errors.append(RuntimeError(
+                    f"recipe not picklable for remote worker "
+                    f"{self.worker_id}: {exc}"))
+                event.set()
+                return None
+
+        self.conn.send_lazy(thunk)
+
+    def _post_demote(self, key: str, tier: Tier, event: threading.Event,
+                     demoted: List[str]):
+        token = next(self._tokens)
+        with self._plock:
+            self._pending[token] = ("demote", event, demoted, key, tier)
+        self._send("demote", {"token": token, "key": key,
+                              "tier": int(tier)})
+
+    # ------------------------------------------------- frames -> replies ---
+    def _on_frame(self, conn, kind: str, meta: Dict, payload: bytes):
+        handler = getattr(self, f"_h_{kind}", None)
+        if handler is None:
+            print(f"RemoteWorker({self.worker_id}): unknown frame "
+                  f"{kind!r}", file=sys.stderr)
+            return
+        handler(meta, payload)
+
+    def _pop(self, token) -> Optional[tuple]:
+        with self._plock:
+            return self._pending.pop(token, None)
+
+    def _h_result(self, meta: Dict, payload: bytes):
+        mgr = self._mgr
+        self.library.update(meta.get("status"), mgr)
+        ok = bool(meta.get("ok"))
+        value = error = None
+        try:
+            obj = pickle.loads(payload)
+        except BaseException as exc:
+            ok, obj = False, RuntimeError(
+                f"result from {self.worker_id} failed to unpickle: {exc}")
+        if ok:
+            value = obj
+        else:
+            error = obj if isinstance(obj, BaseException) \
+                else RuntimeError(str(obj))
+        task_id = meta["task_id"]
+        with mgr._cond:
+            entry = mgr.scheduler.running.get(task_id)
+            if not self.alive or entry is None \
+                    or entry[0] != self.worker_id:
+                return               # preempted/reassigned: discard copy
+            task = mgr.scheduler.tasks[task_id]
+            fut = mgr._futures.get(task.duplicates_of or task_id)
+            if fut is not None:
+                if error is None:
+                    fut.set_result(value)
+                else:
+                    fut.set_exception(error)
+            acts = mgr.scheduler.on_task_done(self.worker_id, task_id,
+                                              mgr.now)
+            mgr._fail_unresolved()
+            mgr._dispatch(acts)
+            mgr._cond.notify_all()
+
+    def _h_done(self, meta: Dict, payload: bytes):
+        mgr = self._mgr
+        # fold the status FIRST: records/sources are node-side
+        # DELTAS — discarding a reply (stale token) must not
+        # drop them
+        self.library.update(meta.get("status"), mgr)
+        info = self._pop(meta["token"])
+        if info is None:
+            return
+        op, recipe, plan, degraded_from = info
+        ok = bool(meta.get("ok"))
+        key = recipe.key()
+        degraded = bool(meta.get("degraded"))
+        measured = meta.get("measured") \
+            if (ok and op == "install" and not degraded) else None
+        with mgr._cond:
+            mgr._flow_done_locked(plan, measured_seconds=measured,
+                                  failed=not ok)
+            if not self.alive:
+                mgr._cond.notify_all()
+                return
+            if ok and degraded:
+                dfrom = degraded_from
+                if dfrom is None and meta.get("degraded_from"):
+                    dfrom = FetchSource[meta["degraded_from"]]
+                if dfrom is not None and meta.get("source"):
+                    mgr.scheduler.record_degrade(
+                        self.worker_id, key, FetchSource[meta["source"]],
+                        mgr.now, degraded_from=dfrom)
+            fail_key = "<build-failed>" if op == "fetch" \
+                else "<transfer-failed>"
+            acts = mgr.scheduler.on_fetch_done(
+                self.worker_id, key if ok else fail_key, mgr.now)
+            mgr._dispatch(acts)
+            mgr._cond.notify_all()
+
+    def _h_snapshot(self, meta: Dict, payload: bytes):
+        mgr = self._mgr
+        # fold the status FIRST: records/sources are node-side
+        # DELTAS — discarding a reply (stale token) must not
+        # drop them
+        self.library.update(meta.get("status"), mgr)
+        info = self._pop(meta["token"])
+        if info is None:
+            return
+        _, recipe, plan, receiver_id = info
+        if meta.get("ok") and payload:
+            # forward the blob; the receiver decodes on ITS thread/process
+            mgr._deliver_install_wire(receiver_id, recipe, bytes(payload),
+                                      plan)
+        else:
+            mgr._deliver_install(receiver_id, recipe, None, plan,
+                                 degraded_from=FetchSource.PEER)
+
+    def _h_template(self, meta: Dict, payload: bytes):
+        mgr = self._mgr
+        sid = meta["sid"]
+        with mgr._lock:
+            sf = mgr._stripes.get(sid)
+        if sf is None or sf.done:
+            return
+        blob = bytes(payload)
+        try:
+            if isinstance(sf.buffer, _RemoteStripeTracker):
+                spec_tree, tmeta = pcm_wire.decode_template_specs(blob)
+                plan = ChunkPlan(spec_tree,
+                                 chunk_bytes=tmeta["chunk_bytes"])
+                mgr._stripe_template(sid, plan, None, None,
+                                     tmeta["nbytes"],
+                                     tmeta["build_seconds"],
+                                     tmeta["aot_seconds"], wire_blob=blob)
+            else:
+                dec = pcm_wire.decode_template(blob)
+                plan = ChunkPlan(dec["spec_tree"],
+                                 chunk_bytes=dec["chunk_bytes"])
+                mgr._stripe_template(sid, plan, dec["clone"],
+                                     dec["host_halves"], dec["nbytes"],
+                                     dec["build_seconds"],
+                                     dec["aot_seconds"])
+        except BaseException:
+            traceback.print_exc(file=sys.stderr)
+            mgr._stripe_failed(sid)
+
+    def _h_donor_chunk(self, meta: Dict, payload: bytes):
+        ref = ChunkRef(meta["ref"][0], *map(int, meta["ref"][1:]))
+        self._mgr._stripe_deliver(meta["sid"], ref,
+                                  pcm_wire.chunk_from_frame(meta, payload),
+                                  meta["sha"], meta["lane"])
+
+    def _h_lane_drained(self, meta: Dict, payload: bytes):
+        mgr = self._mgr
+        with mgr._lock:
+            sf = mgr._stripes.get(meta["sid"])
+            if meta.get("sent"):
+                mgr.planner.observe_stage("d2h", int(meta["sent"]),
+                                          float(meta["seconds"]))
+        if sf is not None:
+            sf.buffer.add_lane_seconds(meta["lane"],
+                                       float(meta["seconds"]))
+
+    def _h_stripe_lane_lost(self, meta: Dict, payload: bytes):
+        mgr = self._mgr
+        sid, lane = meta["sid"], meta["lane"]
+        delivered = meta.get("delivered")
+        with mgr._cond:
+            sf = mgr._stripes.get(sid)
+            if sf is not None and delivered is not None \
+                    and isinstance(sf.buffer, _RemoteStripeTracker):
+                # the NODE's verified set is authoritative: frames queued
+                # toward a dead lane must be re-forwarded
+                sf.buffer.reconcile(tuple(d) for d in delivered)
+                sf.buffer.install_posted = False
+            if meta.get("corrupt"):
+                mgr._stripe_stats["lane_failures"] += 1
+        mgr._stripe_lane_lost(sid, lane)
+
+    def _h_stripe_done(self, meta: Dict, payload: bytes):
+        mgr = self._mgr
+        self.library.update(meta.get("status"), mgr)
+        sid = meta["sid"]
+        ok = bool(meta.get("ok"))
+        with mgr._cond:
+            sf = mgr._stripes.pop(sid, None)
+            if sf is None:
+                return
+            sf.done = True
+            mgr._cancel_remote_lanes(sf)
+            mgr._flow_done_locked(sf.plan,
+                                  measured_seconds=meta.get("measured"),
+                                  failed=not ok)
+            if not self.alive:
+                mgr._cond.notify_all()
+                return
+            acts = mgr.scheduler.on_fetch_done(
+                self.worker_id,
+                meta.get("key") if ok else "<transfer-failed>", mgr.now)
+            mgr._dispatch(acts)
+            mgr._cond.notify_all()
+
+    def _h_ack(self, meta: Dict, payload: bytes):
+        mgr = self._mgr
+        # fold the status FIRST: records/sources are node-side
+        # DELTAS — discarding a reply (stale token) must not
+        # drop them
+        self.library.update(meta.get("status"), mgr)
+        info = self._pop(meta["token"])
+        if info is None:
+            return
+        _, event, errors, recipe = info
+        if meta.get("ok"):
+            with mgr._lock:
+                if self.alive:
+                    self.store.admit_recipe(recipe, mgr.mode.persist_tier,
+                                            now=mgr.now)
+        else:
+            errors.append(RuntimeError(
+                meta.get("error")
+                or f"warm-up failed on remote worker {self.worker_id}"))
+        event.set()
+
+    def _h_demoted(self, meta: Dict, payload: bytes):
+        mgr = self._mgr
+        # fold the status FIRST: records/sources are node-side
+        # DELTAS — discarding a reply (stale token) must not
+        # drop them
+        self.library.update(meta.get("status"), mgr)
+        info = self._pop(meta["token"])
+        if info is None:
+            return
+        _, event, demoted, key, tier = info
+        snap = None
+        if meta.get("has") and payload:
+            try:
+                snap = pcm_wire.decode_snapshot(payload)
+            except BaseException:
+                traceback.print_exc(file=sys.stderr)
+        if snap is not None:
+            mgr.snapshots.put(snap)
+            if tier == Tier.LOCAL_DISK:
+                mgr.snapshots.spill(key)
+            with mgr._lock:
+                demoted.append(self.worker_id)
+                self.store.drop(key, down_to=tier)
+                try:
+                    self.store.admit(key, tier, snap.nbytes, now=mgr.now)
+                except TierFullError:
+                    pass
+        event.set()
+
+    def _h_demoted_ctx(self, meta: Dict, payload: bytes):
+        # retirement demotion: the node ships each device-resident context
+        # back; it lands in the manager's node pool exactly where a local
+        # worker's retirement demotion would have put it
+        try:
+            self._mgr.snapshots.put(pcm_wire.decode_snapshot(payload))
+        except BaseException:
+            traceback.print_exc(file=sys.stderr)
+
+    def _h_bye(self, meta: Dict, payload: bytes):
+        self.library.update(meta.get("status"), self._mgr)
+        self._finalize()
+
+    # --------------------------------------------------------- lifecycle ---
+    def _finalize(self):
+        mgr = self._mgr
+        with mgr._cond:
+            first = not self._finalized
+            self._finalized = True
+            if first and not self.library.absorbed:
+                self.library.absorbed = True
+                mgr._absorb_library(self.library)
+            mgr._cond.notify_all()
+        self._closed_evt.set()
+        if self.conn is not None:
+            self.conn.close()
+        if mgr._router is not None:
+            mgr._router.unregister(self.worker_id)
+
+
 
 
 class PCMManager:
@@ -750,6 +1512,11 @@ class PCMManager:
         # every worker ever spawned (incl. preempted ones): shutdown joins
         # them all so no thread is mid-kernel at interpreter teardown
         self._spawned: List[LiveWorker] = []
+        # multi-host: socket transport (armed by listen()); in-process
+        # workers remain the default and never touch these
+        self._listener: Optional[Listener] = None
+        self._router: Optional[Router] = None
+        self._hb = 1.0
         atexit.register(_shutdown_at_exit, weakref.ref(self))
         for _ in range(n_workers):
             self.add_worker()
@@ -808,15 +1575,126 @@ class PCMManager:
     def listen(self, host: str = "127.0.0.1", port: int = 0,
                heartbeat: float = 1.0,
                lost_after: float = 10.0) -> Tuple[str, int]:
-        """Workers that are processes on other nodes (the reference's
-        socket transport, ``RemoteWorker`` and the wire-blob install)
-        arrive with the port slice of ``core/wire.py``,
-        ``core/transport.py`` and ``cluster/node.py``; this runtime's
-        workers are threads of this process."""
-        raise NotImplementedError(
-            "remote workers arrive with the port slice for core/wire.py, "
-            "core/transport.py and cluster/node.py; this runtime runs "
-            "in-process workers only")
+        """Open the socket transport: node processes that connect to the
+        returned ``(host, port)`` join the pool as :class:`RemoteWorker`s
+        (``transport_kind="socket"`` in the scheduler, so the planner
+        prices their lanes from NIC calibration, not memcpy history).
+        Loss detection is two-layered — socket EOF fires instantly, the
+        heartbeat monitor declares a silent peer lost after ``lost_after``
+        seconds — and both feed the normal preemption path."""
+        if self._listener is not None:
+            return self._listener.address
+        self._hb = float(heartbeat)
+        self._router = Router(lost_after=lost_after)
+        self._listener = Listener(host, port, self._on_node_connect)
+        return self._listener.address
+
+    @property
+    def address(self) -> Optional[Tuple[str, int]]:
+        return None if self._listener is None else self._listener.address
+
+    def _on_node_connect(self, sock, addr):
+        """Accept-thread half of a node join: read the HELLO synchronously
+        (worker identity + DeviceProfile), reply with the runtime config
+        the node must mirror (eviction mode, chunking, pins), then hand
+        the socket to a framed Connection and register the RemoteWorker
+        under the same join path as an in-process worker."""
+        from repro_torch.core.transport import read_frame, write_frame
+        kind, meta, payload = read_frame(sock)
+        if kind != "hello":
+            raise TransportError(
+                f"expected hello from {addr}, got {kind!r}")
+        wid = meta["worker_id"]
+        profile = pickle.loads(payload) if payload else None
+        write_frame(sock, "hello_ack", {
+            "mode": self.mode.value, "streamed": self.streamed,
+            "chunk_bytes": self.chunk_bytes,
+            "export_chunk_budget": self.export_chunk_budget,
+            "pinned": sorted(self._pinned)})
+        w = RemoteWorker(wid, self, profile=profile)
+        conn = Connection(
+            sock, f"node-{wid}", on_frame=w._on_frame,
+            on_lost=lambda _c, reason: self._remote_lost(w, reason),
+            heartbeat=self._hb)
+        w.conn = conn
+        with self._cond:
+            if wid in self.workers:
+                conn.close()
+                raise ValueError(f"worker {wid!r} already exists")
+            w.store.pinned.update(self._pinned)
+            w.library.pinned.update(self._pinned)
+            self.workers[wid] = w
+            self._spawned.append(w)
+            self._router.register(wid, conn)
+            conn.start()
+            acts = self.scheduler.on_worker_join(
+                wid, self.now, profile=profile, store=w.store,
+                transport_kind="socket")
+            self._dispatch(acts)
+            self._cond.notify_all()
+
+    def wait_for_workers(self, worker_ids: List[str],
+                         timeout: float = 30.0):
+        """Block until every named worker has joined (node processes
+        register asynchronously when their HELLO lands)."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while not all(wid in self.workers for wid in worker_ids):
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    missing = [wid for wid in worker_ids
+                               if wid not in self.workers]
+                    raise TimeoutError(
+                        f"workers {missing} did not join within "
+                        f"{timeout:.1f}s")
+                self._cond.wait(remaining)
+
+    def _remote_lost(self, w: "RemoteWorker", reason: str):
+        """A remote worker's link died — EOF (killed process) or heartbeat
+        timeout (declared lost). Runs the exact preemption path a local
+        no-warning reclaim runs, plus transport cleanup: fail the flows
+        and synchronous waits parked on the connection, fail over every
+        stripe lane the node was serving, and requeue its in-flight task."""
+        with self._cond:
+            known = self.workers.get(w.worker_id) is w
+            if known:
+                self.workers.pop(w.worker_id, None)
+            was_alive = w.alive
+            w.alive = False
+            # stripes this node was RECEIVING cannot conclude
+            for sid, sf in list(self._stripes.items()):
+                if sf.receiver_id == w.worker_id:
+                    self._stripe_failed_locked(sid)
+            # pending request/reply exchanges: flows fail, waiters release
+            with w._plock:
+                pending, w._pending = dict(w._pending), {}
+            for info in pending.values():
+                tag = info[0]
+                if tag in ("fetch", "install"):
+                    self._flow_done_locked(info[2], failed=True)
+                elif tag == "donate":
+                    self._deliver_install(info[3], info[1], None, info[2],
+                                          degraded_from=FetchSource.PEER)
+                elif tag == "warm":
+                    info[2].append(RuntimeError(
+                        f"remote worker {w.worker_id} lost during "
+                        f"warm-up: {reason}"))
+                    info[1].set()
+                elif tag == "demote":
+                    info[1].set()
+            # stripes this node was DONATING to: lane failover (surviving
+            # donors re-export only the undelivered refs)
+            for sid, sf in list(self._stripes.items()):
+                for lane, did in enumerate(sf.donor_ids):
+                    if did == w.worker_id and lane not in sf.failed_lanes:
+                        self._stripe_lane_lost(sid, lane)
+            if known and was_alive:
+                acts = self.scheduler.on_worker_leave(w.worker_id,
+                                                      self.now)
+                self._fail_unresolved()
+                self._dispatch(acts)
+            self._cond.notify_all()
+        w._finalize()
 
     def shutdown(self, timeout: Optional[float] = None):
         """Stop all worker threads and join every thread this manager ever
@@ -844,6 +1722,11 @@ class PCMManager:
             w.post((_STOP,))
         for w in spawned:
             w.join(timeout)
+        if self._router is not None:
+            self._router.close()
+        if self._listener is not None:
+            self._listener.close()
+        self._router = self._listener = None
 
     # ------------------------------------------------------------ submit ---
     def submit(self, fn: Callable, args: tuple = (), kwargs: dict = None,
@@ -1012,6 +1895,11 @@ class PCMManager:
         n_pool = 1 if self.snapshots.tier(a.recipe.key()) is not None else 0
         sf = _StripeFetch(sid, a.recipe, a.worker_id, a.plan,
                           tuple(lanes), n_pool)
+        receiver = self.workers.get(a.worker_id)
+        if isinstance(receiver, RemoteWorker):
+            # the real StripeBuffer runs in the node process; the manager
+            # tracks + forwards (one _stripe_deliver codepath either way)
+            sf.buffer = _RemoteStripeTracker(self, sid, receiver)
         self._stripes[sid] = sf
         self._stripe_stats["stripes"] += 1
         for lane, did in enumerate(lanes):
@@ -1023,25 +1911,93 @@ class PCMManager:
 
     def _stripe_template(self, stripe_id: int, plan, clone, host_halves,
                          nbytes: int, build_seconds: float,
-                         aot_seconds: float):
+                         aot_seconds: float, device_tree=None,
+                         wire_blob: Optional[bytes] = None):
         """Primary-lane template metadata arrived: arm the buffer's
-        expected-ref set and activate the pool lane (it needs the plan)."""
+        expected-ref set and activate the pool lane (it needs the plan).
+        For a REMOTE receiver the tracker forwards the template over the
+        wire — verbatim when it already arrived as a blob (remote donor),
+        wire-encoded on the writer thread otherwise (``device_tree`` is
+        the local donor's device half, reduced to specs)."""
         with self._cond:
             sf = self._stripes.get(stripe_id)
             if sf is None or sf.done:
                 return
-            sf.buffer.set_template(plan, clone, host_halves, nbytes,
-                                   build_seconds, aot_seconds)
+            if isinstance(sf.buffer, _RemoteStripeTracker):
+                sf.buffer.set_template_remote(
+                    plan, sf.recipe, self.chunk_bytes, clone, host_halves,
+                    nbytes, build_seconds, aot_seconds,
+                    device_tree=device_tree, wire_blob=wire_blob)
+            else:
+                sf.buffer.set_template(plan, clone, host_halves, nbytes,
+                                       build_seconds, aot_seconds)
             if sf.n_pool:
                 pool_lane = len(sf.donor_ids)
                 sf.lane_owner[pool_lane] = pool_lane
                 w = self.workers.get(sf.receiver_id)
-                if w is not None and w.alive:
+                if isinstance(w, RemoteWorker) and w.alive:
+                    # the pool lives manager-side: serve its refs from a
+                    # helper thread, forwarding through the tracker
+                    threading.Thread(
+                        target=self._remote_pool_lane,
+                        args=(stripe_id, sf.recipe,
+                              {"lane": pool_lane,
+                               "n_donor": len(sf.donor_ids),
+                               "n_pool": sf.n_pool}),
+                        name=f"pcm-pool-lane-{stripe_id}",
+                        daemon=True).start()
+                elif w is not None and w.alive:
                     w.post(("stripe_pool", stripe_id, sf.recipe,
                             {"lane": pool_lane,
                              "n_donor": len(sf.donor_ids),
                              "n_pool": sf.n_pool}))
         self._maybe_install_stripe(stripe_id)
+
+    def _remote_pool_lane(self, stripe_id: int, recipe: ContextRecipe,
+                          spec: dict):
+        """Pool stripe lane for a REMOTE receiver: the node SnapshotPool
+        is manager-side state, so the manager itself reads the immutable
+        params chunks (HOST_RAM slices or verified spill entries) and
+        forwards them through the stripe tracker. Mirrors the receiver-
+        thread ``_handle_stripe_pool``; any failure loses this lane only."""
+        lane = spec["lane"]
+        with self._lock:
+            sf = self._stripes.get(stripe_id)
+        if sf is None or sf.done:
+            return
+        t0 = time.monotonic()
+        try:
+            plan = sf.buffer.plan
+            refs = sf.buffer.missing_refs(
+                assign_lanes(plan.refs, spec["n_donor"],
+                             spec["n_pool"])[lane])
+            if not refs:
+                return
+            snap = self.snapshots.peek(recipe.key())
+            if snap is None:
+                raise LookupError(
+                    f"pool snapshot for {recipe.key()} gone before the "
+                    "stripe lane could read it")
+            if snap.spilled:
+                needed = {r.key for r in refs}
+                flat = dict(self.snapshots.spill_store().iter_entries(
+                    snap.spill_key, keys=needed))
+            else:
+                flat = ChunkPlan.flat_map(
+                    {name: {"params": comp["params"]}
+                     for name, comp in snap.host_state.items()
+                     if isinstance(comp, dict) and "params" in comp})
+            self.snapshots.stripe_reads += len(refs)
+            for ref in refs:
+                piece = host_chunk(plan.extract(flat, ref))
+                if not self._stripe_deliver(stripe_id, ref, piece,
+                                            chunk_digest(piece), lane):
+                    return
+        except BaseException:
+            traceback.print_exc(file=sys.stderr)
+            self._stripe_lane_lost(stripe_id, lane)
+        finally:
+            sf.buffer.add_lane_seconds(lane, time.monotonic() - t0)
 
     def _stripe_deliver(self, stripe_id: int, ref, piece, sha: str,
                         lane: int) -> bool:
@@ -1128,6 +2084,7 @@ class PCMManager:
             sf.done = True
             self._stripes.pop(stripe_id, None)
             self._stripe_stats["degrades"] += 1
+            self._cancel_remote_lanes(sf)
             self._flow_done_locked(sf.plan, failed=True)
             w = self.workers.get(sf.receiver_id)
             if w is not None and w.alive:
@@ -1142,12 +2099,25 @@ class PCMManager:
         if sf is None:
             return
         sf.done = True
+        self._cancel_remote_lanes(sf)
         self._flow_done_locked(sf.plan, failed=True)
         self._cond.notify_all()
 
     def _stripe_failed(self, stripe_id: int):
         with self._cond:
             self._stripe_failed_locked(stripe_id)
+
+    def _cancel_remote_lanes(self, sf: _StripeFetch):
+        """Tell remote DONORS a concluded stripe needs no more chunks —
+        local donors notice via ``_stripe_deliver`` returning False, but
+        a node keeps exporting until told (callers hold the lock; send is
+        just an enqueue)."""
+        for did in set(sf.donor_ids):
+            dw = self.workers.get(did)
+            if isinstance(dw, RemoteWorker) and dw.alive:
+                dw._send("stripe_cancel", {"sid": sf.stripe_id})
+
+    # ---------------------------------------------------------- transfers --
 
     def _deliver_install(self, receiver_id: str, recipe: ContextRecipe,
                          snap, plan: Optional[TransferPlan],
@@ -1167,6 +2137,22 @@ class PCMManager:
                 self._cond.notify_all()
                 return
             w.post(("install", recipe, snap, plan, degraded_from))
+
+    def _deliver_install_wire(self, receiver_id: str,
+                              recipe: ContextRecipe, blob: bytes,
+                              plan: Optional[TransferPlan],
+                              degraded_from: Optional[FetchSource] = None):
+        """Same contract as ``_deliver_install`` but the snapshot is still
+        WIRE bytes (a remote donor's export): a local receiver decodes it
+        on its own thread; a remote receiver gets the blob forwarded
+        verbatim — the manager never materializes the arrays."""
+        with self._cond:
+            w = self.workers.get(receiver_id)
+            if w is None or not w.alive:
+                self._flow_done_locked(plan, failed=True)
+                self._cond.notify_all()
+                return
+            w.post(("install_wire", recipe, blob, plan, degraded_from))
 
     def _flow_done(self, plan: Optional[TransferPlan],
                    measured_seconds: Optional[float] = None,

@@ -2,8 +2,7 @@
 
 Port of ``repro.core.store``: framework-free, a copy with its imports
 pointed at this package. Below, module names are the port's; the WIRE
-edges arrive with the port's transport slice (``core/wire.py``,
-``core/transport.py``), which this package does not have yet.
+edges run through ``core/wire.py`` and ``core/transport.py``.
 
 Tiers mirror the paper's startup pipeline: SHARED_FS -> LOCAL_DISK ->
 HOST_RAM -> DEVICE. The three application transformations map onto how deep

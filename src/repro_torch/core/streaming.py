@@ -28,8 +28,8 @@ Port of ``repro.core.streaming``: trees flatten through
 ``checkpoint.io.tree_flatten`` (the reference's path names), a donor's
 leaves are device tensors sliced per chunk, each chunk is copied to the
 host on its own, and completed leaves are assembled with ``torch.cat``.
-This package's runtime stripes between in-process workers only; the wire
-lanes wait for the port's transport slice.
+Chunks that cross a process boundary travel as transport frames
+(``core/wire.py``'s chunk helpers), verified again on arrival.
 """
 
 from __future__ import annotations

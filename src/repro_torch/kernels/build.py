@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, under
-``build/repro_torch_kernels/`` at the root of the checkout. A library's
+``build/repro_torch_kernels/`` at the root of the checkout (or the
+directory ``set_build_dir`` names). A library's
 file name carries a hash of its source, the shared headers and the
 compiler flags, so an edited source builds anew and an unchanged one loads
 from disk. The build happens at first use, all missing sources compiled
@@ -59,6 +60,18 @@ def library_path(name: str) -> Path:
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def set_build_dir(path) -> Path:
+    """Point the build directory at ``path`` (made when missing) for every
+    later build and load in this process. A worker process that joins
+    after another one built the libraries there loads them and runs no
+    ``nvcc``; libraries already loaded stay loaded."""
+    global BUILD_DIR
+    with _LOCK:
+        BUILD_DIR = Path(path).resolve()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR
 
 
 def build_all() -> Dict:

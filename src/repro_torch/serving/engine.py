@@ -72,12 +72,24 @@ export) and ``clone_offloaded`` bootstrap a twin engine from the weights
 alone. ``warm_executables`` loads every kernel library the model launches
 (building it at first use), the warm-up a PCM context runs once when it
 is built.
+
+**Across processes.** ``wire_recipe()`` describes the engine as JSON (its
+config and knobs, and ``aot_fingerprint``: a digest of those, the torch
+and CUDA versions and the kernel libraries it loads), which
+``repro_torch.core.wire`` ships in place of the object;
+``engine_from_wire`` rebuilds a shell from it on the receiving process's
+device, with no weights and no state until a restore lands, and counts
+each kernel library it finds already built under
+``stats.aot_cache_hits`` (a real build under ``stats.compiles``).
 """
 
 from __future__ import annotations
 
 import collections
 import copy
+import dataclasses
+import hashlib
+import json
 import sys
 import time
 import traceback
@@ -85,7 +97,6 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from torch import nn
 
 from repro_torch import device as devices
 from repro_torch.models.layers import cdt
@@ -109,20 +120,13 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
                      f"truncated")
 
 
-def _model_shell(model: nn.Module, device: torch.device) -> nn.Module:
-    """A structural twin of ``model`` whose parameters are empty tensors on
-    ``device``: the weights arrive later by ``restore_device_state``."""
-    with torch.device("meta"):
-        shell = type(model)(model.cfg, "meta")
-    for mod in shell.modules():
-        for name, p in list(mod.named_parameters(recurse=False)):
-            setattr(mod, name, nn.Parameter(
-                torch.empty((0,), dtype=p.dtype, device=device),
-                requires_grad=False))
-    return shell
-
-
 class InferenceEngine:
+    # True for a shell rebuilt from a wire recipe (``engine_from_wire``):
+    # its kernel libraries come from the build directory another process
+    # filled, each counted under ``stats.aot_cache_hits``
+    _aot_shared = False
+    _aot_resolved: frozenset = frozenset()
+
     def __init__(self, model, *, device: Union[str, torch.device] = "cuda",
                  slots: int = 8, cache_len: int = 512,
                  prefill_buckets: Sequence[int] = (32, 128, 512),
@@ -364,6 +368,9 @@ class InferenceEngine:
             setattr(self, name, put(host_state[name]))
         self._gen.set_state(host_state["_rng"])
         self._sync()
+        if self._aot_shared:
+            # a wire shell's kernels load with its state
+            self.warm_executables()
 
     def _require_resident(self):
         if self.offloaded:
@@ -431,8 +438,9 @@ class InferenceEngine:
         ``restore_device_state`` pushes an exported template in. The
         kernels are already built in this process, so the twin builds
         nothing."""
+        from repro_torch.models.registry import build_shell
         clone = copy.copy(self)
-        clone.model = _model_shell(self.model, self.device)
+        clone.model = build_shell(self.cfg, device=self.device)
         clone._gen = torch.Generator(device=self.device)
         clone.queue = collections.deque()
         clone.active = {}
@@ -486,11 +494,66 @@ class InferenceEngine:
         if names:
             from repro_torch.kernels import build
             missing = [n for n in names if not build.library_path(n).exists()]
+            if self._aot_shared:
+                self.stats.aot_cache_hits += sum(
+                    1 for n in names
+                    if n not in missing and n not in self._aot_resolved)
+                self._aot_resolved = self._aot_resolved | set(names)
             if missing:
                 self.stats.compiles += len(build.build_all()["built"])
             for name in names:
                 build.library(name)
         return time.monotonic() - t0
+
+    # ----------------------------------------------------- wire identity ---
+    def _wire_knobs(self) -> Dict:
+        """Every constructor knob that shapes what the engine launches,
+        and the torch, CUDA and device type it runs on."""
+        return {
+            "slots": self.slots, "cache_len": self.cache_len,
+            "prefill_buckets": list(self.prefill_buckets),
+            "cache_dtype": str(self._cache_dtype),
+            "megastep": self.megastep,
+            "max_stop_tokens": self.max_stop_tokens,
+            "admission": self.admission,
+            "paged": self._paged, "page_size": self.page_size,
+            "num_pages": self.num_pages if self._paged else None,
+            "prefix_sharing": self._prefix_cache is not None,
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "device": self.device.type,
+        }
+
+    @property
+    def aot_fingerprint(self) -> str:
+        """The namespace of this engine's kernel libraries: a digest of the
+        model config, the knobs (``_wire_knobs``) and the file names of
+        the kernel libraries the engine loads (each carries a hash of its
+        sources and flags). PyTorch ships no executable, so equal
+        fingerprints mean the same libraries serve both engines: one
+        process's build is the other's cache hit."""
+        fp = self.__dict__.get("_aot_fp")
+        if fp is None:
+            from repro_torch.kernels import build
+            spec = dict(self._wire_knobs(), config=self.cfg.key(),
+                        libraries=[build.library_path(n).name
+                                   for n in self._kernel_libraries()])
+            fp = hashlib.sha256(
+                json.dumps(spec, sort_keys=True).encode()).hexdigest()[:16]
+            self.__dict__["_aot_fp"] = fp
+        return fp
+
+    def wire_recipe(self) -> Dict:
+        """The engine's wire-format identity: a JSON-serializable recipe
+        (the config, the knobs and the fingerprint) and the loader a
+        receiving process imports to rebuild the SHELL — the model's
+        structure with no weights, no device state. ``repro_torch.core.
+        wire`` ships this instead of the engine object; the weights travel
+        as the snapshot's arrays and the kernels load from the receiver's
+        build directory."""
+        return dict(self._wire_knobs(),
+                    loader="repro_torch.serving.engine:engine_from_wire",
+                    config=dataclasses.asdict(self.cfg),
+                    fingerprint=self.aot_fingerprint)
 
     # -------------------------------------------------------------- public --
     def submit(self, req: Request) -> Request:
@@ -1029,3 +1092,44 @@ class InferenceEngine:
             "compile_seconds": self.compile_seconds,
             "stats": self.stats.as_dict(),
         }
+
+
+def engine_from_wire(rec: Dict, device: Optional[Union[str, torch.device]]
+                     = None) -> "InferenceEngine":
+    """Rebuild an engine SHELL from a :meth:`InferenceEngine.wire_recipe`
+    in THIS process, on ``device`` (the receiving node's; default the
+    sender's device type): the model's structure from its config with
+    empty parameters, the engine constructed with the knobs the donor
+    recorded, then stripped of device state (``offloaded`` until a
+    restore lands) and marked ``_aot_shared``: when its state arrives it
+    loads its kernel libraries, each found already built counted under
+    ``stats.aot_cache_hits`` and only a real ``nvcc`` run under
+    ``stats.compiles``. No model object, parameter or kernel crosses the
+    wire inside the recipe."""
+    from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                          SSMConfig)
+    from repro_torch.models.registry import build_shell
+    d = dict(rec["config"])
+    d["moe"] = MoEConfig(**d["moe"])
+    d["mla"] = MLAConfig(**d["mla"])
+    d["ssm"] = SSMConfig(**d["ssm"])
+    cfg = ModelConfig(**d)
+    dev = devices.resolve(device if device is not None else rec["device"])
+    num_pages = rec.get("num_pages")
+    eng = InferenceEngine(
+        build_shell(cfg, device=dev), device=dev,
+        slots=int(rec["slots"]), cache_len=int(rec["cache_len"]),
+        prefill_buckets=tuple(rec["prefill_buckets"]),
+        cache_dtype=getattr(torch, rec["cache_dtype"].split(".")[-1]),
+        megastep=int(rec["megastep"]),
+        max_stop_tokens=int(rec["max_stop_tokens"]),
+        admission=rec.get("admission", "continuous"),
+        paged=bool(rec.get("paged", False)),
+        page_size=int(rec.get("page_size", 64)),
+        num_pages=int(num_pages) if num_pages is not None else None,
+        prefix_sharing=bool(rec.get("prefix_sharing", True)))
+    eng.cache = None
+    for name in eng._state_fields:
+        setattr(eng, name, None)
+    eng._aot_shared = True
+    return eng

@@ -108,8 +108,12 @@ class EngineStats:
     prefill_batches: int = 0
     megasteps: int = 0             # fused-decode dispatches (<= decode_tokens)
     # kernel libraries this engine built (0 when they were on disk or
-    # already loaded): a warm context compiles nothing
+    # already loaded): a warm context compiles nothing. A shell rebuilt
+    # from a wire recipe that finds a library already built (by another
+    # process, in a shared build directory) counts it under
+    # aot_cache_hits instead, so "zero builds" holds across processes
     compiles: int = 0
+    aot_cache_hits: int = 0
     decode_seconds: float = 0.0    # wall time inside megastep dispatch+sync
     # decode_step calls run (a megastep runs up to K of them); each runs
     # every layer's decode attention once
@@ -138,6 +142,7 @@ class EngineStats:
                     completed=self.completed, steps=self.steps,
                     prefill_batches=self.prefill_batches,
                     megasteps=self.megasteps, compiles=self.compiles,
+                    aot_cache_hits=self.aot_cache_hits,
                     decode_seconds=self.decode_seconds,
                     decode_steps=self.decode_steps,
                     decode_path=self.decode_path,

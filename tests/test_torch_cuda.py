@@ -910,3 +910,58 @@ def test_cuda_runtime_round_trip(cuda, tmp_path, streamed):
         assert mgr.stats()["context_restores"] == 1
     finally:
         mgr.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_two_node_wire_round_trip(cuda):
+    """Two node processes on the card: A builds the reduced smollm2-1.7b
+    context with the kernels; B joins with ``--aot-cache`` at the build
+    directory, bootstraps the context from A by PEER over the socket, and
+    decodes bit-identically to A with zero nvcc runs (each kernel library
+    a cache hit)."""
+    import os
+    import signal
+
+    import torch_multihost_helpers as H
+    from repro_torch.cluster import node
+    from repro_torch.core import ContextMode, FetchSource, PCMManager
+    from repro_torch.kernels import build
+
+    build.build_all()
+    cfg = dataclasses.replace(get_reduced_config("smollm2-1.7b"),
+                              use_kernels=True)
+    rec = H.engine_recipe(None, 4, name="cuda-wire", device="cuda", cfg=cfg)
+    prompts = [[5, 9, 14, 200, 7], [11, 3, 60, 61, 62, 63, 64]]
+    here = os.path.dirname(os.path.abspath(__file__))
+    mgr = PCMManager(mode=ContextMode.FULL, n_workers=0,
+                     chunk_bytes=64 << 10)
+    procs = {}
+
+    def spawn(wid):
+        procs[wid] = node.spawn_node_process(
+            addr, wid, extra_path=(here,), device="cuda",
+            aot_cache=str(build.BUILD_DIR), heartbeat=0.2)
+        mgr.wait_for_workers([wid], timeout=120)
+
+    try:
+        addr = mgr.listen(heartbeat=0.2)
+        spawn("A")
+        want, _, _ = mgr.submit(H.generate_task, args=(prompts,),
+                                recipe=rec).result(timeout=300)
+        spawn("B")
+        futs = [mgr.submit(H.generate_task, args=(prompts, 6, 0.3),
+                           recipe=rec) for _ in range(6)]
+        res = [f.result(timeout=300) for f in futs]
+        assert all(r[0] == want for r in res)
+        on_b = [r[2] for r in res if r[1] == procs["B"].pid]
+        assert on_b and all(s["compiles"] == 0 and s["aot_cache_hits"] == 2
+                            for s in on_b)
+        assert [(d.worker_id, d.source) for d in mgr.fetch_history(rec)] \
+            == [("B", FetchSource.PEER)]
+        assert mgr.workers["B"].library.builder_calls == 0
+    finally:
+        mgr.shutdown(timeout=30)
+        for p in procs.values():
+            if p.poll() is None:
+                os.kill(p.pid, signal.SIGKILL)
+            p.wait(timeout=30)

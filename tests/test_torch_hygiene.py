@@ -43,7 +43,8 @@ def test_port_file_list_is_complete():
     assert {"engine.py", "attention.py", "transformer.py", "moe.py",
             "ops.py", "moe_gemm.py", "build.py", "weights.py", "ssm.py",
             "hybrid.py", "ssm_scan.py", "chip_smoke.py", "io.py",
-            "context.py", "scheduler.py", "manager.py", "serve.py"} <= names
+            "context.py", "scheduler.py", "manager.py", "serve.py",
+            "wire.py", "transport.py", "node.py", "devices.py"} <= names
 
 
 def test_every_kernel_has_its_source():
