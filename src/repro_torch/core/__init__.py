@@ -6,8 +6,12 @@ point is the **PCMClient session API** (api.py): declare contexts as
 first-class handles (``client.context`` -> pin / release / warm_up /
 residency), attach one or several named contexts to tasks
 (``@client.task(contexts={...})``), and submit work as Futures
-(``client.submit``) or FutureBatches (``client.map``). The client drives
-an **ExecutionBackend** (backend.py): ``PCMManager`` runs tasks live.
+(``client.submit``) or FutureBatches (``client.map``), or stream turns
+through sessions (``client.session`` / ``client.stream``, the front door
+of ``repro_torch.serving.frontdoor``). The client drives an
+**ExecutionBackend** (backend.py): ``PCMManager`` runs tasks live;
+``SimulatorBackend`` dry-runs the identical application against the
+discrete-event cluster model (``repro_torch.cluster``).
 
 The live backend is a **concurrent actor runtime**: every worker is a
 thread with a mailbox owning its Library/ContextStore; the scheduler runs
@@ -39,18 +43,17 @@ Module map:
   wire.py      versioned wire format for snapshots/templates: arrays via
                checkpoint/io's chunked-sha256 path, engines as recipes
                (receivers load the kernels from the build directory)
-  backend.py   ExecutionBackend protocol
-  api.py       PCMClient / ContextHandle / FutureBatch (+ @context_app)
-
-Not ported yet: the simulator backend (with the cluster model) and
-streaming sessions through the front door (ROADMAP.md, queue 1).
+  backend.py   ExecutionBackend protocol + SimulatorBackend dry-run
+  api.py       PCMClient / ContextHandle / FutureBatch (+ @context_app,
+               front-door sessions and streams)
 """
 
 from repro_torch.core.api import (ContextHandle, FutureBatch, PCMClient,
                                   context_app, get_default_client,
                                   get_default_manager, load_context,
                                   make_recipe, set_default_manager)
-from repro_torch.core.backend import ExecutionBackend, LiveBackend
+from repro_torch.core.backend import (ExecutionBackend, LiveBackend,
+                                      SimTaskResult, SimulatorBackend)
 from repro_torch.core.context import (Context, ContextRecipe,
                                       ContextSnapshot, PeerExportError,
                                       export_context, materialize,
@@ -77,7 +80,7 @@ __all__ = [
     "ContextHandle", "FutureBatch", "PCMClient", "context_app",
     "get_default_client", "get_default_manager", "load_context",
     "make_recipe", "set_default_manager", "ExecutionBackend", "LiveBackend",
-    "Context", "ContextRecipe", "ContextSnapshot", "PeerExportError",
+    "SimTaskResult", "SimulatorBackend", "Context", "ContextRecipe", "ContextSnapshot", "PeerExportError",
     "export_context", "materialize", "restore_context", "snapshot_context",
     "ElasticRunner", "PoolDirective", "WorkerFactory",
     "Library", "current_context", "load_variable_from_context",

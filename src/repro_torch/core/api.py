@@ -3,14 +3,15 @@
 Port of ``repro.core.api``. The paper's Fig. 5 transformation, grown into
 a session: contexts are handles you can pin, warm up and introspect; tasks
 may hold several named contexts; submission returns Futures (with timeouts
-and callbacks) or FutureBatches (``client.map``). The reference also runs
-the application against its discrete-event simulator and streams through
-a front door; those backends arrive with the port slices for the cluster
-model and for ``serving/session.py`` and ``serving/frontdoor.py``.
+and callbacks) or FutureBatches (``client.map``) or, through the front
+door, TokenStreams of sessions (``client.session`` / ``client.stream``);
+and the whole application runs unchanged against the LIVE runtime or the
+discrete-event SIMULATOR by swapping the backend constructor argument.
 
-    from repro_torch.core import PCMClient, load_context
+    from repro_torch.core import PCMClient, SimulatorBackend, load_context
 
     client = PCMClient(n_workers=2)                  # live PyTorch backend
+    # client = PCMClient(backend=SimulatorBackend(n_workers=20))  # dry-run
 
     verifier = client.context(load_model, "smollm2-1.7b")   # ContextHandle
     verifier.warm_up()                               # build off-path
@@ -299,13 +300,16 @@ class FutureBatch:
 class PCMClient:
     """A Pervasive-Context-Management session over an ExecutionBackend.
 
-    ``backend`` defaults to a live :class:`PCMManager`."""
+    ``backend`` defaults to a live :class:`PCMManager`; pass a
+    :class:`repro_torch.core.backend.SimulatorBackend` to dry-run the
+    identical application against modeled cluster time."""
 
     def __init__(self, backend=None, *, mode: ContextMode = ContextMode.FULL,
                  n_workers: int = 2):
         self.backend = backend if backend is not None else PCMManager(
             mode=mode, n_workers=n_workers)
         self._handles: Dict[str, ContextHandle] = {}
+        self._frontdoor = None
 
     # ---------------------------------------------------------- contexts --
     def context(self, builder_or_recipe: Union[Callable, ContextRecipe],
@@ -405,12 +409,46 @@ class PCMClient:
 
     # ------------------------------------------------- streaming sessions --
     def frontdoor(self, **kwargs) -> "Any":
-        """Streaming sessions (the reference's ``frontdoor``, ``session``
-        and ``stream``: admission, per-tenant fairness, SLO routing)
-        arrive with their port slice."""
-        raise NotImplementedError(
-            "the streaming front door arrives with the port slice for "
-            "serving/session.py and serving/frontdoor.py")
+        """The client's streaming front door (admission, per-tenant
+        fairness, SLO routing — see ``repro_torch.serving.frontdoor``),
+        created on first use. Configuration kwargs (``quotas``, ``lanes``,
+        ``engine_var``, ...) are accepted only on the creating call."""
+        if self._frontdoor is None:
+            from repro_torch.serving.frontdoor import FrontDoor
+            self._frontdoor = FrontDoor(self.backend, **kwargs)
+        elif kwargs:
+            raise ValueError("front door already configured for this "
+                             "client — pass kwargs on the first call only")
+        return self._frontdoor
+
+    def session(self, context: ContextLike, *, tenant: str = "default",
+                slo=None, session_id: Optional[str] = None,
+                prefix_key: Optional[str] = None):
+        """Open a streaming session against ``context`` (whose built value
+        must expose an InferenceEngine under the front door's
+        ``engine_var``, default ``"engine"``). Works on the live AND
+        simulator backends; ``session.submit(prompt)`` returns a
+        TokenStream or raises ShedError on admission backpressure.
+        ``prefix_key`` names the session's shared prompt template so the
+        router colocates template-mates on one lane (prefix-cache hits)."""
+        from repro_torch.serving.session import SLOClass
+        return self.frontdoor().open_session(
+            context, tenant=tenant, slo=slo or SLOClass.BATCH,
+            session_id=session_id, prefix_key=prefix_key)
+
+    def stream(self, prompt, *, context: ContextLike,
+               tenant: str = "default", slo=None,
+               max_new_tokens: int = 32, temperature: float = 0.0,
+               stop_tokens: Tuple[int, ...] = (1,)):
+        """One-shot streaming: open an ephemeral session, submit one turn,
+        return its TokenStream (iterate it for tokens as they decode)."""
+        sess = self.session(context, tenant=tenant, slo=slo)
+        try:
+            return sess.submit(prompt, max_new_tokens=max_new_tokens,
+                               temperature=temperature,
+                               stop_tokens=stop_tokens)
+        finally:
+            sess.close()
 
     # ----------------------------------------------------------- session --
     def drain(self) -> int:
@@ -418,7 +456,8 @@ class PCMClient:
         return self.backend.run_until_idle()
 
     def shutdown(self):
-        """Stop the backend's worker threads."""
+        """Stop the backend's worker threads (live backend; no-op on the
+        simulator)."""
         stop = getattr(self.backend, "shutdown", None)
         if stop is not None:
             stop()

@@ -1,11 +1,9 @@
 """Worker factory — the TaskVine-factory analogue — and the elastic
 runner that drives a LIVE PCMManager from a capacity trace.
 
-Port of ``repro.core.factory`` over a plain capacity callable: the
-reference's capacity traces (``cluster/traces.py``) arrive with the port
-slice for the cluster simulator; until then a join carries the profile
-object that ``profiles`` maps its name to (``repro_torch.cluster.devices.
-PROFILES`` is such a map), or none.
+Port of ``repro.core.factory``: the capacity callable is any trace of
+``repro_torch.cluster.traces`` (or a cluster API), and a join carries the
+DeviceProfile that ``profiles`` maps its name to.
 
 :class:`WorkerFactory` watches the opportunistic capacity signal (a trace
 in simulation; a cluster API in production) and reconciles the worker pool
@@ -104,9 +102,11 @@ class ElasticRunner:
     preempts it with no warning (contexts demote to the node snapshot
     pool; joiners later restore peer-to-peer or from the pool).
 
-    ``profiles`` maps trace profile names to profile objects (default:
-    none, so joins are anonymous). ``time_scale`` compresses trace time
-    against the manager clock.
+    ``profiles`` maps trace profile names to DeviceProfile objects and
+    defaults to ``repro_torch.cluster.devices.PROFILES`` (imported lazily
+    so the core package stays cluster-free at import time); a name it
+    does not hold joins without a profile. ``time_scale`` compresses trace
+    time against the manager clock.
 
     With ``spawn_remote=True`` a ``join`` directive spawns a WHOLE WORKER
     PROCESS (``repro_torch.cluster.node``) that connects to the manager's
@@ -130,7 +130,9 @@ class ElasticRunner:
                  spawn_remote: bool = False,
                  node_kwargs: Optional[Dict] = None):
         self.manager = manager
-        self.profiles = {} if profiles is None else profiles
+        if profiles is None:
+            from repro_torch.cluster.devices import PROFILES as profiles
+        self.profiles = profiles
         self.factory = WorkerFactory(capacity_fn, max_workers=max_workers,
                                      name_prefix=name_prefix)
         self.reconcile_every = reconcile_every

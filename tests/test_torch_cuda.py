@@ -965,3 +965,49 @@ def test_cuda_two_node_wire_round_trip(cuda):
             if p.poll() is None:
                 os.kill(p.pid, signal.SIGKILL)
             p.wait(timeout=30)
+
+
+@pytest.mark.cuda
+def test_cuda_frontdoor_session_streams_engine_tokens(cuda):
+    """A front-door session on a warm card context (reduced smollm2-1.7b
+    with the kernels, the paged pool with prefix sharing): each turn,
+    served alone, streams the tokens a bare engine gives its prompt alone
+    (so both form the same waves), later turns hit the template's prefix
+    pages, and the engine's prefill and paged decode kernels launch."""
+    from repro_torch.core import (ContextMode, PCMClient, PCMManager,
+                                  make_recipe)
+
+    cfg = get_reduced_config("smollm2-1.7b", use_kernels=True)
+    state = dict(build_model(cfg, device=cuda, seed=0).state_dict())
+    rng = np.random.RandomState(1)
+    head = list(rng.randint(8, cfg.vocab_size, size=20))
+    ps = [head + list(rng.randint(8, cfg.vocab_size, size=3 + i))
+          for i in range(4)]
+    kw = dict(device=cuda, slots=4, cache_len=64, prefill_buckets=(16, 32),
+              megastep=4, paged=True, page_size=8)
+    bare = InferenceEngine(build_model(cfg, device=cuda, params=state), **kw)
+    assert bare.prefix_fallback is None, bare.prefix_fallback
+    want = [bare.generate([p], 8)[0] for p in ps]
+    builds = []
+
+    def build():
+        builds.append(1)
+        return {"engine": InferenceEngine(
+            build_model(cfg, device=cuda, params=state), **kw)}
+
+    mgr = PCMManager(mode=ContextMode.FULL, n_workers=1)
+    try:
+        client = PCMClient(backend=mgr)
+        ctx = client.context(make_recipe("cuda-fd", build, host_bytes=0))
+        ctx.warm_up()
+        ops.reset_launches()
+        with client.session(ctx, tenant="t", prefix_key="head") as sess:
+            got = [sess.submit(p, max_new_tokens=8).result(timeout=120)
+                   for p in ps]
+        assert got == want
+        assert ops.LAUNCHES["flash_attention"] > 0
+        assert ops.LAUNCHES["paged_flash_decode"] > 0
+        assert builds == [1]
+        assert client.frontdoor().stats()["prefix"]["hits"] >= 1
+    finally:
+        mgr.shutdown()

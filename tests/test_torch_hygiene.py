@@ -44,7 +44,9 @@ def test_port_file_list_is_complete():
             "ops.py", "moe_gemm.py", "build.py", "weights.py", "ssm.py",
             "hybrid.py", "ssm_scan.py", "chip_smoke.py", "io.py",
             "context.py", "scheduler.py", "manager.py", "serve.py",
-            "wire.py", "transport.py", "node.py", "devices.py"} <= names
+            "wire.py", "transport.py", "node.py", "devices.py", "events.py",
+            "traces.py", "simulator.py", "session.py",
+            "frontdoor.py"} <= names
 
 
 def test_every_kernel_has_its_source():

@@ -452,14 +452,17 @@ def test_client_pins_warm_up_and_demote(manager):
 
 
 def test_unported_entry_points_name_their_slice(manager):
+    """Every entry point of the reference's client is ported: the socket
+    transport, the front door and the simulator backend."""
     mgr = manager(n_workers=1)
     assert isinstance(mgr, tcore.ExecutionBackend)
     # the socket transport is ported: listen() opens it
     addr = mgr.listen()
     assert mgr.address == addr and addr[1] > 0
-    with pytest.raises(NotImplementedError, match="frontdoor"):
-        tcore.PCMClient(backend=mgr).frontdoor()
-    assert not hasattr(tcore, "SimulatorBackend")
+    from repro_torch.serving import FrontDoor
+    assert isinstance(tcore.PCMClient(backend=mgr).frontdoor(), FrontDoor)
+    assert isinstance(tcore.SimulatorBackend(n_workers=1),
+                      tcore.ExecutionBackend)
 
 
 def test_elastic_runner_follows_a_capacity_callable(manager):
