@@ -108,6 +108,29 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 sources. Steps 1-3 each run with the launch counts at 0
                 and must launch what their waves and decode steps call
                 for;
+  5e. train   - the port's training path (repro_torch.train, plain
+                PyTorch under autograd, as the reference trains without
+                its kernels): (1) full-width, full-depth SmolLM2-1.7B
+                (seeded bf16 weights, f32 AdamW moments, remat "block")
+                trained 6 steps on data/pipeline.py's fact task, 16 x 128
+                tokens a step in two microbatches, CE in chunks of 64, no
+                checkpoint: every loss finite and the last below the
+                first; step time, tokens/s, peak memory and the 6ND share
+                of the bf16 peak; (2) the reduced SmolLM2 in f32, three
+                steps from the same seeded weights and batches on the
+                card and on the CPU, losses and parameters held together;
+                (3) full width at depth 2: four steps with checkpoints at
+                3 and 4 (the reference's layout), then train(total_steps=
+                6) in that directory, which must resume at step 5 with an
+                uninterrupted run's losses; (4) step 1's verifier served
+                on the slot cache through the kernels and on the plain
+                path, mix (a) (4 templates x 64 claims, one token), with
+                the launch counts at 0: phase 4's comparison (logits
+                within LOGIT_TOL, tokens equal wherever the margin
+                exceeds it), flash_attention launched 24 x the waves,
+                each template's verification accuracy; and a
+                flash_attention call on a tensor that requires grad must
+                raise;
   6. deepseek - full-width DeepSeek-V2-Lite-16B (MLA + MoE, 27 layers,
                 15.7 B parameters, seeded random bf16 weights drawn on the
                 card) on the paged pool with the kernels: (e) fact
@@ -168,13 +191,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_reduced_config  # noqa
 from repro_torch.cluster import traces  # noqa: E402
 from repro_torch.cluster.node import spawn_node_process  # noqa: E402
 from repro_torch.core import (ContextMode, PCMClient, PCMManager,  # noqa
                               SimulatorBackend, Tier, context_app,
                               load_context, make_recipe)
-from repro_torch.data import HashTokenizer, fever  # noqa: E402
+from repro_torch.data import (HashTokenizer, PipelineConfig,  # noqa: E402
+                              batches, fever)
 from repro_torch.data.tokenizer import BOS, LABEL_TOKENS  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import gemm_shape  # noqa: E402
@@ -184,6 +208,11 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.serving import (InferenceEngine, Request,  # noqa: E402
                                  ShedError, SLOClass, TenantQuota)
+from repro_torch.train import (LoopConfig, OptimizerConfig,  # noqa: E402
+                               init_state, make_train_step, train,
+                               trainable)
+from repro_torch.train.trainstep import to_device  # noqa: E402
+from repro_torch.weights import init_params  # noqa: E402
 
 # kernel-vs-plain tolerances, max-abs (tests/test_kernels.py:16)
 TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
@@ -2560,6 +2589,297 @@ def phase_frontdoor(handoff) -> dict:
     return out
 
 
+# ------------------------------------------------------------ 5e. train ----
+# the fact task of data/pipeline.py: 16 rows of 128 tokens a step, two
+# microbatches of 8, cross-entropy in chunks of 64
+TRAIN_DATA = dict(batch_size=16, seq_len=128, task="fact")
+TRAIN_LOOP = dict(accum_steps=2, ce_chunk=64)
+# the reference's OptimizerConfig defaults (peak 3e-4 after 100 warmup
+# steps): its first 6 steps run at 3e-6 to 1.8e-5. Without the warmup
+# (1e-4 or 3e-4 from step 1) AdamW's first sign-like steps are coherent
+# across each 2 048-wide matrix, and the loss spiked after step 2 (on
+# one H100)
+TRAIN_OPT = dict()
+TRAIN_STEPS = 6
+# the card's f32 steps against the CPU's (reduced SmolLM2, three steps),
+# max-abs: losses 1e-5; parameters 1e-5 for all but 2 in 1 000 elements,
+# and those within 2 x steps x lr (tests/test_torch_train.py says why:
+# AdamW's eps turns last-bit gradient differences into lr-sized moves on
+# elements whose gradient is near 1e-8)
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_PARAM_TOL = 1e-5
+TRAIN_OUTLIER_SHARE = 2e-3
+# a resumed run's losses against an uninterrupted run's, bf16 at full
+# width: the checkpoint holds the bf16 parameters and the f32 moments
+# exactly, so the two runs differ only where the card's reductions are not
+# deterministic
+RESUME_LOSS_TOL = 1e-3
+
+
+def fact_data(cfg, **overrides):
+    pcfg = PipelineConfig(**{**TRAIN_DATA, "vocab_size": cfg.vocab_size,
+                             **overrides})
+    return lambda s: batches(pcfg, s)
+
+
+def params_gap(a, b):
+    """(elements further apart than TRAIN_PARAM_TOL, all elements, the
+    largest gap) between two state dicts of equal keys."""
+    over = n = 0
+    worst = 0.0
+    for k in a:
+        d = (a[k].detach().float().cpu() - b[k].detach().float().cpu()).abs()
+        over += int((d >= TRAIN_PARAM_TOL).sum())
+        n += d.numel()
+        worst = max(worst, float(d.max()))
+    return over, n, worst
+
+
+def profile_step(model, out, cfg) -> dict:
+    """One more train step of step 1's model under torch.profiler (the
+    device alone), on the batch after the last; the weights are put back
+    afterwards, so the verifier served is the TRAIN_STEPS-step one.
+    Returns the step's wall time, the device's busy time and share, and
+    the heaviest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    named, opt_state = out["params"], out["opt"]
+    keep = {n: p.detach().clone() for n, p in named.items()}
+    step_fn = make_train_step(model, OptimizerConfig(**TRAIN_OPT),
+                              **TRAIN_LOOP)
+    batch = to_device(next(fact_data(cfg)(TRAIN_STEPS)), torch.device(
+        "cuda"))
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        _, _, m = step_fn(named, opt_state, batch)
+        float(m["loss"])
+        wall = time.monotonic() - t0
+    with torch.no_grad():
+        for n, p in named.items():
+            p.copy_(keep[n])
+    kernels = sorted(((e.self_device_time_total, e.key, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in kernels) / 1e6
+    res = dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
+               kernel_launches=sum(k[2] for k in kernels),
+               top=[dict(kernel=k[1][:80], ms=k[0] / 1e3, calls=k[2])
+                    for k in kernels[:8]])
+    log(f"[train] (1) profiled step {TRAIN_STEPS + 1}: {json.dumps(res)}")
+    return res
+
+
+def train_full_width(cfg) -> tuple:
+    """Step 1: full-width, full-depth SmolLM2-1.7B trained TRAIN_STEPS
+    steps on the fact task, no checkpoint; then one step profiled."""
+    model = build_model(cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    out = train(model, fact_data(cfg), OptimizerConfig(**TRAIN_OPT),
+                LoopConfig(total_steps=TRAIN_STEPS, log_every=1,
+                           **TRAIN_LOOP),
+                log_fn=lambda m: log(f"[train] (1) {m}"))
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r.loss for r in out["records"]]
+    step_s = float(np.median([r.seconds for r in out["records"][1:]]))
+    tokens = TRAIN_DATA["batch_size"] * TRAIN_DATA["seq_len"]
+    flops_6nd = 6 * cfg.param_count() * tokens
+    res = dict(params=n_params, param_count=cfg.param_count(),
+               losses=losses, step_s=[r.seconds for r in out["records"]],
+               median_step_s=step_s, tokens_per_step=tokens,
+               tokens_per_s=tokens / step_s, peak_mem_gb=peak / 1e9,
+               tflop_6nd_per_step=flops_6nd / 1e12,
+               share_of_bf16_peak_6nd=flops_6nd / step_s / BF16_FLOPS)
+    log(f"[train] (1) smollm2-1.7b full width, {cfg.n_layers} layers, "
+        f"{n_params} params bf16, f32 moments, remat {cfg.remat}, batch "
+        f"{TRAIN_DATA['batch_size']} x {TRAIN_DATA['seq_len']}, accum "
+        f"{TRAIN_LOOP['accum_steps']}, CE chunk {TRAIN_LOOP['ce_chunk']}: "
+        f"losses {[round(x, 4) for x in losses]}; median step (2-"
+        f"{TRAIN_STEPS}) {step_s * 1e3:.1f} ms, {tokens / step_s:.0f} "
+        f"tokens/s, peak memory {peak / 1e9:.2f} GB, 6ND "
+        f"{flops_6nd / 1e12:.1f} TFLOP a step = "
+        f"{100 * res['share_of_bf16_peak_6nd']:.1f} % of the 989 TFLOP/s "
+        f"bf16 peak (a reading, not a limit)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train (1): losses {losses} are not finite "
+                             f"and falling")
+    res["profile"] = profile_step(model, out, cfg)
+    trained = {n: p.detach() for n, p in out["params"].items()}
+    return trained, res
+
+
+def train_card_vs_cpu() -> dict:
+    """Step 2: the reduced SmolLM2 in f32, three steps from the same
+    seeded weights and batches on the card and on the CPU."""
+    cfg = get_reduced_config("smollm2-1.7b")
+    init = init_params(cfg, torch.Generator().manual_seed(0),
+                       torch.device("cpu"))
+    ocfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    data = fact_data(cfg, batch_size=8, seq_len=32)(0)
+    batches_ = [next(data) for _ in range(3)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev, params={
+            k: v.clone() for k, v in init.items()})
+        named = trainable(model)
+        st = init_state(named)
+        step = make_train_step(model, ocfg, accum_steps=2, ce_chunk=16)
+        losses = []
+        for b in batches_:
+            named, st, m = step(named, st, to_device(b, torch.device(dev)))
+            losses.append(float(m["loss"]))
+        runs[dev] = (losses, named)
+    loss_gap = max(abs(a - b) for a, b in zip(runs["cuda"][0],
+                                               runs["cpu"][0]))
+    over, n, worst = params_gap(runs["cuda"][1], runs["cpu"][1])
+    res = dict(losses_cuda=runs["cuda"][0], losses_cpu=runs["cpu"][0],
+               loss_gap=loss_gap, params_over_tol=over, params=n,
+               params_max_gap=worst)
+    log(f"[train] (2) reduced smollm2 f32, card vs CPU, 3 steps: "
+        f"{json.dumps(res)} (losses within {TRAIN_LOSS_TOL}; parameters "
+        f"within {TRAIN_PARAM_TOL} but {TRAIN_OUTLIER_SHARE} of them, "
+        f"those within {2 * 3 * ocfg.peak_lr})")
+    if loss_gap >= TRAIN_LOSS_TOL or over > TRAIN_OUTLIER_SHARE * n or \
+            worst >= 2 * 3 * ocfg.peak_lr:
+        raise AssertionError("train (2): the card's steps differ from the "
+                             "CPU's")
+    return res
+
+
+def train_resume(cfg) -> dict:
+    """Step 3: full width at depth 2, four steps with checkpoint_every 3,
+    which saves at 3 and 4, then train(total_steps=6) in the same
+    directory, which must resume at step 5 and give an uninterrupted
+    6-step run's losses. The resumed run saves every 4 steps, so only its
+    final save (6) writes: at 3 it would save 6 twice (the reference's
+    double save), 13 s more."""
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    ocfg = OptimizerConfig(**TRAIN_OPT)
+    with tempfile.TemporaryDirectory(prefix="train_resume_") as d:
+        def run(total, ckdir, every, logs=None):
+            return train(build_model(dcfg, device="cuda", seed=0),
+                         fact_data(dcfg), ocfg,
+                         LoopConfig(total_steps=total, checkpoint_every=every,
+                                    log_every=100, **TRAIN_LOOP),
+                         checkpoint_dir=ckdir,
+                         log_fn=(logs.append if logs is not None
+                                 else lambda _: None))
+        t0 = time.monotonic()
+        first = run(4, d, 3)
+        saved = CheckpointManager(d).steps()
+        nbytes = sum(f.stat().st_size for f in Path(d).rglob("*.npz"))
+        save_s = time.monotonic() - t0
+        logs = []
+        t0 = time.monotonic()
+        resumed = run(6, d, 4, logs)
+        resume_s = time.monotonic() - t0
+    whole = run(6, None, 3)
+    got = [(r.step, r.loss) for r in resumed["records"]]
+    want = [(r.step, r.loss) for r in whole["records"][4:]]
+    gap = max(abs(a[1] - b[1]) for a, b in zip(got, want))
+    res = dict(params=dcfg.param_count(), first_losses=[
+        r.loss for r in first["records"]], saved_steps=saved,
+        checkpoint_gb=nbytes / len(saved) / 1e9, resume_log=logs,
+        resumed=got,
+        uninterrupted=want, loss_gap=gap, first_run_s=save_s,
+        resumed_run_s=resume_s)
+    log(f"[train] (3) resume at full width, depth 2: {json.dumps(res)} "
+        f"(losses within {RESUME_LOSS_TOL})")
+    if saved != [3, 4] or logs != ["[loop] resumed from step 4"] or \
+            [s for s, _ in got] != [5, 6] or gap > RESUME_LOSS_TOL:
+        raise AssertionError("train (3): the resumed run is not the "
+                             "uninterrupted one")
+    return res
+
+
+def train_serve(cfg, trained) -> dict:
+    """Step 4: the verifier of step 1 served through the kernels against
+    the plain path: mix (a) on the slot cache, one token each."""
+    kcfg = dataclasses.replace(cfg, use_kernels=True, remat="none")
+    kern = InferenceEngine(build_model(kcfg, device="cuda", params=trained),
+                           device="cuda", **ENGINE_KW)
+    plain = InferenceEngine(build_model(dataclasses.replace(
+        kcfg, use_kernels=False), device="cuda", params=trained),
+        device="cuda", **ENGINE_KW)
+    facts = fact_prompts(cfg.vocab_size)
+    kern.generate([[2, 5]], max_new_tokens=1)
+    st0 = dict(kern.stats.as_dict())
+    ops.reset_launches()
+    kreqs, rates = serve(kern, facts, 1, "(4) trained verifier, kernels")
+    # the counts read just after the path, before anything else launches
+    launches = dict(ops.LAUNCHES)
+    waves = kern.stats.as_dict()["prefill_batches"] - st0["prefill_batches"]
+    preqs, _ = serve(plain, facts, 1, "(4) trained verifier, plain")
+    expect = {k: 0 for k in launches}
+    expect["flash_attention"] = cfg.n_layers * waves
+    # phase 4's comparison: the logits within LOGIT_TOL, the tokens equal
+    # wherever the plain logits' top-2 margin exceeds it. The trained
+    # verifier's label logits nearly tie on some claims, and there the
+    # kernel's bf16 rounding may pick the other label (on one H100: gap
+    # 0.084, 2 of 256 first tokens differ, none past the margin)
+    cmp = compare_dense("(4) trained verifier", kreqs, preqs,
+                        cfg.vocab_size, LOGIT_TOL, phase="train")
+    golds = [LABEL_TOKENS[c.label] for c in fever.claim_batch(range(64))]
+    acc = {}
+    for t, template in enumerate(fever.PROMPT_CANDIDATES):
+        got = [r.generated[0] for r in kreqs[64 * t:64 * (t + 1)]]
+        acc[t] = sum(g == y for g, y in zip(got, golds)) / 64
+        log(f"[train] (4) prompt[{t}] acc={acc[t]:.3f}  "
+            f"({template[:48]!r}...)")
+    q = torch.zeros((1, 16, 2, 64), device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    before = dict(ops.LAUNCHES)
+    try:
+        ops.flash_attention(q, q.detach(), q.detach(), scale=0.125)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    res = dict(requests=len(kreqs), waves=waves, launches=launches,
+               expected=expect, compare=cmp, accuracy=acc, rates=rates,
+               grad_refusal=refused)
+    log(f"[train] (4) launches {launches}, expected {expect}; a "
+        f"grad-requiring flash_attention call: "
+        f"{'raised: ' + refused if refused else 'ran'}")
+    free(kern, plain)
+    if cmp["failures"]:
+        raise AssertionError(f"train (4): {cmp['failures']}")
+    if launches != expect or waves <= 0:
+        raise AssertionError("train (4): kernel launch counts do not match "
+                             "the path")
+    if refused is None or "flash_attention" not in refused or \
+            ops.LAUNCHES != before:
+        raise AssertionError("train (4): a kernel ran on an input that "
+                             "requires a gradient")
+    return res
+
+
+def phase_train() -> dict:
+    """The port's training path on the card (``repro_torch.train``): (1)
+    full-width SmolLM2-1.7B trained on the fact task; (2) the reduced
+    model's f32 steps on the card against the CPU's; (3) a checkpointed
+    run at full width and depth 2 resumed in its directory against an
+    uninterrupted one; (4) step 1's verifier served through the kernels
+    against the plain path, with the launch counts set to 0 and checked,
+    and a kernel call on a grad-requiring input refused."""
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(get_config("smollm2-1.7b"), remat="block")
+    trained, full = train_full_width(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"full": full, "card_vs_cpu": train_card_vs_cpu(),
+           "resume": train_resume(cfg)}
+    out["serve"] = train_serve(cfg, trained)
+    out["launches"] = {"serve": out["serve"]["launches"]}
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"[train] phase {out['phase_s']:.1f} s")
+    return out
+
+
 # --------------------------------------------------------- 6. deepseek ----
 class RouteLog:
     """Records every MoE routing decision while active: for each call of
@@ -3048,6 +3368,10 @@ def main() -> int:
     handoff["tmp"].cleanup()
     del handoff
     phase_done("frontdoor")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train"] = phase_train()
+    phase_done("train")
     report["deepseek"] = phase_deepseek()
     phase_done("deepseek")
     gc.collect()
@@ -3061,7 +3385,8 @@ def main() -> int:
                "ssd_scan": ("ssm_scan",)}
     runs = [run for phase in (serve_out, report["runtime"],
                               report["multihost"], report["frontdoor"],
-                              report["deepseek"], report["zamba2"])
+                              report["train"], report["deepseek"],
+                              report["zamba2"])
             for run in phase["launches"].values()]
     kernels = []
     for name, row in rows.items():

@@ -1,7 +1,9 @@
 """Base configuration dataclasses for the model zoo (PyTorch port's copy).
 
-A field-for-field copy of ``repro.configs.base``: the port imports nothing
-of the JAX package, so it keeps its own ``ModelConfig``. Equal field values
+A field-for-field copy of ``repro.configs.base``, its analytic size
+helpers (``param_count``, ``active_param_count``, ``kv_bytes_per_token``,
+``n_attention_layers``) included: the port imports nothing of the JAX
+package, so it keeps its own ``ModelConfig``. Equal field values
 give an equal ``key()`` in both packages, so a config built on either side
 names the same model.
 
@@ -159,6 +161,123 @@ class ModelConfig:
         """Stable hash identifying this config (used in context recipes)."""
         blob = json.dumps(dataclasses.asdict(self), sort_keys=True, default=str)
         return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+    # ---- parameter counting (analytic, used by roofline & DESIGN docs) --
+    def param_count(self) -> int:
+        return _param_count(self)
+
+    def active_param_count(self) -> int:
+        return _param_count(self, active_only=True)
+
+    def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
+        """Per-token KV-cache footprint (bytes) across all attention layers."""
+        hd = self.resolved_head_dim
+        if self.mla.enabled:
+            per_layer = self.mla.kv_lora_rank + self.mla.qk_rope_head_dim
+        else:
+            per_layer = 2 * self.n_kv_heads * hd
+        return self.n_attention_layers() * per_layer * dtype_bytes
+
+    def n_attention_layers(self) -> int:
+        if self.family == "ssm":
+            return 0
+        if self.family == "hybrid" and self.shared_attn_every:
+            return self.n_layers // self.shared_attn_every
+        if self.family == "audio":
+            return self.n_layers  # decoder self-attn layers (cross handled apart)
+        return self.n_layers
+
+
+def _mlp_params(d_model: int, d_ff: int, activation: str) -> int:
+    if activation == "swiglu":
+        return 3 * d_model * d_ff
+    return 2 * d_model * d_ff  # squared_relu / gelu: up + down
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    hd = cfg.resolved_head_dim
+    if cfg.mla.enabled:
+        m = cfg.mla
+        q_dim = cfg.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+        p = cfg.d_model * q_dim if not m.q_lora_rank else (
+            cfg.d_model * m.q_lora_rank + m.q_lora_rank * q_dim)
+        p += cfg.d_model * (m.kv_lora_rank + m.qk_rope_head_dim)       # down-proj
+        p += m.kv_lora_rank * cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+        p += cfg.n_heads * m.v_head_dim * cfg.d_model                  # o proj
+        return p
+    q = cfg.d_model * cfg.n_heads * hd
+    kv = 2 * cfg.d_model * cfg.n_kv_heads * hd
+    o = cfg.n_heads * hd * cfg.d_model
+    return q + kv + o
+
+
+def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Analytic parameter count; close enough for 6ND roofline accounting."""
+    d = cfg.d_model
+    total = cfg.padded_vocab * d  # embeddings
+    if not cfg.tie_embeddings:
+        total += cfg.padded_vocab * d
+
+    if cfg.family == "ssm":  # xLSTM
+        s = cfg.ssm
+        per_group = 0
+        group = max(1, s.slstm_every)
+        # mLSTM blocks
+        d_inner = int(d * s.mlstm_proj_factor)
+        mlstm = 2 * d * d_inner + 3 * d_inner * d_inner // max(1, cfg.n_heads) \
+            + d_inner * d + 3 * d_inner
+        # sLSTM blocks
+        d_s = int(d * s.slstm_proj_factor)
+        slstm = 4 * d * d + 2 * d * d_s + d_s * d
+        n_s = cfg.n_layers // group if s.slstm_every else 0
+        total += n_s * slstm + (cfg.n_layers - n_s) * mlstm + per_group
+        return total
+
+    mamba_per_layer = 0
+    if cfg.ssm.enabled and cfg.family == "hybrid":
+        s = cfg.ssm
+        d_in = s.expand * d
+        n_h = d_in // s.head_dim
+        mamba_per_layer = (
+            d * (2 * d_in + 2 * s.n_groups * s.state_dim + n_h)  # in_proj
+            + s.conv_dim * (d_in + 2 * s.n_groups * s.state_dim)  # conv
+            + d_in * d                                             # out proj
+            + 2 * n_h                                              # A, D
+        )
+
+    attn = _attn_params(cfg)
+    for layer in range(cfg.n_layers):
+        if cfg.family == "hybrid":
+            total += mamba_per_layer
+            continue
+        total += attn
+        if cfg.moe.enabled and layer >= cfg.moe.first_dense_layers:
+            e = cfg.moe
+            per_expert = _mlp_params(d, e.d_ff, cfg.activation)
+            n_used = e.experts_per_token if active_only else e.n_experts
+            total += n_used * per_expert
+            total += e.n_shared_experts * _mlp_params(d, e.shared_d_ff or e.d_ff,
+                                                      cfg.activation)
+            total += d * e.n_experts  # router
+        elif cfg.moe.enabled:
+            total += _mlp_params(d, cfg.moe.dense_d_ff or cfg.d_ff, cfg.activation)
+        else:
+            total += _mlp_params(d, cfg.d_ff, cfg.activation)
+
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        total += attn + _mlp_params(d, cfg.d_ff, cfg.activation)  # ONE shared block
+
+    if cfg.family == "audio":
+        enc_attn = _attn_params(dataclasses.replace(cfg, n_kv_heads=cfg.n_heads))
+        per_enc = enc_attn + _mlp_params(d, cfg.d_ff, "gelu")
+        total += cfg.n_encoder_layers * per_enc
+        total += cfg.n_layers * enc_attn  # decoder cross-attention
+
+    if cfg.cross_attn_every:
+        n_cross = cfg.n_layers // cfg.cross_attn_every
+        total += n_cross * (_attn_params(cfg) + (cfg.vision_dim or d) * d)
+
+    return total
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -255,6 +255,13 @@ class StripeBuffer:
         with self._lock:
             return [r for r in assigned if r.id not in self._delivered]
 
+    def delivered_ids(self) -> List[Tuple[str, int]]:
+        """Ref ids verified so far — what a remote receiver reports back
+        on a lane failure so the manager-side stripe state reconciles to
+        the receiver's (authoritative) view before reassigning refs."""
+        with self._lock:
+            return list(self._delivered)
+
     @property
     def export_seconds(self) -> float:
         """Donor-side cost of the transfer: the slowest lane's cumulative

@@ -1,4 +1,5 @@
 from repro_torch.data import fever
+from repro_torch.data.pipeline import PipelineConfig, batches
 from repro_torch.data.tokenizer import HashTokenizer
 
-__all__ = ["HashTokenizer", "fever"]
+__all__ = ["HashTokenizer", "PipelineConfig", "batches", "fever"]

@@ -11,6 +11,14 @@ raises: there is no fallback), a CPU tensor runs the plain version in
 kernel launches and nowhere else, so a run can show that its main path
 went through the kernels. The PCM runtime's worker threads launch
 concurrently, so the counts change under a lock.
+
+The kernels are forward-only, as the reference's are (none has a custom
+VJP). A kernel's output carries no autograd graph, so a backward pass
+through it would give the weights upstream zero gradients without a word:
+on a CUDA tensor every entry point raises instead when gradients are on
+and an input requires them. Training runs the plain path, as the
+reference's does. The plain versions a CPU tensor runs stay
+differentiable.
 """
 
 from __future__ import annotations
@@ -51,12 +59,22 @@ def _launched(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def _on_cpu(x: torch.Tensor, name: str) -> bool:
+def _on_cpu(name: str, x: torch.Tensor, *inputs: Optional[torch.Tensor]
+            ) -> bool:
+    """True when ``x`` lies on the CPU (the plain version runs); False on
+    the card, where the kernel ``name`` will launch: after refusing inputs
+    that need a gradient, which the kernel cannot give."""
     if x.device.type == "cpu":
         return True
-    if x.device.type == "cuda":
-        return False
-    raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x,) + inputs):
+        raise RuntimeError(
+            f"{name}: an input requires a gradient, and the CUDA kernel is "
+            f"forward-only (it has no backward); run training on the plain "
+            f"path (cfg.use_kernels=False) or call it under torch.no_grad()")
+    return False
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -68,7 +86,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset[b] + i``.
 
     Rows whose queries see no key (``kv_len[b] == 0``) come out as zeros."""
-    if _on_cpu(q, "flash_attention"):
+    if _on_cpu("flash_attention", q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale, kv_len=kv_len,
                                        q_offset=q_offset)
@@ -83,7 +101,7 @@ def flash_decode(q: torch.Tensor, cache_k: torch.Tensor,
                  scale: float = 1.0,
                  active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, H, D); cache (B, Skv, Hkv, D); lengths (B,) -> (B, H, D)."""
-    if _on_cpu(q, "flash_decode"):
+    if _on_cpu("flash_decode", q, cache_k, cache_v):
         return ref.flash_decode_ref(q, cache_k, cache_v, lengths, scale=scale,
                                     active=active)
     out = flash_decode_cuda(q, cache_k, cache_v, lengths, scale=scale,
@@ -98,7 +116,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        scale: float = 1.0) -> torch.Tensor:
     """q (B, H, D); k/v_pages (NP+1, P, Hkv, D); page_table (B, n);
     lengths (B,) -> (B, H, D). A slot of length 0 gets zeros."""
-    if _on_cpu(q, "paged_flash_decode"):
+    if _on_cpu("paged_flash_decode", q, k_pages, v_pages):
         return ref.paged_decode_ref(q, k_pages, v_pages, page_table, lengths,
                                     scale=scale)
     out = paged_flash_decode_cuda(q, k_pages, v_pages, page_table, lengths,
@@ -115,7 +133,7 @@ def paged_mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
     q_rope (B, H, Dr), ckv_pages (NP+1, P, R), krope_pages (NP+1, P, Dr),
     page_table (B, n), lengths (B,) -> latent output (B, H, R). A slot of
     length 0 gets zeros."""
-    if _on_cpu(q_lat, "paged_mla_decode"):
+    if _on_cpu("paged_mla_decode", q_lat, q_rope, ckv_pages, krope_pages):
         return ref.paged_mla_decode_ref(q_lat, q_rope, ckv_pages,
                                         krope_pages, page_table, lengths,
                                         scale=scale)
@@ -128,7 +146,7 @@ def paged_mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, d); w (E, d, f) -> (E, C, f), f32 accumulation, in x's
     dtype (the reference's contract)."""
-    if _on_cpu(x, "grouped_gemm"):
+    if _on_cpu("grouped_gemm", x, w):
         return ref.grouped_gemm_ref(x, w)
     out = grouped_gemm_cuda(x, w)
     _launched("grouped_gemm")
@@ -141,7 +159,7 @@ def grouped_gemm_segments(x: torch.Tensor, counts: torch.Tensor,
     expert e after expert e-1's), counts (E,) int32 on x's device, w
     (E, d, f) -> (N, f) in x's dtype. The MoE dispatch's entry point: the
     counts are never read on the host."""
-    if _on_cpu(x, "grouped_gemm_segments"):
+    if _on_cpu("grouped_gemm_segments", x, w):
         return ref.grouped_gemm_segments_ref(x, counts, w)
     out = grouped_gemm_segments_cuda(x, counts, w)
     _launched("grouped_gemm_segments")
@@ -160,7 +178,7 @@ def ssm_scan(C_mat: torch.Tensor, B_mat: torch.Tensor, v: torch.Tensor,
     reference's chunk length; the kernel picks its own tile length, and the
     plain version scans step by step, so neither reads it."""
     C_mat, B_mat, v, log_a = (t.float() for t in (C_mat, B_mat, v, log_a))
-    if _on_cpu(C_mat, "ssm_scan"):
+    if _on_cpu("ssm_scan", C_mat, B_mat, v, log_a):
         Bb, S, H, P = v.shape
         N = C_mat.shape[-1]
         rep = H // C_mat.shape[2]

@@ -30,6 +30,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm
 from repro_torch.models.layers import cdt, embed, unembed
@@ -57,9 +58,9 @@ class MambaLayer(nn.Module):
 
 
 class Hybrid(nn.Module):
-    """The Zamba2 hybrid with the ``Transformer``'s interface (``forward``,
-    ``init_cache``, ``prefill``, ``decode_step``); the cache is updated in
-    place."""
+    """The Zamba2 hybrid with the ``Transformer``'s interface
+    (``forward_hidden``, ``forward``, ``init_cache``, ``prefill``,
+    ``decode_step``); the cache is updated in place."""
 
     cache_names = ("k", "v")
 
@@ -102,22 +103,51 @@ class Hybrid(nn.Module):
                                    return_state=want_state, valid=valid)
         return x + y, st
 
-    def forward(self, tokens: torch.Tensor,
-                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V_pad); ``lengths`` masks padding
-        keys in the shared block and makes padding steps no-ops in the
-        Mamba2 layers, as the reference's ``batch["lengths"]`` does."""
+    def _group(self, g: int, x: torch.Tensor, positions: torch.Tensor,
+               lengths: Optional[torch.Tensor],
+               valid: Optional[torch.Tensor]) -> torch.Tensor:
+        """Group ``g``: the shared block, then its ``every`` Mamba2
+        layers (the reference's ``group_body``)."""
+        x = self.shared_block.prefill(x, positions=positions,
+                                      kv_len=lengths)[0]
+        for i in range(self.every):
+            x = self._mamba_prefill(g * self.every + i, x, valid, False)[0]
+        return x
+
+    def forward_hidden(self, tokens: torch.Tensor,
+                       lengths: Optional[torch.Tensor] = None,
+                       train: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, S) -> (the final-normed hidden states (B, S, d), an
+        f32 zero: the hybrid has no auxiliary loss). ``lengths`` masks
+        padding keys in the shared block and makes padding steps no-ops in
+        the Mamba2 layers, as the reference's ``batch["lengths"]`` does.
+        With ``train`` and ``cfg.remat`` in ("block", "full"), each group
+        (the shared block and its Mamba2 layers; not the tail) runs under
+        ``torch.utils.checkpoint``, as the reference wraps its
+        ``group_body``."""
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         valid = (None if lengths is None
                  else positions[None, :] < lengths[:, None])
-        for kind, i in self._schedule():
-            if kind == "attn":
-                x, _ = self.shared_block.prefill(x, positions=positions,
-                                                 kv_len=lengths)
+        remat = train and self.cfg.remat in ("block", "full")
+        for g in range(self.n_groups):
+            if remat:
+                x = checkpoint(self._group, g, x, positions, lengths, valid,
+                               use_reentrant=False)
             else:
-                x, _ = self._mamba_prefill(i, x, valid, False)
-        return self._logits(self.final_norm(x))
+                x = self._group(g, x, positions, lengths, valid)
+        for i in range(self.tail):
+            x = self._mamba_prefill(self.n_groups * self.every + i, x,
+                                    valid, False)[0]
+        return (self.final_norm(x),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def forward(self, tokens: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, V_pad) (``forward_hidden``'s
+        hidden states unembedded)."""
+        return self._logits(self.forward_hidden(tokens, lengths)[0])
 
     def init_cache(self, batch: int, cache_len: int,
                    dtype: Optional[torch.dtype] = None,
@@ -153,8 +183,8 @@ class Hybrid(nn.Module):
         valid = positions[None, :] < lengths[:, None]
         for kind, i in self._schedule():
             if kind == "attn":
-                x, kv = self.shared_block.prefill(x, positions=positions,
-                                                  kv_len=lengths)
+                x, kv, _ = self.shared_block.prefill(
+                    x, positions=positions, kv_len=lengths)
                 for n, src in zip(self.cache_names, kv):
                     merge_slots(cache[n][i], src, slots)
             else:

@@ -43,9 +43,12 @@ from repro_torch.models.layers import cdt
 def _topk_partitioned(probs: torch.Tensor, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k rounds of (argmax, mask to -1): (weights (T,k), ids (T,k) int64),
-    the reference's iterative top-k with its tie rule (first index)."""
+    the reference's iterative top-k with its tie rule (first index). The
+    weights are gathered from ``probs``, so under autograd the router gets
+    their gradient, as in the reference; the masked copy only picks ids and
+    stays out of the graph."""
     w, ids = [], []
-    remaining = probs.clone()
+    remaining = probs.detach().clone()
     rows = torch.arange(probs.shape[0], device=probs.device)
     for _ in range(k):
         idx = torch.argmax(remaining, dim=-1)
@@ -60,8 +63,8 @@ def _topk_partitioned(probs: torch.Tensor, k: int
 def route(p, x: torch.Tensor, cfg
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (T, d) -> (top-k ids (T,k) int64, weights (T,k) f32, aux loss).
-    The Switch-style load-balance loss is the reference's; serving ignores
-    it."""
+    The Switch-style load-balance loss is the reference's: training adds
+    it to the loss (through ``forward_hidden``), serving ignores it."""
     e = cfg.moe
     logits = torch.matmul(x.float(), p.router.float())
     probs = torch.softmax(logits, dim=-1)

@@ -15,7 +15,9 @@ from torch import nn
 from repro_torch import device as devices
 from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.transformer import Transformer
-from repro_torch.weights import StateDict, init_params
+# the module, not its names: ``repro_torch.weights`` imports
+# ``repro_torch.models`` itself, and either may be imported first
+from repro_torch import weights
 
 
 def _meta_model(cfg) -> nn.Module:
@@ -45,7 +47,7 @@ def build_shell(cfg, *, device: Union[str, torch.device] = "cuda"
 
 
 def build_model(cfg, *, device: Union[str, torch.device] = "cuda",
-                params: Optional[StateDict] = None,
+                params: Optional["weights.StateDict"] = None,
                 seed: int = 0) -> nn.Module:
     """Build ``cfg``'s model on ``device`` (the card unless ``"cpu"`` is
     asked for; raises when there is no card). Weights are ``params`` (a
@@ -57,7 +59,7 @@ def build_model(cfg, *, device: Union[str, torch.device] = "cuda",
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        params = init_params(cfg, gen, dev)
+        params = weights.init_params(cfg, gen, dev)
     params = {k: v.to(dev) for k, v in params.items()}
     model.load_state_dict(params, strict=True, assign=True)
     return model

@@ -20,8 +20,9 @@ for GQA/MHA, ``{"ckv": (L, B, S, R), "krope": (L, B, S, dr)}`` (the
 compressed latent and the shared rope key) for MLA. The paged pool is the
 same dict built as ``init_cache(num_pages + 1, page_size)``, pages where
 the slots were. The methods update the cache in place and return only the
-logits, where the reference returned a new cache. Parameters never require
-gradients: the port serves.
+logits, where the reference returned a new cache. Parameters are built
+frozen (``requires_grad=False``): a model that trains turns them on
+(``repro_torch.train.trainable``), a serving model never does.
 
 ``prefill_shared`` (tail-only prefill for prefix sharing) is None for MoE
 or MLA models, as the reference's ``Model.prefill_shared`` is: MLA latents
@@ -35,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -166,15 +168,19 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(cfg, device, d_ff)
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(x + the FFN of ln2(x), the MoE load-balance loss, or None for a
+        dense MLP)."""
         h = self.ln2(x)
         if hasattr(self, "moe"):
-            return x + moe_lib.apply_moe(self.moe, h, self.cfg)[0]
-        return x + self.mlp(h)
+            y, aux = moe_lib.apply_moe(self.moe, h, self.cfg)
+            return x + y, aux
+        return x + self.mlp(h), None
 
     def prefill(self, x, *, positions, kv_len):
-        """Returns (x, the sequence's two cache leaves): narrow-head (k, v)
-        or MLA's (c_kv, k_rope)."""
+        """Returns (x, the sequence's two cache leaves (narrow-head (k, v)
+        or MLA's (c_kv, k_rope)), the MoE aux loss or None)."""
         h = self.ln1(x)
         if self.mla:
             a, kv = attn.mla_prefill(self.attn, h, self.cfg,
@@ -182,7 +188,8 @@ class Block(nn.Module):
         else:
             a, kv = attn.attend_prefill(self.attn, h, self.cfg,
                                         positions=positions, kv_len=kv_len)
-        return self._ffn(x + a), kv
+        x, aux = self._ffn(x + a)
+        return x, kv, aux
 
     def prefill_shared(self, x, *, positions, starts, kv_len, view_k,
                        view_v):
@@ -192,7 +199,7 @@ class Block(nn.Module):
         a, kv = attn.attend_prefill_shared(
             self.attn, self.ln1(x), self.cfg, positions=positions,
             starts=starts, kv_len=kv_len, view_k=view_k, view_v=view_v)
-        return self._ffn(x + a), kv
+        return self._ffn(x + a)[0], kv
 
     def decode(self, x, *, lengths, kv, active):
         h = self.ln1(x)
@@ -204,7 +211,7 @@ class Block(nn.Module):
             a = attn.attend_decode(self.attn, h, self.cfg, cache_k=kv[0],
                                    cache_v=kv[1], lengths=lengths,
                                    active=active)
-        return self._ffn(x + a)
+        return self._ffn(x + a)[0]
 
     def decode_paged(self, x, *, lengths, kv, page_table, active):
         h = self.ln1(x)
@@ -216,7 +223,7 @@ class Block(nn.Module):
             a = attn.paged_attend_decode(
                 self.attn, h, self.cfg, k_pages=kv[0], v_pages=kv[1],
                 page_table=page_table, lengths=lengths, active=active)
-        return self._ffn(x + a)
+        return self._ffn(x + a)[0]
 
 
 class Embedding(nn.Module):
@@ -272,15 +279,41 @@ class Transformer(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return unembed(self.embed.tok, x, self.cfg, self.embed.unembed)
 
+    def forward_hidden(self, tokens: torch.Tensor,
+                       lengths: Optional[torch.Tensor] = None,
+                       train: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B,S) -> (the final-normed hidden states (B,S,d), the
+        MoE load-balance loss summed over the layers in order, f32; 0 for
+        a dense model). ``lengths`` masks padding keys as the reference's
+        ``batch["lengths"]`` does. With ``train`` and ``cfg.remat`` in
+        ("block", "full"), each block of ``layers`` (the reference's layer
+        scan; not ``dense0``) runs under ``torch.utils.checkpoint``: its
+        activations are recomputed in the backward pass. Both policies
+        recompute the whole block here: the reference's "block" keeps its
+        batch-free dots (``dots_with_no_batch_dims_saveable``), a memory
+        policy with no counterpart in eager PyTorch. The values are the
+        same either way."""
+        x = embed(self.embed.tok, tokens, self.cfg)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        remat = train and self.cfg.remat in ("block", "full")
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, blk in enumerate(self.blocks):
+            if remat and i >= len(self.dense0):
+                x, _, a = checkpoint(blk.prefill, x, use_reentrant=False,
+                                     positions=positions, kv_len=lengths)
+            else:
+                x, _, a = blk.prefill(x, positions=positions,
+                                      kv_len=lengths)
+            if a is not None:
+                aux = aux + a
+        return self.final_norm(x), aux
+
     def forward(self, tokens: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens (B,S) -> logits (B,S,V_pad); ``lengths`` masks padding
         keys as the reference's ``batch["lengths"]`` does."""
-        x = embed(self.embed.tok, tokens, self.cfg)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        for blk in self.blocks:
-            x, _ = blk.prefill(x, positions=positions, kv_len=lengths)
-        return self._logits(self.final_norm(x))
+        return self._logits(self.forward_hidden(tokens, lengths)[0])
 
     def init_cache(self, batch: int, cache_len: int,
                    dtype: Optional[torch.dtype] = None,
@@ -315,7 +348,7 @@ class Transformer(nn.Module):
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = torch.arange(S, device=tokens.device)
         for i, blk in enumerate(self.blocks):
-            x, kv = blk.prefill(x, positions=positions, kv_len=lengths)
+            x, kv, _ = blk.prefill(x, positions=positions, kv_len=lengths)
             for dst, src in zip(self._kv(cache, i), kv):
                 if page_table is None:
                     merge_slots(dst, src, slots)

@@ -28,6 +28,8 @@ class Request:
     prompt: List[int]
     max_new_tokens: int = 32
     temperature: float = 0.0            # 0 => greedy
+    top_k: int = 0                      # taken as the reference takes it;
+                                        # the engine reads it nowhere
     stop_tokens: tuple = (1,)           # EOS id of data.tokenizer
     request_id: int = field(default_factory=lambda: next(_ids))
     arrival_time: float = field(default_factory=time.monotonic)

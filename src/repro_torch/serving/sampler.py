@@ -16,18 +16,23 @@ import torch
 
 
 def sample(logits: torch.Tensor, generator: torch.Generator,
-           temperature: torch.Tensor, vocab_size: int = 0,
+           temperature: torch.Tensor, top_k: int = 0, vocab_size: int = 0,
            active: Optional[torch.Tensor] = None,
            fallback: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits (B, V) -> tokens (B,) int32. temperature (B,): 0 => greedy.
 
-    ``vocab_size`` masks padded vocab rows. Rows where ``active`` is False
-    return ``fallback`` (default 0)."""
+    ``top_k`` > 0 samples among each row's ``top_k`` largest logits (ties
+    with the k-th kept, as the reference keeps them); greedy rows ignore
+    it. ``vocab_size`` masks padded vocab rows. Rows where ``active`` is
+    False return ``fallback`` (default 0)."""
     lf = logits.float()
     if vocab_size and vocab_size < lf.shape[-1]:
         lf = lf.clone()
         lf[:, vocab_size:] = -1e30
     greedy = torch.argmax(lf, dim=-1).to(torch.int32)
+    if top_k:
+        kth = torch.sort(lf, dim=-1).values[:, -top_k][:, None]
+        lf = torch.where(lf >= kth, lf, -1e30)
     t = torch.clamp(temperature.float(), min=1e-6)[:, None]
     u = torch.rand(lf.shape, generator=generator, device=lf.device)
     gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))

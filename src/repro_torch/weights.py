@@ -20,11 +20,19 @@ become ``layers.{g * every + i}.*`` and ``layers.{n_groups * every +
 i}.*``; its ``shared_block`` is the port's one shared ``Block``. Mamba2's
 ``A_log``, ``D`` and ``dt_bias`` stay f32 whatever the param dtype, as in
 the reference.
+
+``to_jax_params`` is the bridge's inverse: it restacks a port state dict
+into the reference's pytree (how the port's training loop writes its
+checkpoints in the reference's layout), and ``reference_ndim`` gives each
+port leaf the rank of the reference leaf it came from (what AdamW's
+decay mask reads, ``decay_mask``). ``_split_layers`` (reference to
+port) and ``_stacked_axes`` (port to reference) state the layout
+mapping; the public functions go through them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,22 +93,100 @@ def _split_layers(path: str, arr: np.ndarray, cfg) -> Dict[str, np.ndarray]:
     return {path: arr}
 
 
-def from_jax_params(params_np: Mapping, cfg,
-                    device: torch.device) -> StateDict:
+def from_jax_params(params_np: Mapping, cfg, device: torch.device,
+                    dtype: Optional[torch.dtype] = None) -> StateDict:
     """The reference's params pytree (nested dicts and lists of numpy
     arrays, e.g. ``jax.device_get(model.init(key))``, or of CPU tensors,
     e.g. a reference checkpoint loaded by ``repro_torch.checkpoint``) ->
     the port's state dict on ``device``, in ``cfg.param_dtype``
-    (``F32_LEAVES`` in f32)."""
+    (``F32_LEAVES`` in f32), or every leaf in ``dtype`` when it is given
+    (AdamW's f32 moments, which are keyed like the parameters)."""
     state: StateDict = {}
     for path, arr in _flatten(params_np).items():
         arr = np.array(arr, dtype=np.float32)  # a writable copy
         for name, a in _split_layers(path, arr, cfg).items():
-            dtype = (torch.float32 if name.rsplit(".", 1)[-1] in F32_LEAVES
-                     else pdt(cfg))
+            leaf_dtype = dtype or (
+                torch.float32 if name.rsplit(".", 1)[-1] in F32_LEAVES
+                else pdt(cfg))
             state[name] = torch.from_numpy(np.ascontiguousarray(a)).to(
-                device=device, dtype=dtype)
+                device=device, dtype=leaf_dtype)
     return state
+
+
+def _stacked_axes(name: str, cfg) -> Tuple[str, int, int]:
+    """Where the port leaf ``name`` sits in the reference's pytree: (the
+    reference's path, its index on the stacked layer axes (0 when the leaf
+    is not stacked), how many stacked axes lead there: 1 for ``layers``
+    and the hybrid's ``tail``, 2 for its ``groups``, 0 for every other
+    leaf, ``dense0.{j}.*`` and ``shared_block.*`` among them)."""
+    head, _, rest = name.partition(".")
+    if head != "layers":
+        return name, 0, 0
+    i, _, leaf = rest.partition(".")
+    i = int(i)
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        n_grouped = (cfg.n_layers // every) * every
+        if i < n_grouped:
+            return f"groups.{leaf}", i, 2
+        return f"tail.{leaf}", i - n_grouped, 1
+    return f"layers.{leaf}", i, 1
+
+
+def reference_ndim(name: str, shape: Sequence[int], cfg) -> int:
+    """The rank of the reference leaf that the port leaf ``name`` (of
+    ``shape``) came from: the reference stacks ``layers`` on one leading
+    axis and the hybrid's ``groups`` on two, ``tail`` on one."""
+    return len(shape) + _stacked_axes(name, cfg)[2]
+
+
+def decay_mask(cfg, state: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
+    """Which leaves AdamW decays: those whose reference leaf is a matrix
+    (ndim >= 2), the test the reference applies to its stacked pytree.
+    So every per-layer norm scale decays (and for Zamba2 Mamba2's
+    ``A_log``, ``D``, ``dt_bias`` and conv biases), where the port's own
+    1-D leaves would say otherwise; ``final_norm``, ``dense0`` and
+    ``shared_block`` vectors do not."""
+    return {name: reference_ndim(name, t.shape, cfg) >= 2
+            for name, t in state.items()}
+
+
+def to_jax_params(state: Mapping[str, torch.Tensor], cfg,
+                  device="cpu") -> dict:
+    """The inverse of ``from_jax_params``: a port state dict (parameters,
+    or AdamW moments keyed like them) -> the reference's params pytree,
+    nested dicts with ``layers`` (and the hybrid's ``groups`` (n_groups,
+    every, ...) and ``tail``) stacked on their leading axes and
+    ``dense0`` a list. Leaves are tensors on ``device`` (the host by
+    default; ``"meta"`` gives the shapes alone) in their own dtypes: a
+    bf16 leaf stays bf16 (numpy has no bf16; ``repro_torch.checkpoint``
+    writes a bf16 tensor as the reference writes its bf16 arrays)."""
+    stacks: Dict[str, Dict[int, torch.Tensor]] = {}
+    flat: Dict[str, torch.Tensor] = {}
+    for name, t in state.items():
+        t = t.detach().to(device)
+        path, i, n_axes = _stacked_axes(name, cfg)
+        if n_axes:
+            stacks.setdefault(path, {})[i] = t
+        else:
+            flat[path] = t
+    every = cfg.shared_attn_every
+    for path, rows in stacks.items():
+        leaf = torch.stack([rows[i] for i in range(len(rows))])
+        if path.startswith("groups."):
+            leaf = leaf.reshape((-1, every) + leaf.shape[1:])
+        flat[path] = leaf
+    tree: dict = {}
+    for path, t in flat.items():
+        node = tree
+        *heads, last = path.split(".")
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = t
+    if "dense0" in tree:
+        tree["dense0"] = [tree["dense0"][str(j)]
+                          for j in range(len(tree["dense0"]))]
+    return tree
 
 
 def init_params(cfg, generator: torch.Generator,

@@ -1011,3 +1011,100 @@ def test_cuda_frontdoor_session_streams_engine_tokens(cuda):
         assert client.frontdoor().stats()["prefix"]["hits"] >= 1
     finally:
         mgr.shutdown()
+
+
+# ------------------------------------------------------------- training ----
+def _grad_calls(dev):
+    """Each ops entry point with small inputs on ``dev``, one of them
+    requiring a gradient: the refusal comes before any launch, so the
+    shapes need only be plausible."""
+    def t(*shape, dtype=torch.bfloat16, grad=False):
+        return torch.zeros(shape, dtype=dtype, device=dev,
+                           requires_grad=grad)
+    i32 = dict(dtype=torch.int32)
+    lengths = torch.full((1,), 8, dtype=torch.int32, device=dev)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    return {
+        "flash_attention": lambda: ops.flash_attention(
+            t(1, 16, 2, 64, grad=True), t(1, 16, 2, 64), t(1, 16, 2, 64)),
+        "flash_decode": lambda: ops.flash_decode(
+            t(1, 2, 64), t(1, 32, 2, 64, grad=True), t(1, 32, 2, 64),
+            lengths),
+        "paged_flash_decode": lambda: ops.paged_flash_decode(
+            t(1, 2, 64), t(3, 16, 2, 64), t(3, 16, 2, 64, grad=True), table,
+            lengths),
+        "paged_mla_decode": lambda: ops.paged_mla_decode(
+            t(1, 16, 512, grad=True), t(1, 16, 64), t(3, 64, 512),
+            t(3, 64, 64), table, lengths),
+        "grouped_gemm": lambda: ops.grouped_gemm(
+            t(2, 8, 64), t(2, 64, 32, grad=True)),
+        "grouped_gemm_segments": lambda: ops.grouped_gemm_segments(
+            t(8, 64, grad=True), t(2, **i32), t(2, 64, 32)),
+        "ssm_scan": lambda: ops.ssm_scan(
+            t(1, 16, 2, 16, dtype=torch.float32),
+            t(1, 16, 2, 16, dtype=torch.float32),
+            t(1, 16, 2, 16, dtype=torch.float32, grad=True),
+            t(1, 16, 2, dtype=torch.float32)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "flash_decode",
+                                  "paged_flash_decode", "paged_mla_decode",
+                                  "grouped_gemm", "grouped_gemm_segments",
+                                  "ssm_scan"])
+def test_cuda_kernels_refuse_inputs_that_require_grad(cuda, name):
+    """The kernels are forward-only: a call that autograd would carry
+    through raises, names the kernel and launches nothing."""
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match=f"{name}: .*forward-only"):
+        _grad_calls(cuda)[name]()
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cuda_train_steps_match_the_cpu(cuda):
+    """Two f32 train steps of the reduced smollm2 from the same seeded
+    weights and batches on the card and on the CPU: losses within 1e-5,
+    parameters within 1e-5 but 2 in 1 000 elements, those within 2 x
+    steps x lr (tests/test_torch_train.py gives the reason)."""
+    from repro_torch.data import PipelineConfig, batches
+    from repro_torch.train import (OptimizerConfig, init_state,
+                                   make_train_step, trainable)
+    from repro_torch.train.trainstep import to_device
+    from repro_torch.weights import init_params
+    cfg = get_reduced_config("smollm2-1.7b")
+    init = init_params(cfg, torch.Generator().manual_seed(0),
+                       torch.device("cpu"))
+    ocfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    data = batches(PipelineConfig(batch_size=8, seq_len=32,
+                                  vocab_size=cfg.vocab_size), 0)
+    bs = [next(data) for _ in range(2)]
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(cfg, device=dev, params={
+            k: v.clone() for k, v in init.items()})
+        named = trainable(model)
+        st = init_state(named)
+        step = make_train_step(model, ocfg, accum_steps=2, ce_chunk=16)
+        losses = []
+        for b in bs:
+            named, st, m = step(named, st, to_device(b, dev))
+            losses.append(float(m["loss"]))
+        runs[dev.type] = (losses, named)
+    assert max(abs(a - b) for a, b in zip(runs["cuda"][0],
+                                          runs["cpu"][0])) < 1e-5
+    d = torch.cat([(runs["cuda"][1][k].detach().cpu()
+                    - runs["cpu"][1][k].detach()).abs().flatten()
+                   for k in sorted(runs["cpu"][1])])
+    assert int((d >= 1e-5).sum()) <= 2e-3 * d.numel()
+    assert float(d.max()) < 2 * 2 * ocfg.peak_lr
+
+
+@pytest.mark.cuda
+def test_cuda_training_refuses_the_kernels(cuda):
+    from repro_torch.train import OptimizerConfig, make_train_step
+    model = build_model(get_reduced_config("smollm2-1.7b", use_kernels=True),
+                        device=cuda)
+    with pytest.raises(ValueError, match="plain path"):
+        make_train_step(model, OptimizerConfig())

@@ -246,6 +246,58 @@ def test_sampler_temperature_draws_the_softmax_distribution():
     assert torch.allclose(freq, exp, atol=0.015)
 
 
+@pytest.mark.parametrize("top_k", [0, 1, 5])
+def test_sampler_top_k_matches_reference(top_k):
+    """Seeded logits through both samplers: greedy rows give the
+    reference's tokens for every top_k; top_k 1 makes a sampled row its
+    argmax in both; top_k 5 draws the softmax over the 5 largest logits in
+    both (the draws themselves differ: Gumbel-max against
+    jax.random.categorical), within 0.015 of each frequency."""
+    from repro.serving.sampler import sample as jax_sample
+    rs = np.random.RandomState(3)
+    logits = rs.standard_normal((6, 40)).astype(np.float32)
+    logits[2, 7] = logits[2, 9] = logits[2].max() + 1.0   # a tie at the top
+    temps = np.array([0, 0, 1, 1, 0.5, 2], np.float32)
+    g = torch.Generator().manual_seed(0)
+    ours = sample(torch.from_numpy(logits), g, torch.from_numpy(temps),
+                  top_k, vocab_size=36).numpy()
+    ref = np.asarray(jax_sample(jax.numpy.asarray(logits),
+                                jax.random.PRNGKey(0),
+                                jax.numpy.asarray(temps), top_k,
+                                vocab_size=36))
+    greedy = temps == 0
+    assert (ours[greedy] == ref[greedy]).all()
+    if top_k == 1:
+        assert (ours == ref).all()
+        assert (ours == logits[:, :36].argmax(-1)).all()
+    if top_k == 5:
+        n = 20000
+        row = np.tile(logits[3], (n, 1))
+        t = np.ones(n, np.float32)
+        draws_t = sample(torch.from_numpy(row), g, torch.from_numpy(t), 5,
+                         vocab_size=36).numpy()
+        draws_j = np.asarray(jax_sample(jax.numpy.asarray(row),
+                                        jax.random.PRNGKey(1),
+                                        jax.numpy.asarray(t), 5,
+                                        vocab_size=36))
+        top = np.argsort(logits[3, :36])[-5:]
+        p = np.exp(logits[3, top] - logits[3, top].max())
+        p /= p.sum()
+        for draws in (draws_t, draws_j):
+            assert set(np.unique(draws)) == set(top)
+            freq = np.array([(draws == i).mean() for i in top])
+            assert np.allclose(freq, p, atol=0.015)
+
+
+def test_request_takes_top_k_as_the_reference_does(smol):
+    r = Request(prompt=[5, 9, 14], max_new_tokens=2, top_k=3)
+    assert r.top_k == 3 and Request(prompt=[1]).top_k == 0
+    eng = InferenceEngine(smol[2], device="cpu", **ENGINE)
+    eng.submit(r)
+    eng.run_to_completion()
+    assert len(r.generated) == 2
+
+
 # ----------------------------------------------------------- paged pool ----
 def paged(model, **kw):
     """tests/test_serving.py's _paged_engine: unshared paged semantics

@@ -46,7 +46,8 @@ def test_port_file_list_is_complete():
             "context.py", "scheduler.py", "manager.py", "serve.py",
             "wire.py", "transport.py", "node.py", "devices.py", "events.py",
             "traces.py", "simulator.py", "session.py",
-            "frontdoor.py"} <= names
+            "frontdoor.py", "pipeline.py", "shapes.py", "optimizer.py",
+            "trainstep.py", "loop.py", "train.py"} <= names
 
 
 def test_every_kernel_has_its_source():

@@ -300,3 +300,39 @@ def test_mixed_stripe_calibrates_as_socket():
     assert plan is not None
     assert set(plan.stripes) == {"local", "remote"}
     assert plan.kind == "socket"
+
+
+# ------------------------------------------------- a node's stripe lanes ----
+class _Sent:
+    """A node connection that records what the node sends."""
+
+    def __init__(self):
+        self.frames = []
+
+    def send(self, kind, meta, payload=b""):
+        self.frames.append((kind, meta))
+
+
+def test_node_reports_a_corrupt_stripe_chunk_with_its_delivered_set():
+    """A receiving node verifies each striped chunk; on a corrupt one it
+    tells the manager ``stripe_lane_lost`` with the ids it already holds,
+    so the manager reconciles and re-forwards only the rest (the
+    reference's ``WorkerHost._h_stripe_chunk``)."""
+    from repro_torch.cluster.node import WorkerHost
+    from repro_torch.core.streaming import ChunkRef, chunk_digest
+    host = WorkerHost("w-recv", device="cpu")
+    host.conn = _Sent()
+    good = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    ref0 = ChunkRef("c0/params/w", 0, 2, 0, 0, 3)
+    meta = {"sid": 5, "ref": list(vars(ref0).values()), "lane": 1,
+            "sha": chunk_digest(good), **wire.chunk_meta(good)}
+    host._h_stripe_chunk(meta, wire.chunk_bytes_of(good))
+    assert host.conn.frames == []
+    bad = good + 1
+    ref1 = ChunkRef("c0/params/w", 1, 2, 0, 3, 6)
+    meta = {"sid": 5, "ref": list(vars(ref1).values()), "lane": 2,
+            "sha": chunk_digest(good), **wire.chunk_meta(bad)}
+    host._h_stripe_chunk(meta, wire.chunk_bytes_of(bad))
+    assert host.conn.frames == [("stripe_lane_lost", {
+        "sid": 5, "lane": 2, "corrupt": True,
+        "delivered": [["c0/params/w", 0]]})]
