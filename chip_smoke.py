@@ -27,7 +27,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 and C per group (as its Mamba2 layers call it) and per
                 head, the reference's sweep and a padded row; the prefill
                 and decode
-                attention at Zamba2's head dim 112), with times beside the
+                attention at Zamba2's head dim 112; the prefill at head
+                dim 80 with H2O-Danube's 4096-token window over an 8 x
+                8192 wave, at head dim 160 and at GQA group 6, the decode
+                at head dim 80 over a full 4096-key ring, at 160 and at
+                group 6, the paged decode at 160, bitwise the slot
+                kernel's, and f32 checks at 80 and 160), with times beside the
                 least time the card could take (bound_ms), the achieved
                 TB/s or TFLOP/s, and a PyTorch library call computing the
                 same function where there is one (every kernel and its
@@ -161,7 +166,26 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 read off and on, as (b); then
                 torch.profiler over (h)'s prompts at 16 new tokens. Its
                 demote/restore (about 19 GB of pinned host memory) is left
-                to the CPU tests.
+                to the CPU tests;
+  8. dense    - the dense GQA decoders Granite-3-2B (2.53 B parameters),
+                StableLM-12B (12.14 B, head dim 160) and Nemotron-4-15B
+                (15.63 B, GQA group 6) and the sliding-window decoder
+                H2O-Danube-1.8B (1.83 B, head dim 80, a 4096-token window),
+                one at a time, at full width and depth, seeded random bf16
+                weights drawn on the card, with the kernels: mixes (a) and
+                (b) on the slot cache; for the three full-attention models
+                (c) on the paged pool, which must give (b)'s tokens, and
+                (d) with prefix sharing on and off, whose first-token
+                logits must be bitwise equal; for Danube a paged request
+                that must keep the slot cache with the reference's
+                reasons, a long mix (8 prompts of 3 000-6 000 tokens in one
+                8192 wave, 64 new tokens, its 4096-position rings
+                wrapping), and the first decode step of prompts inside the
+                window against a plain forward. Each path runs with the
+                launch counts at 0 and must launch what its waves and
+                decode steps call for, and is held against a
+                use_kernels=False engine over the same weights (phase 4's
+                comparison at LOGIT_TOL).
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -464,11 +488,11 @@ def attn_prefix_parity() -> None:
     """The bf16 prefill kernel's prefix-sharing contract: tail rows
     prefilled at a query offset (a bucket of 32, offsets that are not
     multiples of the 64-key tile) get the bits of the same rows of a
-    whole-prompt call on the same K/V, at head dims 64 and 112."""
+    whole-prompt call on the same K/V, at head dims 64, 80, 112 and 160."""
     gen = np.random.RandomState(5)
     B, S, H = 4, 256, 32
     kl = torch.tensor([256, 200, 131, 97], dtype=torch.int32, device="cuda")
-    for D in (64, 112):
+    for D in (64, 80, 112, 160):
         q, k, v = (randn(gen, (B, S, H, D), torch.bfloat16)
                    for _ in range(3))
         kw = dict(causal=True, scale=D ** -0.5, kv_len=kl)
@@ -483,7 +507,8 @@ def attn_prefix_parity() -> None:
                                      f"prompt's")
     sync()
     log("[kernels] flash_attention bf16 tails at q_offset 37/100/131/200 "
-        "(bucket 32) bitwise equal to the whole prompt's rows, D 64 and 112")
+        "(bucket 32) bitwise equal to the whole prompt's rows, D 64, 80, 112 "
+        "and 160")
 
 
 def phase_kernels() -> dict:
@@ -750,6 +775,7 @@ def phase_kernels() -> dict:
     rows.update(phase_kernels_mla_moe())
     rows.update(phase_kernels_ssd())
     phase_kernels_d112(rows)
+    phase_kernels_wide(rows)
     return rows
 
 
@@ -1173,6 +1199,220 @@ def phase_kernels_d112(rows) -> None:
           float((ops.flash_decode(q, ck, cv, ln, **dk)
                  - ref.flash_decode_ref(q, ck, cv, ln, **dk)).abs().max()),
           torch.float32)
+
+
+def plain_attention_rows(q, k, v, kw, rows=512):
+    """``ref.flash_attention_ref`` over slices of ``rows`` query rows, each
+    at its offset: the plain version at a length whose whole (S, T) score
+    matrix would not fit the card (S 8192: 68 GB of f32 scores at B 8)."""
+    B, S = q.shape[:2]
+    base = kw.get("q_offset")
+    outs = []
+    for i in range(0, S, rows):
+        off = torch.full((B,), i, dtype=torch.int32, device=q.device)
+        if base is not None:
+            off = off + base
+        outs.append(ref.flash_attention_ref(q[:, i:i + rows].contiguous(), k,
+                                            v, **dict(kw, q_offset=off)))
+    return torch.cat(outs, dim=1)
+
+
+def attn_mask(S, T, kl, window=0):
+    """The (B, 1, S, T) boolean mask of causal (and windowed) attention over
+    keys below kl: SDPA's way to compute the same function."""
+    qp = torch.arange(S, device="cuda")[:, None]
+    kp = torch.arange(T, device="cuda")[None, :]
+    m = kp <= qp
+    if window:
+        m = m & (qp - kp < window)
+    return (m[None] & (kp[None] < kl[:, None, None]))[:, None]
+
+
+def wide_prefill_row(label, gen, B, S, H, Hkv, D, kv_len, window=0,
+                     iters=20, chunked=False):
+    """One timed phase-3 row of the prefill kernel at a dense decoder's
+    shape: bf16, causal (windowed when ``window``), ragged kv_len; held
+    against the plain version (query-row slices when ``chunked``), beside
+    SDPA and the bound."""
+    q = randn(gen, (B, S, H, D), torch.bfloat16)
+    k = randn(gen, (B, S, Hkv, D), torch.bfloat16)
+    v = randn(gen, (B, S, Hkv, D), torch.bfloat16)
+    kl = torch.as_tensor(np.asarray(kv_len, np.int32), device="cuda")
+    kw = dict(causal=True, window=window, scale=D ** -0.5, kv_len=kl)
+    out = ops.flash_attention(q, k, v, **kw)
+    sync()
+
+    def plain():
+        return (plain_attention_rows(q, k, v, kw) if chunked
+                else ref.flash_attention_ref(q, k, v, **kw))
+    err = check(f"flash_attention {label} ({B},{S},{H}/{Hkv},{D}) bf16 "
+                f"causal{f' window {window}' if window else ''} ragged "
+                f"kv_len", float((out.float() - plain().float()).abs().max()),
+                torch.bfloat16)
+    plain_ms = time_ms(plain, iters=1, warmup=1)
+    mask = attn_mask(S, S, kl, window)
+    qt = q.transpose(1, 2)
+    # SDPA with enable_gqa takes no mask but on its math route, whose (B,
+    # H, S, S) f32 scores at S 8192 do not fit: there it gets K/V repeated
+    # to H heads (the repeat outside the timed call)
+    if chunked:
+        kt = k.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+        gqa = False
+    else:
+        kt, vt, gqa = k.transpose(1, 2), v.transpose(1, 2), H != Hkv
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=kw["scale"], enable_gqa=gqa)
+    nbytes, flops = attention_bound(B, S, H, Hkv, D, kv_len, True, window, 2)
+    row = dict(max_abs_err=err, shape=[B, S, H, Hkv, D], window=window,
+               **attn_times(label, lambda: ops.flash_attention(q, k, v, **kw),
+                            sdpa, plain_ms, nbytes, flops, iters))
+    if chunked:
+        row["library_note"] = "SDPA over K/V repeated to H heads"
+    del q, k, v, out, mask, qt, kt, vt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def wide_decode_row(label, gen, B, H, Hkv, D, Skv, lengths, paged=0):
+    """One timed phase-3 row of the slot decode kernel (and with ``paged``
+    = P, of the paged one over the same K/V in scattered pages of P, which
+    must give the slot kernel's bits), bf16, beside SDPA and the bound."""
+    q = randn(gen, (B, H, D), torch.bfloat16)
+    ck = randn(gen, (B, Skv, Hkv, D), torch.bfloat16)
+    cv = randn(gen, (B, Skv, Hkv, D), torch.bfloat16)
+    ln = torch.as_tensor(np.asarray(lengths, np.int32), device="cuda")
+    dk = dict(scale=D ** -0.5)
+    slot = ops.flash_decode(q, ck, cv, ln, **dk)
+    sync()
+    want = ref.flash_decode_ref(q, ck, cv, ln, **dk)
+    name = "paged_flash_decode" if paged else "flash_decode"
+    call = lambda: ops.flash_decode(q, ck, cv, ln, **dk)  # noqa: E731
+    plain = lambda: ref.flash_decode_ref(q, ck, cv, ln, **dk)  # noqa: E731
+    mask = (torch.arange(Skv, device="cuda")[None, :]
+            < ln[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=dk["scale"],
+            enable_gqa=H != Hkv)
+    out, extra = slot, {}
+    if paged:
+        P = paged
+        n = Skv // P
+        perm = torch.as_tensor(gen.permutation(B * n), device="cuda")
+        kp = torch.full((B * n + 1, P, Hkv, D), 1e4, dtype=ck.dtype,
+                        device="cuda")
+        vp = kp.clone()
+        kp[perm] = ck.reshape(-1, P, Hkv, D)
+        vp[perm] = cv.reshape(-1, P, Hkv, D)
+        pt = perm.reshape(B, n).to(torch.int32)
+        out = ops.paged_flash_decode(q, kp, vp, pt, ln, **dk)
+        same = torch.equal(out, slot)
+        log(f"[kernels] {name} {label} vs flash_decode on the same K/V "
+            f"(pages of {P}): bitwise equal: {same}")
+        if not same:
+            raise AssertionError(f"{name} {label}: paged and slot decode "
+                                 f"differ")
+        extra["paged_bitwise_equal"] = same
+        call = lambda: ops.paged_flash_decode(q, kp, vp, pt, ln,  # noqa
+                                              **dk)
+        plain = lambda: ref.paged_decode_ref(q, kp, vp, pt, ln, **dk)  # noqa
+        flat = pt.reshape(-1).long()
+
+        def library():
+            kk = kp.index_select(0, flat).reshape(B, Skv, Hkv, D)
+            vv = vp.index_select(0, flat).reshape(B, Skv, Hkv, D)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
+                scale=dk["scale"], enable_gqa=H != Hkv)
+    err = check(f"{name} {label} ({B},{H}/{Hkv},{D}) Skv {Skv} bf16",
+                float((out.float() - want.float()).abs().max()),
+                torch.bfloat16)
+    nbytes, flops = decode_bound(B, H, Hkv, D, lengths, 2, page=paged)
+    bms, by = bound_ms(nbytes, flops)
+    row = dict(max_abs_err=err, shape=[B, H, Hkv, D, Skv],
+               ms=device_ms(call, iters=50), eager_ms=time_ms(call, iters=50),
+               plain_ms=time_ms(plain), library_ms=device_ms(library,
+                                                             iters=50),
+               library_eager_ms=time_ms(library, iters=50), bound_ms=bms,
+               bound_by=by, **extra)
+    log(f"[kernels] {name} {label}: kernel {row['ms']:.4f} ms "
+        f"({rate(nbytes, flops, row['ms'], by)}; eager launches "
+        f"{row['eager_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+        f"{'gather+' if paged else ''}SDPA {row['library_ms']:.4f} ms "
+        f"(eager {row['library_eager_ms']:.4f}), bound {bms:.4f} ms ({by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    return row
+
+
+def phase_kernels_wide(rows) -> None:
+    """Phase 3 at the dense decoders' shapes, on its own generator: the
+    prefill kernel at head dim 80 with H2O-Danube's 4096-token window over
+    its long mix's 8192-token wave, at head dim 160 (StableLM-12B) and at
+    GQA group 6 (Nemotron-4-15B); the decode kernel at head dim 80 over a
+    full 4096-key ring, at 160 and at group 6; the paged decode at 160
+    (bitwise the slot kernel's); all in bf16 with times, and f32 checks of
+    both kernels at 80 and 160 with groups 4 and 6."""
+    gen = np.random.RandomState(6)
+    pre, dec = {}, {}
+    kl = gen.randint(3000, 6001, size=8)
+    pre["d80_window"] = wide_prefill_row(
+        "D 80 window 4096", gen, 8, 8192, 32, 8, 80, kl, window=4096,
+        iters=5, chunked=True)
+    for key, label, (H, Hkv, D) in (("d160", "D 160", (32, 8, 160)),
+                                    ("g6", "G 6", (48, 8, 128))):
+        kl = gen.randint(1, 513, size=16)
+        kl[:2] = (1, 512)
+        pre[key] = wide_prefill_row(label, gen, 16, 512, H, Hkv, D, kl)
+    ring = np.full(16, 4096)
+    dec["d80_ring"] = wide_decode_row("D 80 ring 4096 full", gen, 16, 32, 8,
+                                      80, 4096, ring)
+    lengths = gen.randint(2, 1024, size=16)
+    lengths[:3] = (0, 1, 1024)
+    dec["d160"] = wide_decode_row("D 160", gen, 16, 32, 8, 160, 1024,
+                                  lengths)
+    dec["g6"] = wide_decode_row("G 6", gen, 16, 48, 8, 128, 1024, lengths)
+    paged = wide_decode_row("D 160", gen, 16, 32, 8, 160, 1024, lengths,
+                            paged=64)
+    rows["flash_attention"]["wide"] = pre
+    rows["flash_decode"]["wide"] = dec
+    rows["paged_flash_decode"]["wide"] = {"d160": paged}
+
+    # f32 (the CUDA-core routes): prefill with GQA, a window and query
+    # offsets; decode with groups 4 and 6 and an active mask
+    for D in (80, 160):
+        for H, Hkv in ((8, 2), (12, 2)):
+            q = randn(gen, (3, 40, H, D), torch.float32)
+            k = randn(gen, (3, 300, Hkv, D), torch.float32)
+            v = randn(gen, (3, 300, Hkv, D), torch.float32)
+            kw = dict(causal=True, window=64, scale=D ** -0.5,
+                      kv_len=torch.tensor([30, 117, 290], dtype=torch.int32,
+                                          device="cuda"),
+                      q_offset=torch.tensor([0, 77, 250], dtype=torch.int32,
+                                            device="cuda"))
+            check(f"flash_attention D {D} q_offset window 64 GQA (3,40 over "
+                  f"300,{H}/{Hkv},{D}) f32",
+                  float((ops.flash_attention(q, k, v, **kw)
+                         - ref.flash_attention_ref(q, k, v, **kw)).abs()
+                        .max()), torch.float32)
+            q = randn(gen, (4, H, D), torch.float32)
+            ck = randn(gen, (4, 256, Hkv, D), torch.float32)
+            cv = randn(gen, (4, 256, Hkv, D), torch.float32)
+            ln = torch.tensor([100, 7, 200, 256], dtype=torch.int32,
+                              device="cuda")
+            dk = dict(scale=D ** -0.5,
+                      active=torch.tensor([True, False, True, True],
+                                          device="cuda"))
+            check(f"flash_decode D {D} active mask (4,{H}/{Hkv},{D}) Skv 256 "
+                  f"f32",
+                  float((ops.flash_decode(q, ck, cv, ln, **dk)
+                         - ref.flash_decode_ref(q, ck, cv, ln, **dk)).abs()
+                        .max()), torch.float32)
 
 
 # ------------------------------------------------------------ 4. serve ----
@@ -3178,6 +3418,221 @@ def phase_zamba2() -> dict:
     return out
 
 
+# ------------------------------------------------------------ 8. dense ----
+DENSE_ARCHS = ("granite-3-2b", "h2o-danube-1.8b", "stablelm-12b",
+               "nemotron-4-15b")
+# H2O-Danube's long mix: 8 prompts of 3 000-6 000 tokens in one wave of
+# the 8192 bucket, past its 4096-token window, so the prefill kernel skips
+# the key tiles below the window and the ring buffer of 4096 wraps
+DANUBE_LONG_KW = dict(ENGINE_KW, slots=8, cache_len=8192)
+# the plain engine's blockwise attention holds (B, S, H, 1024) f32 scores,
+# about 1 GB a row at S 8192: two rows a wave
+DANUBE_LONG_PLAIN_SLOTS = 2
+
+
+def window_prompts(vocab: int):
+    rng = np.random.RandomState(3)
+    lens = rng.randint(3000, 6001, size=8)
+    return [rng.randint(8, vocab, size=int(n)).tolist() for n in lens]
+
+
+def danube_in_window(model, plain_model, prompts) -> dict:
+    """The sliding-window semantics where the reference is right: prompts
+    that fit the window, in a wave padded to 512 (not past the window),
+    prefilled and decoded one step through the kernels; the first decode
+    step's logits against a plain ``forward`` over each prompt and its
+    first token."""
+    cfg = model.cfg
+    # prompts and wave inside the window (at full width mix (b)'s prompts
+    # and its 512 bucket are, whole)
+    prompts = [p[:cfg.sliding_window - 1] for p in prompts]
+    B, S = len(prompts), min(512, cfg.sliding_window)
+    toks = torch.zeros((B, S), dtype=torch.int32, device="cuda")
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.as_tensor(p, device="cuda")
+    lens = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32,
+                           device="cuda")
+    cache = model.init_cache(B, 1024, torch.bfloat16)
+    first = torch.argmax(model.prefill(toks, lens, cache)[:, :cfg.vocab_size],
+                         dim=-1).to(torch.int32)
+    dec = model.decode_step(first[:, None], lens, cache)[:, :cfg.vocab_size]
+    gap = 0.0
+    for i, p in enumerate(prompts):
+        seq = torch.as_tensor(p + [int(first[i])], device="cuda")[None]
+        fwd = plain_model.forward(seq)[0, -1, :cfg.vocab_size]
+        gap = max(gap, float((dec[i].float() - fwd.float()).abs().max()))
+    out = dict(prompts=B, lengths=lens.tolist(), wave=S,
+               cache_positions=int(cache["k"].shape[2]), logits_gap=gap)
+    log(f"[dense] h2o-danube-1.8b in-window prefill + decode step (kernels) "
+        f"vs plain forward: {json.dumps(out)} (tol {LOGIT_TOL})")
+    if gap > LOGIT_TOL:
+        raise AssertionError(f"danube: in-window decode logits differ from "
+                             f"forward by {gap}")
+    return out
+
+
+def dense_arch(arch) -> dict:
+    """One dense decoder at full width and depth (seeded random bf16
+    weights drawn on the card) through the kernels, against a plain engine
+    over the same weights: (a) and (b) on the slot cache; for the full-
+    attention models (c) on the paged pool and (d) with prefix sharing on
+    and off; for H2O-Danube the long mix instead, the paged and prefix
+    fallbacks and the in-window check."""
+    t_arch = time.monotonic()
+    cfg = dataclasses.replace(get_config(arch), use_kernels=True)
+    window = cfg.sliding_window if cfg.attention == "sliding_window" else 0
+    sync()
+    t0 = time.monotonic()
+    model = build_model(cfg, device="cuda", seed=0)
+    sync()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    n_norm = (2 * cfg.n_layers + 1) * cfg.d_model * (
+        2 if cfg.norm == "layernorm" else 1)
+    log(f"[dense] {arch} full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} (head dim "
+        f"{cfg.resolved_head_dim}), d_ff {cfg.d_ff} {cfg.activation}, "
+        f"{cfg.norm}, vocab {cfg.vocab_size}, window {window}; {n_params} "
+        f"params ({cfg.param_count()} by param_count() + {n_norm} norm "
+        f"params), {2 * n_params / 1e9:.2f} GB bf16, drawn on the card in "
+        f"{init_s:.2f} s")
+    if n_params != cfg.param_count() + n_norm:
+        raise AssertionError(f"{arch}: {n_params} parameters")
+    plain_model = build_model(dataclasses.replace(cfg, use_kernels=False),
+                              device="cuda", params=dict(model.state_dict()))
+    facts, longs = fact_prompts(cfg.vocab_size), long_prompts(cfg.vocab_size)
+    out = {"params": n_params, "init_s": init_s, "launches": {},
+           "compare": {}}
+    eng = InferenceEngine(model, device="cuda", paged=bool(window),
+                          **ENGINE_KW)
+    if window:
+        out.update(paged_fallback=eng.paged_fallback,
+                   prefix_fallback=eng.prefix_fallback)
+        log(f"[dense] {arch} paged=True keeps the slot cache: "
+            f"{eng.paged_fallback}; prefix_fallback: {eng.prefix_fallback}")
+        if eng.stats.decode_path != "full" or eng.paged_fallback != (
+                "model has no paged decode path (SSM/xLSTM state and "
+                "sliding-window ring buffers keep the slot cache)") \
+                or eng.prefix_fallback != ("engine is not paged: "
+                                           + eng.paged_fallback):
+            raise AssertionError(f"{arch}: paged request did not fall back "
+                                 f"with the reference's reasons")
+    eng.generate([[2, 5]], max_new_tokens=2)
+    (ak, rates_a, bk, rates_b), out["launches"]["ab"] = run_path(
+        eng, f"{arch} (a)+(b) slot cache", lambda: (
+            *serve(eng, facts, 1, f"{arch} (a) fact verification"),
+            *serve(eng, longs, 64, f"{arch} (b) long prompts")))
+    free(eng)
+    out.update(rates_a=rates_a, rates_b=rates_b)
+    plain = InferenceEngine(plain_model, device="cuda", **ENGINE_KW)
+    ap, _ = serve(plain, facts, 1, f"{arch} (a) plain path")
+    bp, _ = serve(plain, longs, 64, f"{arch} (b) plain path")
+    out["compare"]["a"] = compare_dense(f"{arch} (a)", ak, ap, cfg.vocab_size,
+                                        LOGIT_TOL, phase="dense")
+    out["compare"]["b"] = compare_dense(f"{arch} (b)", bk, bp, cfg.vocab_size,
+                                        LOGIT_TOL, phase="dense")
+    if not window:
+        pg = InferenceEngine(model, device="cuda", prefix_sharing=False,
+                             **PAGED_KW)
+        pg.generate([[2, 5]], max_new_tokens=2)
+        (ck, out["rates_c"]), out["launches"]["c"] = run_path(
+            pg, f"{arch} (c) paged pool",
+            lambda: serve(pg, longs, 64, f"{arch} (c) paged pool"))
+        free(pg)
+        out["paged_equals_slot"] = tokens(ck) == tokens(bk)
+        log(f"[dense] {arch} (c) paged tokens identical to the slot cache's "
+            f"(b): {out['paged_equals_slot']}")
+        if not out["paged_equals_slot"]:
+            raise AssertionError(f"{arch} (c): the paged pool decodes "
+                                 f"differently from the slot cache")
+        plain_pg = InferenceEngine(plain_model, device="cuda",
+                                   prefix_sharing=False, **PAGED_KW)
+        cp, _ = serve(plain_pg, longs, 64, f"{arch} (c) plain path")
+        free(plain_pg)
+        out["compare"]["c"] = compare_dense(f"{arch} (c)", ck, cp,
+                                            cfg.vocab_size, LOGIT_TOL,
+                                            phase="dense")
+        fs = fewshot_prompts(HashTokenizer(cfg.vocab_size))
+        sh = InferenceEngine(model, device="cuda", **PAGED_KW)
+        if sh.prefix_fallback is not None:
+            raise AssertionError(f"{arch} (d): sharing is off: "
+                                 f"{sh.prefix_fallback}")
+        sh.generate([[2, 5]], max_new_tokens=2)
+        sh.drop_prefix_cache()
+        (dk, rounds), out["launches"]["d"] = run_path(
+            sh, f"{arch} (d) prefix sharing",
+            lambda: serve_rounds(sh, fs, 8, f"{arch} (d) sharing"))
+        free(sh)
+        cold = InferenceEngine(model, device="cuda", prefix_sharing=False,
+                               **PAGED_KW)
+        dc, _ = serve_rounds(cold, fs, 8, f"{arch} (d) no sharing")
+        free(cold)
+        hits = sum(r["prefix_hits"] for r in rounds)
+        gap = max(float((a.first_logits - b.first_logits).abs().max())
+                  for a, b in zip(dk, dc))
+        same = tokens(dk) == tokens(dc)
+        out.update(rounds_d=rounds, prefix_hits=hits, shared_vs_cold_gap=gap,
+                   shared_equals_cold=same)
+        log(f"[dense] {arch} (d) prefix hits {hits}; shared vs cold: tokens "
+            f"identical {same}, first-token logits max-abs gap {gap}")
+        if not same or gap != 0.0 or hits < 48:
+            raise AssertionError(f"{arch} (d): shared prefill differs from "
+                                 f"cold prefill or did not hit")
+        dp, _ = serve(plain, fs, 8, f"{arch} (d) plain path")
+        out["compare"]["d"] = compare_dense(f"{arch} (d)", dk, dp,
+                                            cfg.vocab_size, LOGIT_TOL,
+                                            phase="dense")
+    free(plain)
+    if window:
+        lw = window_prompts(cfg.vocab_size)
+        el = InferenceEngine(model, device="cuda", **DANUBE_LONG_KW)
+        ring = tuple(el.cache["k"].shape)
+        el.generate([[2, 5]], max_new_tokens=2)
+        (lk, out["rates_long"]), out["launches"]["long"] = run_path(
+            el, f"{arch} long mix", lambda: serve(
+                el, lw, 64, f"{arch} long mix ({min(map(len, lw))}-"
+                            f"{max(map(len, lw))} tokens)"))
+        free(el)
+        pl = InferenceEngine(plain_model, device="cuda", **dict(
+            DANUBE_LONG_KW, slots=DANUBE_LONG_PLAIN_SLOTS))
+        lp, _ = serve(pl, lw, 64, f"{arch} long mix plain path")
+        free(pl)
+        out["long_cache_shape"] = ring
+        log(f"[dense] {arch} long mix cache k {ring} (ring of "
+            f"{ring[2]} positions under cache_len "
+            f"{DANUBE_LONG_KW['cache_len']})")
+        out["compare"]["long"] = compare_dense(
+            f"{arch} long mix", lk, lp, cfg.vocab_size, LOGIT_TOL,
+            phase="dense")
+        out["in_window"] = danube_in_window(model, plain_model, longs[:4])
+    for mix, c in out["compare"].items():
+        if c["failures"]:
+            raise AssertionError(f"{arch} ({mix}) kernels vs plain: "
+                                 f"{c['failures']}")
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del model, plain_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t_arch
+    log(f"[dense] {arch}: {out['seconds']:.1f} s; (a) "
+        f"{rates_a['requests_per_s']:.1f} requests/s; (b) decode "
+        f"{rates_b['decode_tok_per_s']:.1f} tok/s; peak device memory "
+        f"{out['peak_memory_bytes'] / 1e9:.2f} GB")
+    return out
+
+
+def phase_dense() -> dict:
+    """Phase 8: the dense GQA decoders and the sliding-window decoder, one
+    model resident at a time."""
+    out = {"launches": {}}
+    for arch in DENSE_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        out[arch] = res = dense_arch(arch)
+        for path, counts in res["launches"].items():
+            out["launches"][f"{arch} {path}"] = counts
+    return out
+
+
 class PlantFault:
     """For --faults: breaks one kernel entry point at run time (the code
     stays as it is) while active. ``gemm_drop_expert`` zeroes the grouped
@@ -3378,6 +3833,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["zamba2"] = phase_zamba2()
     phase_done("zamba2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["dense"] = phase_dense()
+    phase_done("dense")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's launches on the main paths, summed over its entry points
@@ -3386,7 +3845,7 @@ def main() -> int:
     runs = [run for phase in (serve_out, report["runtime"],
                               report["multihost"], report["frontdoor"],
                               report["train"], report["deepseek"],
-                              report["zamba2"])
+                              report["zamba2"], report["dense"])
             for run in phase["launches"].values()]
     kernels = []
     for name, row in rows.items():
@@ -3399,6 +3858,8 @@ def main() -> int:
     report["ssd_scan_cases"] = rows["ssd_scan"]["cases"]
     report["d112"] = {k: rows[k]["d112"]
                       for k in ("flash_attention", "flash_decode")}
+    report["wide"] = {k: rows[k]["wide"] for k in (
+        "flash_attention", "flash_decode", "paged_flash_decode")}
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     if args.out:

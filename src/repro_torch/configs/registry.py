@@ -1,8 +1,10 @@
 """Architecture registry of the port: ``arch id -> ModelConfig``.
 
-The port serves the dense SmolLM2-1.7B, the MLA + MoE
-DeepSeek-V2-Lite-16B and the Mamba2 + shared-attention hybrid Zamba2-7B
-so far. The reference's other architectures are known
+The port serves the dense GQA/MHA decoders SmolLM2-1.7B, Granite-3-2B,
+StableLM-12B and Nemotron-4-15B, the sliding-window decoder
+H2O-Danube-1.8B, the MLA + MoE DeepSeek-V2-Lite-16B and the Mamba2 +
+shared-attention hybrid Zamba2-7B so far. The reference's other
+architectures are known
 by name and raise, naming the port slice that brings their model family
 (or, for one, why one card cannot hold it).
 """
@@ -11,21 +13,24 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as DEEPSEEK_V2_LITE
+from repro_torch.configs.granite_3_2b import CONFIG as GRANITE_3_2B
+from repro_torch.configs.h2o_danube_1_8b import CONFIG as H2O_DANUBE_1_8B
+from repro_torch.configs.nemotron_4_15b import CONFIG as NEMOTRON_4_15B
 from repro_torch.configs.smollm2_1_7b import CONFIG as SMOLLM2_1_7B
+from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_12B
 from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
 
 _CONFIGS = {"smollm2-1.7b": SMOLLM2_1_7B,
+            "granite-3-2b": GRANITE_3_2B,
+            "h2o-danube-1.8b": H2O_DANUBE_1_8B,
+            "stablelm-12b": STABLELM_12B,
+            "nemotron-4-15b": NEMOTRON_4_15B,
             "deepseek-v2-lite-16b": DEEPSEEK_V2_LITE,
             "zamba2-7b": ZAMBA2_7B}
 
 # arch id -> why it is not built yet: the later port slice that brings it
 # (ROADMAP.md, queue 1), or what stands in its way
 _LATER = {
-    "stablelm-12b": "it arrives with the port slice for dense GQA decoders",
-    "nemotron-4-15b": "it arrives with the port slice for dense GQA decoders",
-    "granite-3-2b": "it arrives with the port slice for dense GQA decoders",
-    "h2o-danube-1.8b": "it arrives with the port slice for sliding-window "
-                       "ring-buffer caches",
     "whisper-small": "it arrives with the port slice for the audio "
                      "encoder-decoder family",
     "xlstm-350m": "it arrives with the port slice for the SSM/xLSTM family",

@@ -9,9 +9,9 @@
 // (row pt[b, t / P] * P + t % P), so any page size works and only table
 // columns j < ceil(n / P) are ever read. Keys at or past the slot's length
 // n are never read, and a slot with n == 0 gets exact zeros. f32 or bf16,
-// D 16, 32, 64, 112 (Zamba2's shared block) or 128, f32 softmax and
-// accumulators (the reference's -1e30 sentinel, max(l, 1e-30)); 64-bit
-// offsets.
+// D 16, 32, 64, 80 (H2O-Danube), 112 (Zamba2's shared block), 128 or 160
+// (StableLM-12B), f32 softmax and accumulators (the reference's -1e30
+// sentinel, max(l, 1e-30)); 64-bit offsets.
 //
 // What bounds it on the H100: one query token reads every live K/V byte
 // once and does ~1 FLOP per byte, so the least time is the live cache bytes
@@ -31,7 +31,9 @@
 //     accumulators and its (m, l) per head to scratch the wrapper allocates.
 //   * In a block, a lane group of kLanes lanes holds one K/V row: each lane
 //     loads 16 bytes of it straight into registers (a D 64 bf16 row is 8
-//     lanes, a D 112 row 14 of 16), so a warp holds 32 / kLanes rows and
+//     lanes, a D 80 row 10 of 16, a D 112 row 14 of 16; a row of more than
+//     32 chunks, f32 at D 160, gives each lane kPer adjacent chunks, 2 x 16
+//     bytes on 20 of 32 lanes), so a warp holds 32 / kLanes rows and
 //     each lane keeps U rows of K and of V in flight before their first use;
 //     no shared-memory staging. Scores come from shuffle reductions within
 //     the lane group, every lane runs the online softmax of its group's
@@ -86,12 +88,17 @@ __host__ __device__ constexpr int pow2_at_least(int x) {
   return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2);
 }
 
-// How a row of D values of T spreads over the lanes of a warp.
+// How a row of D values of T spreads over the lanes of a warp: lane c of
+// a row's group holds chunks c * kPer .. c * kPer + kPer - 1 (those below
+// kChunks), kW values.
 template <typename T, int D>
 struct RowLayout {
-  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // a lane
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // a chunk
   static constexpr int kChunks = D / kVec;  // 16-byte chunks a row
-  static constexpr int kLanes = pow2_at_least(kChunks);  // lanes a row
+  static constexpr int kPer = (kChunks + 31) / 32;  // chunks a lane
+  static constexpr int kW = kPer * kVec;            // values a lane
+  static constexpr int kLanes =
+      pow2_at_least((kChunks + kPer - 1) / kPer);   // lanes a row
   static constexpr int kRows = 32 / kLanes;  // rows a warp holds at once
   static_assert(D % kVec == 0 && kLanes <= 32, "unsupported head dim");
 };
@@ -133,12 +140,15 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
                float* __restrict__ part, float* __restrict__ part_ml, int H,
                int Hkv, int nsplit, float scale) {
   using L = RowLayout<T, D>;
-  constexpr int V = L::kVec, LN = L::kLanes, RW = L::kRows;
+  constexpr int V = L::kVec, NP = L::kPer, W = L::kW, LN = L::kLanes,
+                RW = L::kRows;
   constexpr int U = kG <= 4 ? 4 : 2;  // rows in flight a lane group
-  constexpr bool kQReg = kG * V <= 32;  // q in registers, else shared
-  __shared__ float sq[kG * D];
-  __shared__ float sacc[kWarps][kG][D];
+  constexpr bool kQReg = kG * W <= 32;  // q in registers, else shared
+  // q while the keys are read, then each warp's merged accumulators
+  // (kG x D a warp); one buffer keeps the block under 48 KB at D 160
+  __shared__ float sbuf[kWarps * kG * D];
   __shared__ float sml[kWarps][kG][2];
+  float* sq = sbuf;
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int n = live_length(rows, lengths, active, b);
@@ -148,63 +158,80 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
   const int G = H / Hkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int grp = lane / LN;  // the row this lane's group holds
-  const int c = lane % LN;    // its 16-byte chunk of the row
-  const bool has = c < L::kChunks;
+  const int c = lane % LN;    // its chunks c * NP .. of the row
+  bool has[NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) has[j] = c * NP + j < L::kChunks;
 
   const T* qb = q + ((long long)b * H + (long long)kvh * G) * D;
   for (int i = tid; i < kG * D; i += kThreads)
     sq[i] = i < G * D ? to_float(qb[i]) : 0.f;
   __syncthreads();
-  float qr[kQReg ? kG : 1][V];
+  float qr[kQReg ? kG : 1][W];
   if constexpr (kQReg) {
 #pragma unroll
     for (int g = 0; g < kG; ++g)
 #pragma unroll
-      for (int i = 0; i < V; ++i) qr[g][i] = has ? sq[g * D + c * V + i] : 0.f;
+      for (int e = 0; e < W; ++e)
+        qr[g][e] = has[e / V] ? sq[g * D + c * W + e] : 0.f;
   }
 
-  float m[kG], l[kG], acc[kG][V];
+  float m[kG], l[kG], acc[kG][W];
 #pragma unroll
   for (int g = 0; g < kG; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[g][i] = 0.f;
+    for (int e = 0; e < W; ++e) acc[g][e] = 0.f;
   }
 
   const long long rstride = (long long)Hkv * D;
-  const T* kb = k + (long long)kvh * D + c * V;
-  const T* vb = v + (long long)kvh * D + c * V;
+  const T* kb = k + (long long)kvh * D + c * W;
+  const T* vb = v + (long long)kvh * D + c * W;
   constexpr int kStep = kWarps * RW * U;  // keys a block iteration
   for (int t0 = t_lo + warp * RW * U; t0 < t_hi; t0 += kStep) {
-    uint4 kr[U], vr[U];
+    uint4 kr[U][NP], vr[U][NP];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = t0 + u * RW + grp;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (has && t < t_hi) {
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        kr[u][j] = vr[u][j] = make_uint4(0u, 0u, 0u, 0u);
+      if (t < t_hi) {
         const long long off = rows.row(b, t) * rstride;
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + off));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + off));
+#pragma unroll
+        for (int j = 0; j < NP; ++j)
+          if (has[j]) {
+            kr[u][j] = __ldg(reinterpret_cast<const uint4*>(kb + off +
+                                                            j * V));
+            vr[u][j] = __ldg(reinterpret_cast<const uint4*>(vb + off +
+                                                            j * V));
+          }
       }
     }
     float s[U][kG];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kx[V];
-      unpack(kr[u], kx);
+      float kx[W];
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        float x[V];
+        unpack(kr[u][j], x);
+#pragma unroll
+        for (int i = 0; i < V; ++i) kx[j * V + i] = x[i];
+      }
       const bool live = t0 + u * RW + grp < t_hi;
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
         float dot = 0.f;
 #pragma unroll
-        for (int i = 0; i < V; ++i) {
+        for (int e = 0; e < W; ++e) {
           float qv;
           if constexpr (kQReg)
-            qv = qr[g][i];
+            qv = qr[g][e];
           else
-            qv = has ? sq[g * D + c * V + i] : 0.f;
-          dot = fmaf(qv, kx[i], dot);
+            qv = has[e / V] ? sq[g * D + c * W + e] : 0.f;
+          dot = fmaf(qv, kx[e], dot);
         }
 #pragma unroll
         for (int off = LN / 2; off > 0; off >>= 1)
@@ -229,13 +256,17 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
       l[g] = fmaf(l[g], corr, sum);
       m[g] = mx;
 #pragma unroll
-      for (int i = 0; i < V; ++i) acc[g][i] *= corr;
+      for (int e = 0; e < W; ++e) acc[g][e] *= corr;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float vx[V];
-        unpack(vr[u], vx);
 #pragma unroll
-        for (int i = 0; i < V; ++i) acc[g][i] = fmaf(p[u], vx[i], acc[g][i]);
+        for (int j = 0; j < NP; ++j) {
+          float vx[V];
+          unpack(vr[u][j], vx);
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            acc[g][j * V + i] = fmaf(p[u], vx[i], acc[g][j * V + i]);
+        }
       }
     }
   }
@@ -252,19 +283,20 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
       l[g] = fmaf(l[g], a, lo * bo);
       m[g] = mx;
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][i], off);
-        acc[g][i] = fmaf(acc[g][i], a, ao * bo);
+      for (int e = 0; e < W; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+        acc[g][e] = fmaf(acc[g][e], a, ao * bo);
       }
     }
   }
+  __syncthreads();  // every warp is done with q before sbuf takes sacc
+  float* sacc = sbuf;  // [kWarps][kG][D]
   if (grp == 0) {
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
-      if (has) {
 #pragma unroll
-        for (int i = 0; i < V; ++i) sacc[warp][g][c * V + i] = acc[g][i];
-      }
+      for (int e = 0; e < W; ++e)
+        if (has[e / V]) sacc[(warp * kG + g) * D + c * W + e] = acc[g][e];
       if (c == 0) {
         sml[warp][g][0] = m[g];
         sml[warp][g][1] = l[g];
@@ -282,7 +314,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
     for (int w = 0; w < kWarps; ++w) {
       const float a = expf(sml[w][g][0] - mx);
       lt = fmaf(sml[w][g][1], a, lt);
-      at = fmaf(sacc[w][g][dd], a, at);
+      at = fmaf(sacc[(w * kG + g) * D + dd], a, at);
     }
     const long long o = ((long long)b * H + (long long)kvh * G + g) * nsplit +
                         split;
@@ -365,7 +397,8 @@ cudaError_t launch_g(int G, const void* q, const void* k, const void* v,
 }
 
 // Checks the head counts and the scratch's split count, then dispatches on
-// dtype, head_dim (a template argument: 16, 32, 64, 112 or 128) and group.
+// dtype, head_dim (a template argument: 16, 32, 64, 80, 112, 128 or 160)
+// and group.
 // part is (B, H, nsplit, D) f32 and part_ml (B, H, nsplit, 2) f32, nsplit
 // = ceil(rows.limit() / kSplit). Returns the CUDA error code of the
 // launches.
@@ -393,8 +426,10 @@ int launch_any(const void* q, const void* k, const void* v, Rows rows,
       REPRO_DECODE_CASE(__nv_bfloat16, 16)
       REPRO_DECODE_CASE(__nv_bfloat16, 32)
       REPRO_DECODE_CASE(__nv_bfloat16, 64)
+      REPRO_DECODE_CASE(__nv_bfloat16, 80)
       REPRO_DECODE_CASE(__nv_bfloat16, 112)
       REPRO_DECODE_CASE(__nv_bfloat16, 128)
+      REPRO_DECODE_CASE(__nv_bfloat16, 160)
       default:
         return cudaErrorInvalidValue;
     }
@@ -404,8 +439,10 @@ int launch_any(const void* q, const void* k, const void* v, Rows rows,
       REPRO_DECODE_CASE(float, 16)
       REPRO_DECODE_CASE(float, 32)
       REPRO_DECODE_CASE(float, 64)
+      REPRO_DECODE_CASE(float, 80)
       REPRO_DECODE_CASE(float, 112)
       REPRO_DECODE_CASE(float, 128)
+      REPRO_DECODE_CASE(float, 160)
       default:
         return cudaErrorInvalidValue;
     }

@@ -14,9 +14,9 @@
 //     narrow K/V are never repeated in memory.
 //
 // Layout: q (B, S, H, D), k and v (B, T, Hkv, D), out (B, S, H, D), all
-// contiguous, in f32 or bf16; D is 16, 32, 64, 112 (Zamba2's shared block)
-// or 128. Causal, sliding-window or full attention; ragged S and T are
-// masked here. Scores, softmax and the output accumulator are f32, with the
+// contiguous, in f32 or bf16; D is 16, 32, 64, 80 (H2O-Danube), 112
+// (Zamba2's shared block), 128 or 160 (StableLM-12B). Causal,
+// sliding-window or full attention; ragged S and T are masked here. Scores, softmax and the output accumulator are f32, with the
 // reference's -1e30 sentinel and max(l, 1e-30): masked scores get a weight
 // of exactly 0, so a row with no visible key comes out as zeros, never NaN.
 //
@@ -26,15 +26,18 @@
 //
 // The bf16 route (the serving path):
 //   * Q.K^T and P.V run on wgmma (m64n64k16 for the scores, m64nNk16 for
-//     P.V with N = D rounded up to 64), f32 accumulate. The online softmax
-//     (m, l, the output accumulator) stays in registers in f32; P is
+//     P.V with N = D rounded up to 64: one n64 or n128 product, or at
+//     D 160 an n128 and an n64 product over the three 64-column boxes of
+//     V), f32 accumulate. The online softmax (m, l, the output
+//     accumulator) stays in registers in f32; P is
 //     rounded to bf16 and fed to the P.V wgmma from registers (the score
 //     accumulator's layout is the A fragment's), so it never touches shared
 //     memory.
 //   * Q, K and V tiles come in by TMA: 4-D tensor maps over (D, H or Hkv, S
 //     or T, B) with boxes of 64 columns x 64 rows, 128B-swizzled. Columns
-//     past D (the second box at D = 112, the one box at D < 64) and rows past
-//     S or T are zero-filled by TMA, never read from the next head or row.
+//     past D (the last box at D = 80, 112 and 160, the one box at D < 64)
+//     and rows past S or T are zero-filled by TMA, never read from the
+//     next head or row.
 //     K and V have rings of kStages stages each, guarded by mbarriers (full:
 //     the producer's expect_tx and the TMA bytes; empty: every consumer
 //     thread's arrival), so the next tile's K lands while this tile's V is
@@ -43,6 +46,9 @@
 //     and one producer warp (one thread issues every TMA load); grid
 //     (ceil(S / 64), B * H), the causal blocks late in the sequence first;
 //     two or three blocks an SM overlap one another's products and softmax.
+//     At D 160 a stage of K and V is 48 KB, so the rings hold one stage
+//     each (74 KB a block) to keep two blocks an SM, rather than two
+//     stages and one block.
 //     The output leaves through shared memory (the Q tile) by a TMA store
 //     clipped at D and S.
 //   * Fully masked key tiles are skipped: the loop starts at the sliding
@@ -80,7 +86,8 @@ constexpr int kSP = kBK + 1;   // padded row stride of the P tile
 
 template <int D>
 constexpr int smem_floats() {
-  // Q tile + K tile (rows padded to D + 1), V tile, P tile
+  // Q tile + K tile (rows padded to D + 1), V tile, P tile (at D 160
+  // about 140 KB: one block an SM)
   return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kSP;
 }
 
@@ -255,26 +262,41 @@ struct Cfg {
   static constexpr int kNV = kBoxes * 64;           // P.V's N
   static constexpr int kAcc = kNV / 2;              // P.V accumulator a thread
   static constexpr int kKSteps = (D + 15) / 16;     // Q.K^T's k16 steps
-  static constexpr int kStages = D <= 64 ? 3 : 2;   // of K and of V each
+  // of K and of V each; at D 160 one, so that two blocks fit an SM
+  static constexpr int kStages = D <= 64 ? 3 : D <= 128 ? 2 : 1;
   static constexpr int kSmem =
       1024 + kTile + kStages * 2 * kTile + (4 * kStages + 1) * 8;
   static constexpr int kMinBlocks = 2;  // blocks an SM
 };
 
+// O (64 x N) += P (64 x 16, registers) . V (16 keys x N): v points at the
+// 16 keys' rows of the tile's first 64-column box, the next box kBox on
 template <int N>
 __device__ __forceinline__ void pv_mma(float (&o)[N / 2],
-                                       const uint32_t (&a)[4], uint64_t db);
+                                       const uint32_t (&a)[4],
+                                       const unsigned char* v);
 template <>
 __device__ __forceinline__ void pv_mma<64>(float (&o)[32],
                                            const uint32_t (&a)[4],
-                                           uint64_t db) {
-  wgmma_m64n64_rs<1>(o, a, db);
+                                           const unsigned char* v) {
+  wgmma_m64n64_rs<1>(o, a, smem_desc(v, kBox, 1024));
 }
 template <>
 __device__ __forceinline__ void pv_mma<128>(float (&o)[64],
                                             const uint32_t (&a)[4],
-                                            uint64_t db) {
-  wgmma_m64n128_rs<1>(o, a, db);
+                                            const unsigned char* v) {
+  wgmma_m64n128_rs<1>(o, a, smem_desc(v, kBox, 1024));
+}
+// no n192 wgmma here: boxes 0-1 by one n128 product, box 2 by an n64 one;
+// columns 8 j .. 8 j + 7 of the accumulator are o[4 j .. 4 j + 3] in both
+template <>
+__device__ __forceinline__ void pv_mma<192>(float (&o)[96],
+                                            const uint32_t (&a)[4],
+                                            const unsigned char* v) {
+  wgmma_m64n128_rs<1>(*reinterpret_cast<float(*)[64]>(&o[0]), a,
+                      smem_desc(v, kBox, 1024));
+  wgmma_m64n64_rs<1>(*reinterpret_cast<float(*)[32]>(&o[64]), a,
+                     smem_desc(v + 2 * kBox, kBox, 1024));
 }
 
 // keeps the compiler from moving the registers of a wgmma across its
@@ -508,8 +530,7 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      pv_mma<C::kNV>(o, pa[kk],
-                     smem_desc(v_tile + kk * 16 * 128, kBox, 1024));
+      pv_mma<C::kNV>(o, pa[kk], v_tile + kk * 16 * 128);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -616,7 +637,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// head_dim is a template argument: 16, 32, 64, 112 or 128
+// head_dim is a template argument: 16, 32, 64, 80, 112, 128 or 160
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_len, const int* q_offset, void* out, int B,
@@ -659,12 +680,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       err = launch<64>(q, k, v, kv_len, q_offset, out, B, S, T, H, Hkv,
                        causal, window, scale, dtype, st);
       break;
+    case 80:
+      err = launch<80>(q, k, v, kv_len, q_offset, out, B, S, T, H, Hkv,
+                       causal, window, scale, dtype, st);
+      break;
     case 112:
       err = launch<112>(q, k, v, kv_len, q_offset, out, B, S, T, H, Hkv,
                         causal, window, scale, dtype, st);
       break;
     case 128:
       err = launch<128>(q, k, v, kv_len, q_offset, out, B, S, T, H, Hkv,
+                        causal, window, scale, dtype, st);
+      break;
+    case 160:
+      err = launch<160>(q, k, v, kv_len, q_offset, out, B, S, T, H, Hkv,
                         causal, window, scale, dtype, st);
       break;
     default:

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 112, 128)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160)
 MAX_GROUP = 16  # query heads per KV head one block handles (kMaxG)
 
 DECODE_SPLIT = 256    # keys a split of the GQA decode kernel (kSplit)

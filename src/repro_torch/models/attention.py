@@ -243,11 +243,17 @@ def grouped_attention_narrow(q: torch.Tensor, cache_k: torch.Tensor,
 
 def attend_decode(p, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
                   cache_v: torch.Tensor, lengths: torch.Tensor,
+                  layer_window: int = 0,
                   active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token decode. x (B,1,d); cache (B,Scache,Hkv,D) updated in place
-    at ``min(lengths, Scache-1)`` for active rows; lengths (B,). Returns
-    y (B,1,d). With kernels, inactive rows do no attention work and their
-    (discarded) output is zero."""
+    for active rows; lengths (B,). A full cache is written at
+    ``min(lengths, Scache-1)``; with ``layer_window`` the cache is a ring
+    buffer (Scache == min(cache_len, window)) written at ``lengths %
+    Scache``, whose first ``min(lengths+1, Scache)`` slots are valid. The
+    softmax does not care in which order the valid keys sit, so the ring
+    goes through the same decode kernel. Returns y (B,1,d). With kernels,
+    inactive rows do no attention work and their (discarded) output is
+    zero."""
     c = cdt(cfg)
     q = _proj(x, p.wq, c)
     k_new = _proj(x, p.wk, c)
@@ -260,19 +266,23 @@ def attend_decode(p, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
     k_new = apply_rope(k_new, cos, sin)
 
     s_cache = cache_k.shape[1]
-    slot = torch.clamp(lengths.long(), max=s_cache - 1)
+    slot = (lengths.long() % s_cache if layer_window
+            else torch.clamp(lengths.long(), max=s_cache - 1))
     write_cache_row(cache_k, k_new[:, 0], slot, active)
     write_cache_row(cache_v, v_new[:, 0], slot, active)
 
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    n_valid = torch.clamp(lengths + 1, max=s_cache)
     if cfg.use_kernels:
-        n_valid = torch.clamp(lengths + 1, max=s_cache).to(torch.int32)
         out = kops.flash_decode(q[:, 0].contiguous(), cache_k, cache_v,
-                                n_valid, scale=scale,
+                                n_valid.to(torch.int32), scale=scale,
                                 active=active)[:, None]
     else:
         pos = torch.arange(s_cache, device=cache_k.device)
-        valid = pos[None, :] <= lengths.long()[:, None]
+        if layer_window:
+            valid = pos[None, :] < n_valid.long()[:, None]
+        else:
+            valid = pos[None, :] <= lengths.long()[:, None]
         out = grouped_attention_narrow(q * scale, cache_k, cache_v,
                                        valid)[:, :1]
     return _out_proj(out, p.wo, c)

@@ -1,9 +1,10 @@
-"""Decoder-only transformer: the dense family and the MoE family with
-DeepSeek's Multi-head Latent Attention.
+"""Decoder-only transformer: the dense family (full or sliding-window
+attention) and the MoE family with DeepSeek's Multi-head Latent Attention.
 
 Port of ``repro.models.transformer.build_decoder`` for ``family="dense"``
-(GQA/MHA attention, dense MLPs) and ``family="moe"`` with MLA attention
-(DeepSeek-V2-Lite), as ``nn.Module``s. ``Transformer`` has the methods of
+(GQA/MHA attention, full or with a sliding window, dense MLPs) and
+``family="moe"`` with MLA attention (DeepSeek-V2-Lite), as
+``nn.Module``s. ``Transformer`` has the methods of
 the reference's ``Model`` record: ``init_cache``, ``forward``, ``prefill``,
 ``prefill_shared``, ``decode_step`` and ``decode_paged`` (``init`` is
 ``repro_torch.weights.init_params``). Layers are ``ModuleList``s instead of
@@ -17,17 +18,21 @@ The KV cache holds one tensor per cache leaf, stacked over all layers in
 the order they run (the reference's ``{"dense0": [...], "layers": ...}``
 flattened to one layer axis): ``{"k", "v"}`` of shape (L, B, S, Hkv, D)
 for GQA/MHA, ``{"ckv": (L, B, S, R), "krope": (L, B, S, dr)}`` (the
-compressed latent and the shared rope key) for MLA. The paged pool is the
-same dict built as ``init_cache(num_pages + 1, page_size)``, pages where
-the slots were. The methods update the cache in place and return only the
-logits, where the reference returned a new cache. Parameters are built
+compressed latent and the shared rope key) for MLA. A sliding-window
+model's K/V are ring buffers of ``min(cache_len, window)`` positions
+(``attention.attend_decode``). The paged pool is the same dict built as
+``init_cache(num_pages + 1, page_size)``, pages where the slots were. The
+methods update the cache in place and return only the logits, where the
+reference returned a new cache. Parameters are built
 frozen (``requires_grad=False``): a model that trains turns them on
 (``repro_torch.train.trainable``), a serving model never does.
 
-``prefill_shared`` (tail-only prefill for prefix sharing) is None for MoE
-or MLA models, as the reference's ``Model.prefill_shared`` is: MLA latents
-recompress and MoE routing is sequence-dependent, so a tail-only prefill
-could diverge from a whole one.
+``prefill_shared`` (tail-only prefill for prefix sharing) is None for MoE,
+MLA or sliding-window models, as the reference's ``Model.prefill_shared``
+is: MLA latents recompress and MoE routing is sequence-dependent, so a
+tail-only prefill could diverge from a whole one, and ring buffers do not
+page. ``decode_paged`` is None for sliding-window models likewise, so the
+engine keeps them on the slot cache.
 """
 
 from __future__ import annotations
@@ -45,6 +50,12 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, cdt, embed,
 from repro_torch.serving.kvcache import merge_slots
 
 Cache = Dict[str, torch.Tensor]
+
+
+def _window(cfg) -> int:
+    """The attention window of every layer: ``cfg.sliding_window`` for the
+    sliding-window family, else 0 (full attention)."""
+    return cfg.sliding_window if cfg.attention == "sliding_window" else 0
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
@@ -151,7 +162,8 @@ class MoE(nn.Module):
 
 
 class Block(nn.Module):
-    """One decoder block: GQA/MHA or MLA attention, then a dense MLP (of
+    """One decoder block: GQA/MHA (full or over the last ``window`` keys,
+    its cache then a ring buffer) or MLA attention, then a dense MLP (of
     width ``d_ff``) or, with ``use_moe``, the MoE FFN."""
 
     def __init__(self, cfg, device, use_moe: bool = False,
@@ -159,6 +171,7 @@ class Block(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.mla = cfg.attention == "mla"
+        self.window = _window(cfg)
         self.ln1 = Norm(cfg, device)
         self.attn = (MLAAttention(cfg, device) if self.mla
                      else Attention(cfg, device))
@@ -187,7 +200,9 @@ class Block(nn.Module):
                                      positions=positions, kv_len=kv_len)
         else:
             a, kv = attn.attend_prefill(self.attn, h, self.cfg,
-                                        positions=positions, kv_len=kv_len)
+                                        positions=positions,
+                                        layer_window=self.window,
+                                        kv_len=kv_len)
         x, aux = self._ffn(x + a)
         return x, kv, aux
 
@@ -210,6 +225,7 @@ class Block(nn.Module):
         else:
             a = attn.attend_decode(self.attn, h, self.cfg, cache_k=kv[0],
                                    cache_v=kv[1], lengths=lengths,
+                                   layer_window=self.window,
                                    active=active)
         return self._ffn(x + a)[0]
 
@@ -237,18 +253,22 @@ class Embedding(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Dense decoders (smollm2 and the other dense GQA/MHA configs) and MoE
-    decoders with MLA attention (deepseek-v2-lite)."""
+    """Dense decoders with full attention (smollm2, granite, stablelm,
+    nemotron) or a sliding window (h2o-danube), and MoE decoders with MLA
+    attention (deepseek-v2-lite)."""
 
     def __init__(self, cfg, device):
         super().__init__()
         if (cfg.family, cfg.attention) not in (("dense", "full"),
+                                               ("dense", "sliding_window"),
                                                ("moe", "mla")):
             raise NotImplementedError(
-                f"the port builds dense full-attention decoders and MoE "
-                f"decoders with MLA so far; {cfg.arch_id!r} is family "
-                f"{cfg.family!r} with {cfg.attention!r} attention")
+                f"the port builds dense decoders with full or "
+                f"sliding-window attention and MoE decoders with MLA so "
+                f"far; {cfg.arch_id!r} is family {cfg.family!r} with "
+                f"{cfg.attention!r} attention")
         self.cfg = cfg
+        self.window = _window(cfg)
         n_dense = cfg.moe.first_dense_layers if cfg.moe.enabled else 0
         self.embed = Embedding(cfg, device)
         self.final_norm = Norm(cfg, device)
@@ -260,8 +280,10 @@ class Transformer(nn.Module):
             for _ in range(cfg.n_layers - n_dense))
         self.cache_names: Tuple[str, str] = (
             ("ckv", "krope") if cfg.attention == "mla" else ("k", "v"))
-        if cfg.moe.enabled or cfg.attention == "mla":
+        if cfg.moe.enabled or cfg.attention == "mla" or self.window:
             self.prefill_shared = None
+        if self.window:
+            self.decode_paged = None
 
     @property
     def device(self) -> torch.device:
@@ -320,13 +342,16 @@ class Transformer(nn.Module):
                    device=None) -> Cache:
         """Zeroed cache in ``dtype`` (default: the compute dtype) on
         ``device`` (default: the model's): {"k", "v"} of shape (L, batch,
-        cache_len, Hkv, D), or for MLA {"ckv": (L, batch, cache_len, R),
-        "krope": (L, batch, cache_len, dr)}."""
+        cache_len, Hkv, D) (``min(cache_len, window)`` positions for a
+        sliding-window model's ring buffers), or for MLA {"ckv": (L, batch,
+        cache_len, R), "krope": (L, batch, cache_len, dr)}."""
         cfg = self.cfg
         lead = (cfg.n_layers, batch, cache_len)
         if cfg.attention == "mla":
             tails = ((cfg.mla.kv_lora_rank,), (cfg.mla.qk_rope_head_dim,))
         else:
+            if self.window:
+                lead = (cfg.n_layers, batch, min(cache_len, self.window))
             tails = ((cfg.n_kv_heads, cfg.resolved_head_dim),) * 2
         dtype = dtype or cdt(cfg)
         device = device or self.device
@@ -342,7 +367,13 @@ class Transformer(nn.Module):
         for i < len(slots) (rows past it are padding and write nothing), or
         into row i when ``slots`` is None; or, with ``page_table`` (B, n),
         into the paged pool through row i's table (padding rows' tables are
-        all TRASH). Returns the logits at position ``lengths - 1``,
+        all TRASH). A ring buffer shorter than S takes the wave's last
+        ``Scache`` columns into positions [0, Scache), as the reference's
+        ``_write_prefill_kv`` does: the last columns of the padded wave,
+        not of each row's prompt, and from column 0, where decode's ring
+        expects position p at p % Scache. So a prompt or wave longer than
+        the window decodes over another key set than ``forward`` attends,
+        in both packages. Returns the logits at position ``lengths - 1``,
         (B, V_pad)."""
         B, S = tokens.shape
         x = embed(self.embed.tok, tokens, self.cfg)
@@ -351,6 +382,8 @@ class Transformer(nn.Module):
             x, kv, _ = blk.prefill(x, positions=positions, kv_len=lengths)
             for dst, src in zip(self._kv(cache, i), kv):
                 if page_table is None:
+                    if self.window and S > dst.shape[1]:
+                        src = src[:, S - dst.shape[1]:]
                     merge_slots(dst, src, slots)
                 else:
                     attn._paged_write_span(dst, src, page_table)
@@ -390,8 +423,9 @@ class Transformer(nn.Module):
                     cache: Cache,
                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One token per row. tokens (B,1) at position ``lengths``; the
-        cache is written in place at ``min(lengths, S-1)`` for rows where
-        ``active`` (default: all rows). Returns logits (B, V_pad)."""
+        cache is written in place at ``min(lengths, S-1)`` (a ring buffer
+        at ``lengths % S``) for rows where ``active`` (default: all rows).
+        Returns logits (B, V_pad)."""
         x = embed(self.embed.tok, tokens, self.cfg)
         for i, blk in enumerate(self.blocks):
             x = blk.decode(x, lengths=lengths, kv=self._kv(cache, i),

@@ -158,8 +158,10 @@ class InferenceEngine:
         self.max_stop_tokens = max_stop_tokens
 
         # ---- paged-vs-contiguous resolution: paged=True is a request; a
-        # model with no paged decode (the hybrid's recurrent state) keeps
-        # the slot cache and says why, as the reference's engine does
+        # model with no paged decode (the hybrid's recurrent state, a
+        # sliding window's ring buffers) or a cache whose leaves do not
+        # page keeps the slot cache and says why, in the reference's order
+        # and words
         self.page_size = int(page_size)
         if paged and self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -172,6 +174,14 @@ class InferenceEngine:
                     "sliding-window ring buffers keep the slot cache)")
             elif cache_len <= 8:
                 self.paged_fallback = "cache_len too small to page"
+            elif not paging.pageable(
+                    kvcache.batch_axes(model.init_cache, cache_len,
+                                       cache_dtype),
+                    kvcache.seq_axes(model.init_cache, slots, cache_len,
+                                     cache_dtype)):
+                self.paged_fallback = (
+                    "cache leaves are not (batch, seq)-adjacent or do "
+                    "not scale with cache_len")
             else:
                 self._paged = True
 
@@ -1071,9 +1081,9 @@ class InferenceEngine:
             cap = kvcache.capacity_bytes(self.cache)
             live_tokens = sum(int(self._host_lengths[s])
                               for s in self.active)
-            live = kvcache.live_bytes(self.cache, self._seq_leaves,
-                                      live_tokens,
-                                      self.slots * self.cache_len)
+            live = cap if self._seq_leaves is None else kvcache.live_bytes(
+                self.cache, self._seq_leaves, live_tokens,
+                self.slots * self.cache_len)
         return {
             "active": len(self.active), "queued": len(self.queue),
             "free_slots": len(self.free_slots),

@@ -4,9 +4,12 @@ Port of the slot-cache part of ``repro.serving.kvcache``. Every leaf of
 the port's cache (``{"k", "v"}`` of shape (L, slots, cache_len, Hkv, D),
 MLA's ``{"ckv", "krope"}`` of shape (L, slots, cache_len, R | dr), the
 hybrid's Mamba2 states ``{"ssm", "conv_x", "conv_bc"}`` of shape (L,
-slots, ...)) has the slot axis second, so the batch axis needs no
-discovery (the reference's ``batch_axes``): helpers take one layer's
-(slots, ...) tensor and work in place.
+slots, ...)) has the slot axis second, so the helpers take one layer's
+(slots, ...) tensor and work in place. ``batch_axes`` and ``seq_axes``
+read each leaf's batch and sequence axis from the shapes of caches built
+on the meta device, as the reference's functions of those names do from
+abstract shapes; the engine asks them whether a cache pages
+(``paging.pageable``) and which leaves ``live_bytes`` pro-rates.
 
 * ``merge_slots`` writes a prefill wave's rows into their slots. The
   reference built a whole (slots, cache_len) wave cache and merged it; the
@@ -20,14 +23,16 @@ discovery (the reference's ``batch_axes``): helpers take one layer's
 * ``capacity_bytes`` is the allocated cache, what device memory pays;
   ``live_bytes`` what a snapshot of the live context would ship: the
   leaves with a sequence axis (``seq_leaves``) pro-rated by the
-  live-token share, the rest (a recurrent state) whole.
+  live-token share, the rest (a recurrent state, or a sliding window's
+  ring buffer, which does not scale with ``cache_len`` once it exceeds
+  the window) whole.
 
 The paged pool is ``repro_torch.serving.paged``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, FrozenSet, Optional
+from typing import Callable, Dict, FrozenSet, List, Optional
 
 import torch
 
@@ -64,18 +69,57 @@ def capacity_bytes(cache: Dict[str, torch.Tensor]) -> int:
     return sum(t.numel() * t.element_size() for t in cache.values())
 
 
+def _axes_between(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]
+                  ) -> Dict[str, List[int]]:
+    """Per leaf, the axes on which two caches' shapes differ."""
+    return {n: [i for i, (x, y) in enumerate(zip(t.shape, b[n].shape))
+                if x != y] for n, t in a.items()}
+
+
+def batch_axes(init_cache: Callable, cache_len: int,
+               dtype: Optional[torch.dtype]) -> Dict[str, int]:
+    """Leaf name -> its batch axis, read from caches of 2 and 3 slots built
+    on the meta device (the reference's ``batch_axes``)."""
+    a = init_cache(2, cache_len, dtype, device="meta")
+    b = init_cache(3, cache_len, dtype, device="meta")
+    out = {}
+    for n, diff in _axes_between(a, b).items():
+        if len(diff) != 1:
+            raise ValueError(f"ambiguous batch axis of {n}: "
+                             f"{tuple(a[n].shape)} vs {tuple(b[n].shape)}")
+        out[n] = diff[0]
+    return out
+
+
+def seq_axes(init_cache: Callable, batch: int, cache_len: int,
+             dtype: Optional[torch.dtype]) -> Dict[str, int]:
+    """Leaf name -> its cache-length axis, or -1 for a leaf that does not
+    scale with ``cache_len`` (a ring buffer capped below it, a recurrent
+    state), read as the reference's ``seq_axes`` reads it: caches of
+    ``cache_len`` and ``cache_len - 8`` positions built on the meta device,
+    and the one axis that differs, if its size is ``cache_len``."""
+    if cache_len <= 8:
+        raise ValueError(f"seq_axes needs cache_len > 8, got {cache_len}")
+    a = init_cache(batch, cache_len, dtype, device="meta")
+    b = init_cache(batch, cache_len - 8, dtype, device="meta")
+    return {n: (diff[0] if len(diff) == 1
+                and a[n].shape[diff[0]] == cache_len else -1)
+            for n, diff in _axes_between(a, b).items()}
+
+
 def seq_leaves(init_cache: Callable, cache: Dict[str, torch.Tensor],
                slots: int, cache_len: int,
-               dtype: Optional[torch.dtype]) -> FrozenSet[str]:
+               dtype: Optional[torch.dtype]) -> Optional[FrozenSet[str]]:
     """Names of the leaves of ``cache`` (built by ``init_cache(slots,
-    cache_len, dtype)``) that have a sequence axis, found as the
-    reference's ``seq_axes`` finds them: the leaves whose shape changes
-    with the cache length. The second shape comes from the meta device,
-    so nothing is allocated. A leaf with no sequence axis (a recurrent
-    state, whatever its name) keeps its shape."""
-    probe = init_cache(slots, cache_len + 1, dtype, device="meta")
-    return frozenset(n for n, t in cache.items()
-                     if probe[n].shape != t.shape)
+    cache_len, dtype)``) that scale with the cache length (``seq_axes``),
+    or None when ``cache_len`` is too short to probe (<= 8), where the
+    reference counts the whole cache as live. A leaf that keeps its shape
+    (a recurrent state, whatever its name, or a ring buffer at its
+    window) is not among them."""
+    if cache_len <= 8:
+        return None
+    axes = seq_axes(init_cache, slots, cache_len, dtype)
+    return frozenset(n for n in cache if axes[n] >= 0)
 
 
 def live_bytes(cache: Dict[str, torch.Tensor], seq: FrozenSet[str],

@@ -31,7 +31,8 @@ work on any dict of pool leaves built by ``Transformer.init_cache(num_pages
 + 1, page_size)`` (``{"k", "v"}`` of shape (L, NP+1, P, Hkv, D), or MLA's
 ``{"ckv": (L, NP+1, P, R), "krope": (L, NP+1, P, dr)}``): the page axis
 sits where the slot cache's slot axis is, whatever trails it. Writes are in
-place (the reference returned new arrays).
+place (the reference returned new arrays). ``pageable`` is the reference's
+test that a cache's leaves have that layout.
 """
 
 from __future__ import annotations
@@ -437,3 +438,12 @@ def pool_bytes(pages: Pool, num_pages: int) -> Dict[str, int]:
     per_page = total // (num_pages + 1)
     return {"capacity_bytes": per_page * num_pages,
             "per_page_bytes": per_page}
+
+
+def pageable(batch_axes: Dict[str, int], seq_axes: Dict[str, int]) -> bool:
+    """True iff every cache leaf scales with cache_len and keeps its
+    sequence axis right after its batch axis: the layout
+    ``init_cache(num_pages + 1, page_size)`` relies on (the reference's
+    ``paging.pageable``). ``batch_axes`` and ``seq_axes`` are
+    ``repro_torch.serving.kvcache``'s."""
+    return all(seq_axes[n] == b + 1 for n, b in batch_axes.items())

@@ -56,7 +56,13 @@ def _gemm_tol(dtype, d, exp):
     (2, 128, 4, 4, 64, True, 0), (2, 256, 8, 2, 128, True, 64),
     (2, 200, 4, 4, 64, False, 0), (3, 77, 4, 1, 64, True, 0),
     (2, 160, 4, 4, 112, True, 0), (2, 50, 4, 2, 16, True, 0),
-    (2, 70, 4, 2, 32, False, 0), (1, 20, 2, 2, 112, True, 8)])
+    (2, 70, 4, 2, 32, False, 0), (1, 20, 2, 2, 112, True, 8),
+    # H2O-Danube's head dim 80 (its window), StableLM's 160, groups 1, 4
+    # and Nemotron's 6
+    (3, 200, 4, 4, 80, True, 0), (3, 200, 8, 2, 80, True, 48),
+    (3, 200, 12, 2, 80, True, 0), (3, 200, 4, 4, 160, True, 48),
+    (3, 200, 8, 2, 160, True, 0), (3, 200, 12, 2, 160, True, 48),
+    (2, 130, 12, 2, 128, True, 0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain(cuda, B, S, H, Hkv, D, causal,
                                             window, dtype):
@@ -77,7 +83,12 @@ def test_cuda_flash_attention_matches_plain(cuda, B, S, H, Hkv, D, causal,
 @pytest.mark.parametrize("B,H,Hkv,D,Skv", [(2, 8, 2, 64, 256),
                                            (1, 4, 4, 128, 512),
                                            (3, 16, 1, 64, 100),
-                                           (3, 8, 8, 112, 300)])
+                                           (3, 8, 8, 112, 300),
+                                           (3, 8, 2, 80, 300),
+                                           (3, 12, 2, 80, 4096),
+                                           (2, 8, 2, 160, 256),
+                                           (3, 12, 2, 160, 300),
+                                           (2, 12, 2, 128, 512)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_decode_matches_plain(cuda, B, H, Hkv, D, Skv, dtype):
     q = _rand(0, (B, H, D), cuda, dtype)
@@ -177,7 +188,8 @@ def test_cuda_paged_flash_decode_table_slice_and_trash(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 64), (8, 2, 128)])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 64), (8, 2, 128), (8, 2, 80),
+                                     (12, 2, 80), (8, 2, 160), (12, 2, 160)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_q_offset_matches_plain(cuda, H, Hkv, D, dtype):
     """Tail rows at per-row query offsets over a longer K/V (the shared
@@ -195,7 +207,7 @@ def test_cuda_flash_attention_q_offset_matches_plain(cuda, H, Hkv, D, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 112])
+@pytest.mark.parametrize("D", [64, 80, 112, 160])
 def test_cuda_flash_attention_tail_rows_bitwise_equal_whole_prompt(cuda, D):
     """The prefix-sharing contract of the bf16 (wgmma) route: tail rows
     prefilled at query offsets that are not multiples of the 64-key tile,
@@ -237,7 +249,8 @@ def _slot_as_pages(ck, cv, page, npages, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("page,npages", [(64, 20), (16, 80), (7, 150)])
 @pytest.mark.parametrize("H,Hkv,D", [(32, 32, 64), (32, 32, 112),
-                                     (8, 2, 128)])
+                                     (8, 2, 128), (8, 2, 80), (12, 2, 80),
+                                     (8, 2, 160), (12, 2, 160)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_decode_slot_and_paged_bitwise_equal(cuda, page, npages, H,
                                                   Hkv, D, dtype):
@@ -1108,3 +1121,27 @@ def test_cuda_training_refuses_the_kernels(cuda):
                         device=cuda)
     with pytest.raises(ValueError, match="plain path"):
         make_train_step(model, OptimizerConfig())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,head_dim", [("h2o-danube-1.8b", 80),
+                                           ("stablelm-12b", 160),
+                                           ("nemotron-4-15b", 16)])
+def test_cuda_dense_engines_kernels_match_plain(cuda, arch, head_dim):
+    """Reduced danube (window 32, its ring buffers wrapping), stablelm and
+    nemotron (12 heads over 2: group 6) in f32 at the head dims of their
+    kernels: greedy output with the kernels equals the plain path's."""
+    over = dict(use_kernels=True, head_dim=head_dim)
+    if arch == "nemotron-4-15b":
+        over.update(n_heads=12, n_kv_heads=2)
+    cfg = get_reduced_config(arch, **over)
+    model = build_model(cfg, device=cuda, seed=0)
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                        device=cuda, params=dict(model.state_dict()))
+    rng = np.random.RandomState(0)
+    ps = [list(rng.randint(8, cfg.vocab_size, size=rng.randint(3, 30)))
+          for _ in range(9)]
+    kw = dict(device=cuda, slots=4, cache_len=96, prefill_buckets=(16, 32),
+              megastep=4)
+    with_kernels = InferenceEngine(model, **kw).generate(ps, 40)
+    assert with_kernels == InferenceEngine(plain, **kw).generate(ps, 40)

@@ -47,7 +47,9 @@ def test_port_file_list_is_complete():
             "wire.py", "transport.py", "node.py", "devices.py", "events.py",
             "traces.py", "simulator.py", "session.py",
             "frontdoor.py", "pipeline.py", "shapes.py", "optimizer.py",
-            "trainstep.py", "loop.py", "train.py"} <= names
+            "trainstep.py", "loop.py", "train.py", "granite_3_2b.py",
+            "h2o_danube_1_8b.py", "stablelm_12b.py",
+            "nemotron_4_15b.py"} <= names
 
 
 def test_every_kernel_has_its_source():
