@@ -32,7 +32,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 8192 wave, at head dim 160 and at GQA group 6, the decode
                 at head dim 80 over a full 4096-key ring, at 160 and at
                 group 6, the paged decode at 160, bitwise the slot
-                kernel's, and f32 checks at 80 and 160), with times beside the
+                kernel's, and f32 checks at 80 and 160; the prefill not
+                causal at Whisper's encoder (16 x 1500 frames) and at the
+                cross-attention prefill over a memory (512 queries over
+                Llama-3.2-Vision's 4100 patch keys, 256 over Whisper's
+                1500 frames), the decode over both memories at n_valid =
+                Skv), with times beside the
                 least time the card could take (bound_ms), the achieved
                 TB/s or TFLOP/s, and a PyTorch library call computing the
                 same function where there is one (every kernel and its
@@ -185,7 +190,26 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 launch counts at 0 and must launch what its waves and
                 decode steps call for, and is held against a
                 use_kernels=False engine over the same weights (phase 4's
-                comparison at LOGIT_TOL).
+                comparison at LOGIT_TOL);
+  9. families - xLSTM-350M (sLSTM + mLSTM, no attention), Whisper-small
+                (encoder-decoder) and Llama-3.2-Vision-11B (gated cross-
+                attention image layers, their gates set to 1.0: zero at
+                init, they would add nothing), one at a time, at full
+                width and depth, seeded random bf16 weights drawn on the
+                card, the frontend inputs (Whisper's 16 x 1500 frames,
+                the VLM's 16 x 4100 patches) drawn from a seed as the
+                engine's extra, on the slot cache (a paged request must
+                fall back with the reference's reason): mixes (a) and (b)
+                with the launch counts at 0 (Whisper and the VLM launch
+                the prefill kernel for every self- and cross-attention and
+                encoder layer of a wave and the decode kernel for every
+                self- and cross-attention of a step; xLSTM launches
+                nothing), against a use_kernels=False engine over the
+                same weights (phase 4's comparison at LOGIT_TOL); (b) at
+                megastep 1, whose tokens must equal megastep 8's; xLSTM
+                and Whisper demoted to host and restored, after which (b)
+                decodes the same; the VLM's patches must move its logits
+                by more than LOGIT_TOL.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -228,7 +252,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import gemm_shape  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, extra_inputs  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.serving import (InferenceEngine, Request,  # noqa: E402
                                  ShedError, SLOClass, TenantQuota)
@@ -286,6 +310,15 @@ TF32X3_FLOPS = 495e12 / 3
 # the SSD scan against its plain version, max-abs: the reference's own bound
 # (tests/test_kernels.py::test_ssd_scan_sweep) on outputs of size ~10-100
 SSD_TOL = 2e-3
+# phase 3's rows over a memory (the encoder, the cross prefill and decode),
+# bf16, max-abs as a share of the largest plain output: over T keys of
+# standard-normal K/V an output's scale falls as 1/sqrt(T) (std about
+# sqrt(e / T), 0.026 at T 4100), so TOL's 3e-2 is as large as a typical
+# output there and would pass a kernel that drops keys. 2e-2 of the largest
+# output is a few bf16 steps of it. Each row also runs the kernel with the
+# last partial 64-key tile dropped and requires that to fail this bound.
+CROSS_REL_TOL = 2e-2
+TILE_KEYS = 64
 
 ENGINE_KW = dict(slots=16, cache_len=1024, prefill_buckets=(32, 128, 512),
                  megastep=8, cache_dtype=torch.bfloat16)
@@ -464,6 +497,18 @@ def check(name, err, dtype, extra="", tol=None):
     if not ok:
         raise AssertionError(f"{name}: error {err} above tolerance {tol}")
     return err
+
+
+def planted_tail(name, fault_err, tol, tail):
+    """A check's witness: the kernel run with its last ``tail`` keys (the
+    partial tile) dropped must fail the bound the sound run passed."""
+    caught = fault_err > tol
+    log(f"[kernels] {name} with the last {tail} keys dropped: max_abs_err "
+        f"{fault_err:.3e} (tol {tol:.3e}) {'caught' if caught else 'MISSED'}")
+    if not caught:
+        raise AssertionError(f"{name}: the check cannot see {tail} dropped "
+                             f"keys ({fault_err} <= {tol})")
+    return fault_err
 
 
 def attn_times(label, kernel, library, plain, nbytes, flops, iters):
@@ -776,6 +821,7 @@ def phase_kernels() -> dict:
     rows.update(phase_kernels_ssd())
     phase_kernels_d112(rows)
     phase_kernels_wide(rows)
+    phase_kernels_cross(rows)
     return rows
 
 
@@ -1277,10 +1323,14 @@ def wide_prefill_row(label, gen, B, S, H, Hkv, D, kv_len, window=0,
     return row
 
 
-def wide_decode_row(label, gen, B, H, Hkv, D, Skv, lengths, paged=0):
+def wide_decode_row(label, gen, B, H, Hkv, D, Skv, lengths, paged=0,
+                    memory=False):
     """One timed phase-3 row of the slot decode kernel (and with ``paged``
     = P, of the paged one over the same K/V in scattered pages of P, which
-    must give the slot kernel's bits), bf16, beside SDPA and the bound."""
+    must give the slot kernel's bits), bf16, beside SDPA and the bound.
+    With ``memory`` (a whole cross-attention memory, ``lengths`` = Skv) the
+    row is held to CROSS_REL_TOL of the largest output, and the kernel with
+    the last partial tile's keys dropped must fail that bound."""
     q = randn(gen, (B, H, D), torch.bfloat16)
     ck = randn(gen, (B, Skv, Hkv, D), torch.bfloat16)
     cv = randn(gen, (B, Skv, Hkv, D), torch.bfloat16)
@@ -1330,9 +1380,18 @@ def wide_decode_row(label, gen, B, H, Hkv, D, Skv, lengths, paged=0):
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
                 scale=dk["scale"], enable_gqa=H != Hkv)
+    tol = (CROSS_REL_TOL * float(want.float().abs().max()) if memory
+           else None)
     err = check(f"{name} {label} ({B},{H}/{Hkv},{D}) Skv {Skv} bf16",
                 float((out.float() - want.float()).abs().max()),
-                torch.bfloat16)
+                torch.bfloat16, tol=tol)
+    if memory:
+        tail = Skv % TILE_KEYS or TILE_KEYS
+        short = ops.flash_decode(q, ck, cv, ln - tail, **dk)
+        extra.update(tol=tol, dropped_tail_keys=tail, dropped_tail_err=(
+            planted_tail(f"{name} {label}",
+                         float((short.float() - want.float()).abs().max()),
+                         tol, tail)))
     nbytes, flops = decode_bound(B, H, Hkv, D, lengths, 2, page=paged)
     bms, by = bound_ms(nbytes, flops)
     row = dict(max_abs_err=err, shape=[B, H, Hkv, D, Skv],
@@ -1413,6 +1472,81 @@ def phase_kernels_wide(rows) -> None:
                   float((ops.flash_decode(q, ck, cv, ln, **dk)
                          - ref.flash_decode_ref(q, ck, cv, ln, **dk)).abs()
                         .max()), torch.float32)
+
+
+def cross_prefill_row(label, gen, B, S, T, H, Hkv, D, kv_len=True,
+                      iters=10):
+    """One timed phase-3 row of the prefill kernel, bf16, NOT causal: S
+    queries over T keys (Whisper's encoder at S = T = 1500 with no
+    kv_len; the cross-attention prefill over a memory of T keys with
+    ``kv_len = T`` per row, as ``attend_cached_memory`` calls it), held
+    against the plain version, beside SDPA (no mask) and the bound."""
+    q = randn(gen, (B, S, H, D), torch.bfloat16)
+    k = randn(gen, (B, T, Hkv, D), torch.bfloat16)
+    v = randn(gen, (B, T, Hkv, D), torch.bfloat16)
+    kl = (torch.full((B,), T, dtype=torch.int32, device="cuda") if kv_len
+          else None)
+    kw = dict(causal=False, scale=D ** -0.5, kv_len=kl)
+    out = ops.flash_attention(q, k, v, **kw)
+    sync()
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, **kw)
+    name = (f"flash_attention {label} ({B},{S} over {T},{H}/{Hkv},{D}) bf16 "
+            f"not causal{', kv_len = T' if kv_len else ''}")
+    want = plain().float()
+    tol = CROSS_REL_TOL * float(want.abs().max())
+    err = check(name, float((out.float() - want).abs().max()),
+                torch.bfloat16, tol=tol)
+    tail = T % TILE_KEYS or TILE_KEYS
+    short = ops.flash_attention(q, k, v, **dict(kw, kv_len=torch.full(
+        (B,), T - tail, dtype=torch.int32, device="cuda")))
+    fault = planted_tail(name, float((short.float() - want).abs().max()),
+                         tol, tail)
+    del want, short
+    plain_ms = time_ms(plain, iters=1, warmup=1)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, scale=kw["scale"], enable_gqa=H != Hkv)
+    nbytes, flops = attention_bound(B, S, H, Hkv, D, [T] * B, False, 0, 2)
+    if not kv_len:
+        nbytes -= 4 * B
+    row = dict(max_abs_err=err, tol=tol, dropped_tail_keys=tail,
+               dropped_tail_err=fault, shape=[B, S, T, H, Hkv, D],
+               **attn_times(label, lambda: ops.flash_attention(q, k, v, **kw),
+                            sdpa, plain_ms, nbytes, flops, iters))
+    del q, k, v, out, qt, kt, vt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_kernels_cross(rows) -> None:
+    """Phase 3 at the audio and vision models' shapes, on its own
+    generator: the prefill kernel not causal, at Whisper-small's encoder
+    (16 x 1500 frames, 12/12 heads of 64) and at the cross-attention
+    prefill over a memory (16 x 512 queries over Llama-3.2-Vision's 4100
+    patch keys, 32/8 heads of 128; 16 x 256 over Whisper's 1500 frames,
+    12/12 of 64); the decode kernel over both memories with n_valid =
+    Skv. Neither 1500 nor 4100 is a multiple of the 64-key tile: each row
+    is held to CROSS_REL_TOL and must catch its last partial tile dropped."""
+    gen = np.random.RandomState(9)
+    pre = {"encoder": cross_prefill_row("whisper encoder", gen, 16, 1500,
+                                        1500, 12, 12, 64, kv_len=False),
+           "vision": cross_prefill_row("vision cross prefill", gen, 16, 512,
+                                       4100, 32, 8, 128),
+           "audio": cross_prefill_row("whisper cross prefill", gen, 16, 256,
+                                      1500, 12, 12, 64)}
+    dec = {"vision": wide_decode_row("vision cross memory", gen, 16, 32, 8,
+                                     128, 4100, np.full(16, 4100),
+                                     memory=True),
+           "audio": wide_decode_row("whisper cross memory", gen, 16, 12, 12,
+                                    64, 1500, np.full(16, 1500),
+                                    memory=True)}
+    rows["flash_attention"]["cross"] = pre
+    rows["flash_decode"]["cross"] = dec
 
 
 # ------------------------------------------------------------ 4. serve ----
@@ -1502,7 +1636,11 @@ def serve_rounds(engine, prompts, max_new, label, size=16):
 def expected_launches(engine, waves, steps):
     """What one path of ``waves`` prefill waves and ``steps`` decode steps
     launches. Dense GQA: each layer launches the prefill kernel once per
-    wave and its engine's decode kernel once per step. Zamba2 (slot
+    wave and its engine's decode kernel once per step. xLSTM: nothing
+    (its blocks are torch, as the reference's are XLA). Whisper and the
+    VLM: each attention, self or cross (and Whisper's encoder layers),
+    the prefill kernel once per wave and, decoder side, the decode kernel
+    once per step. Zamba2 (slot
     cache): each Mamba2 layer the SSD scan once per wave (its decode step
     is torch, as the reference's is XLA), each application of the shared
     block the prefill kernel once per wave and the decode kernel once per
@@ -1513,6 +1651,22 @@ def expected_launches(engine, waves, steps):
     Returns (expected counts, the kernels that must have run)."""
     cfg = engine.cfg
     expect = {name: 0 for name in ops.LAUNCHES}
+    if cfg.family == "ssm":
+        return expect, []
+    if cfg.family in ("audio", "vlm"):
+        # Whisper: the encoder's layers and each decoder layer's self- and
+        # cross-attention prefill once per wave, each decoder layer's
+        # self- and cross-attention decode once per step; the VLM: every
+        # self-attention layer and cross block likewise
+        if cfg.family == "audio":
+            n_pre, n_dec = cfg.n_encoder_layers + 2 * cfg.n_layers, \
+                2 * cfg.n_layers
+        else:
+            n_pre = n_dec = cfg.n_layers + cfg.n_layers // cfg.cross_attn_every
+        expect["flash_attention"] = n_pre * waves
+        expect["flash_decode"] = n_dec * steps
+        return expect, ["flash_attention"] + (["flash_decode"] if steps
+                                              else [])
     if cfg.family == "hybrid":
         n_attn = cfg.n_layers // cfg.shared_attn_every
         expect["ssm_scan"] = cfg.n_layers * waves
@@ -3633,6 +3787,220 @@ def phase_dense() -> dict:
     return out
 
 
+# --------------------------------------------------------- 9. families ----
+FAMILY_ARCHS = ("xlstm-350m", "whisper-small", "llama-3.2-vision-11b")
+# the vision model's cross-block gates, zero at init (as in the released
+# model), so that a fresh model's image layers add nothing: set to this
+FAMILY_GATE = 1.0
+
+
+def frontend_extra(cfg, slots, seed) -> dict:
+    """The frontend stub's inputs of ``slots`` rows (``frames`` (16, 1500,
+    768) for Whisper, ``patches`` (16, 4100, 1280) for the VLM; none for
+    xLSTM), standard normal from ``seed``, drawn on the card in bf16."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return {n: torch.randn(t.shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for n, t in extra_inputs(cfg, slots).items()}
+
+
+def vision_witness(model, extra, other) -> dict:
+    """Patches reach the logits: one wave of 16 x 32 tokens prefilled
+    through the kernels with the engine's patches and with other patches
+    from another seed; the logits must move by more than LOGIT_TOL."""
+    cfg = model.cfg
+    rng = np.random.RandomState(4)
+    toks = torch.as_tensor(rng.randint(8, cfg.vocab_size, size=(16, 32)),
+                           dtype=torch.int32, device="cuda")
+    lens = torch.full((16,), 32, dtype=torch.int32, device="cuda")
+    outs = []
+    for ex in (extra, other):
+        cache = model.init_cache(16, 64, torch.bfloat16)
+        outs.append(model.prefill(toks, lens, cache, extra=ex)
+                    [:, :cfg.vocab_size].float())
+        del cache
+    move = float((outs[0] - outs[1]).abs().max())
+    log(f"[families] vision witness: other patches move the first-token "
+        f"logits by {move:.4f} (must exceed {LOGIT_TOL})")
+    if move <= LOGIT_TOL:
+        raise AssertionError("vision: the patches do not reach the logits")
+    return dict(logits_move=move)
+
+
+def family_arch(arch) -> dict:
+    """One of the last model families at full width and depth (seeded
+    random bf16 weights drawn on the card; the vision gates set to
+    FAMILY_GATE) through the kernels on the slot cache, with its frontend
+    inputs from a seed as the engine's ``extra``: mixes (a) and (b) with
+    the launch counts at 0 (Whisper and the VLM must launch both attention
+    kernels, xLSTM none), against a plain engine over the same weights
+    (phase 4's comparison at LOGIT_TOL); (b) again at megastep 1, whose
+    tokens must equal megastep 8's; the paged request's fallback; for
+    xLSTM and Whisper a demote to host and a restore after which (b)
+    decodes the same; for the VLM the witness that the patches reach the
+    logits."""
+    t_arch = time.monotonic()
+    cfg = dataclasses.replace(get_config(arch), use_kernels=True)
+    sync()
+    t0 = time.monotonic()
+    model = build_model(cfg, device="cuda", seed=0)
+    if cfg.family == "vlm":
+        for blk in model.cross:
+            blk.gate_attn.fill_(FAMILY_GATE)
+            blk.gate_mlp.fill_(FAMILY_GATE)
+    sync()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[families] {arch} full width: family {cfg.family}, {cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads}, vocab {cfg.vocab_size}; {n_params} params "
+        f"allocated ({cfg.param_count()} by param_count()), "
+        f"{2 * n_params / 1e9:.2f} GB bf16, drawn on the card in "
+        f"{init_s:.2f} s")
+    plain_model = build_model(dataclasses.replace(cfg, use_kernels=False),
+                              device="cuda", params=dict(model.state_dict()))
+    extra = frontend_extra(cfg, ENGINE_KW["slots"], seed=1)
+    kw = dict(ENGINE_KW, extra=extra or None)
+    facts, longs = fact_prompts(cfg.vocab_size), long_prompts(cfg.vocab_size)
+    out = {"params": n_params, "param_count": cfg.param_count(),
+           "init_s": init_s, "launches": {}, "compare": {},
+           "extra": {n: list(t.shape) for n, t in extra.items()}}
+    eng = InferenceEngine(model, device="cuda", paged=True, **kw)
+    out.update(paged_fallback=eng.paged_fallback)
+    if eng.stats.decode_path != "full" or eng.paged_fallback != (
+            "model has no paged decode path (SSM/xLSTM state and "
+            "sliding-window ring buffers keep the slot cache)"):
+        raise AssertionError(f"{arch}: paged request did not fall back "
+                             f"with the reference's reason")
+    eng.generate([[2, 5]], max_new_tokens=2)
+    (ak, rates_a, bk, rates_b), out["launches"]["ab"] = run_path(
+        eng, f"{arch} (a)+(b) slot cache", lambda: (
+            *serve(eng, facts, 1, f"{arch} (a) fact verification"),
+            *serve(eng, longs, 64, f"{arch} (b) long prompts")))
+    out.update(rates_a=rates_a, rates_b=rates_b,
+               cache_bytes=eng.snapshot()["capacity_bytes"])
+    one = InferenceEngine(model, device="cuda", **dict(kw, megastep=1))
+    b1, _ = serve(one, longs, 64, f"{arch} (b) megastep 1")
+    free(one)
+    out["megastep1_equals_8"] = tokens(b1) == tokens(bk)
+    log(f"[families] {arch} (b) tokens at megastep 1 identical to megastep "
+        f"8's: {out['megastep1_equals_8']}")
+    if not out["megastep1_equals_8"]:
+        raise AssertionError(f"{arch}: megastep 1 and 8 decode differently")
+    plain = InferenceEngine(plain_model, device="cuda", **kw)
+    ap, _ = serve(plain, facts, 1, f"{arch} (a) plain path")
+    bp, _ = serve(plain, longs, 64, f"{arch} (b) plain path")
+    free(plain)
+    del plain, plain_model
+    gc.collect()
+    out["compare"]["a"] = compare_dense(f"{arch} (a)", ak, ap, cfg.vocab_size,
+                                        LOGIT_TOL, phase="families")
+    out["compare"]["b"] = compare_dense(f"{arch} (b)", bk, bp, cfg.vocab_size,
+                                        LOGIT_TOL, phase="families")
+    if cfg.family == "vlm":
+        out["witness"] = vision_witness(model, extra, frontend_extra(
+            cfg, ENGINE_KW["slots"], seed=2))
+    else:
+        t0 = time.monotonic()
+        host = eng.offload_device_state()
+        sync()
+        demote_s = time.monotonic() - t0
+        mem = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        eng.restore_device_state(host)
+        sync()
+        restore_s = time.monotonic() - t0
+        host_bytes = sum(t.numel() * t.element_size()
+                         for part in ("params", "cache", "extra")
+                         for t in host.get(part, {}).values())
+        del host
+        again, _ = serve(eng, longs, 64, f"{arch} (b) after demote/restore")
+        same = tokens(again) == tokens(bk)
+        out["pcm"] = dict(demote_s=demote_s, restore_s=restore_s,
+                          host_bytes=host_bytes,
+                          device_bytes_while_demoted=mem,
+                          b_identical_after_restore=same)
+        log(f"[families] {arch} demote {demote_s:.3f} s, restore "
+            f"{restore_s:.3f} s, {host_bytes / 1e9:.2f} GB on the host "
+            f"(device memory while demoted {mem / 1e9:.2f} GB); (b) after "
+            f"the restore identical: {same}")
+        if not same:
+            raise AssertionError(f"{arch}: (b) decodes differently after "
+                                 f"demote/restore")
+    free(eng)
+    for mix, c in out["compare"].items():
+        if c["failures"]:
+            raise AssertionError(f"{arch} ({mix}) kernels vs plain: "
+                                 f"{c['failures']}")
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del model, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t_arch
+    log(f"[families] {arch}: {out['seconds']:.1f} s; (a) "
+        f"{rates_a['requests_per_s']:.1f} requests/s; (b) decode "
+        f"{rates_b['decode_tok_per_s']:.1f} tok/s; peak device memory "
+        f"{out['peak_memory_bytes'] / 1e9:.2f} GB")
+    return out
+
+
+def xlstm_card_vs_cpu() -> dict:
+    """xLSTM on the card held to the CPU: its kernel and plain engines run
+    the same torch code (it launches no kernel), so ``family_arch`` only
+    compares the card with itself. Here the reduced config in f32, the
+    same seeded weights and a padded wave (two mLSTM chunks, ragged
+    lengths) are prefilled, then decoded for 8 steps (each row's greedy
+    token from the CPU's logits) on the card and on the CPU; every call's
+    logits must agree within TOL[f32]."""
+    cfg = get_reduced_config("xlstm-350m")
+    cpu = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device="cuda", params=dict(cpu.state_dict()))
+    rng = np.random.RandomState(7)
+    S = 2 * cfg.ssm.chunk
+    toks = torch.as_tensor(rng.randint(8, cfg.vocab_size, size=(4, S)),
+                           dtype=torch.int32)
+    lens = torch.tensor([S, S - 23, 17, 3], dtype=torch.int32)
+    caches = [m.init_cache(4, S + 8, torch.float32) for m in (cpu, card)]
+    with torch.no_grad():
+        want = cpu.prefill(toks, lens, caches[0])
+        got = card.prefill(toks.cuda(), lens.cuda(), caches[1])
+        gaps = [float((got.cpu() - want).abs().max())]
+        for _ in range(8):
+            nxt = want[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+            lens = lens + 1
+            want = cpu.decode_step(nxt, lens, caches[0])
+            got = card.decode_step(nxt.cuda(), lens.cuda(), caches[1])
+            gaps.append(float((got.cpu() - want).abs().max()))
+    scale = float(want.abs().max())
+    tol = TOL[torch.float32]
+    log(f"[families] xlstm-350m reduced f32, card vs CPU: prefill then 8 "
+        f"decode steps, largest logits gap per call "
+        f"{[f'{g:.2e}' for g in gaps]} (tol {tol:g}; logits up to "
+        f"{scale:.2f})")
+    if max(gaps) >= tol:
+        raise AssertionError(f"xlstm-350m: card and CPU logits differ by "
+                             f"{max(gaps)}")
+    del card, caches
+    torch.cuda.empty_cache()
+    return dict(gaps=gaps, tol=tol, logits_max=scale)
+
+
+def phase_families() -> dict:
+    """Phase 9: xLSTM-350M, Whisper-small and Llama-3.2-Vision-11B, one
+    model resident at a time; then the reduced xLSTM on the card against
+    the CPU."""
+    t0 = time.monotonic()
+    out = {"launches": {}}
+    for arch in FAMILY_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        out[arch] = res = family_arch(arch)
+        for path, counts in res["launches"].items():
+            out["launches"][f"{arch} {path}"] = counts
+    out["xlstm_card_vs_cpu"] = xlstm_card_vs_cpu()
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 class PlantFault:
     """For --faults: breaks one kernel entry point at run time (the code
     stays as it is) while active. ``gemm_drop_expert`` zeroes the grouped
@@ -3837,6 +4205,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["dense"] = phase_dense()
     phase_done("dense")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["families"] = phase_families()
+    phase_done("families")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's launches on the main paths, summed over its entry points
@@ -3845,7 +4217,8 @@ def main() -> int:
     runs = [run for phase in (serve_out, report["runtime"],
                               report["multihost"], report["frontdoor"],
                               report["train"], report["deepseek"],
-                              report["zamba2"], report["dense"])
+                              report["zamba2"], report["dense"],
+                              report["families"])
             for run in phase["launches"].values()]
     kernels = []
     for name, row in rows.items():
@@ -3860,6 +4233,8 @@ def main() -> int:
                       for k in ("flash_attention", "flash_decode")}
     report["wide"] = {k: rows[k]["wide"] for k in (
         "flash_attention", "flash_decode", "paged_flash_decode")}
+    report["cross"] = {k: rows[k]["cross"] for k in (
+        "flash_attention", "flash_decode")}
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     if args.out:

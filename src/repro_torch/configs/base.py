@@ -8,9 +8,9 @@ give an equal ``key()`` in both packages, so a config built on either side
 names the same model.
 
 One ``ModelConfig`` describes every architecture family the reference
-knows; the port builds the ``dense`` family, the ``moe`` family with MLA
-attention and the ``hybrid`` family so far (see
-``repro_torch.models.registry``).
+knows; the port builds the ``dense``, ``hybrid``, ``ssm`` (xLSTM),
+``audio`` and ``vlm`` families and the ``moe`` family with MLA attention
+(see ``repro_torch.models.registry``).
 """
 
 from __future__ import annotations

@@ -2,11 +2,11 @@
 
 The port serves the dense GQA/MHA decoders SmolLM2-1.7B, Granite-3-2B,
 StableLM-12B and Nemotron-4-15B, the sliding-window decoder
-H2O-Danube-1.8B, the MLA + MoE DeepSeek-V2-Lite-16B and the Mamba2 +
-shared-attention hybrid Zamba2-7B so far. The reference's other
-architectures are known
-by name and raise, naming the port slice that brings their model family
-(or, for one, why one card cannot hold it).
+H2O-Danube-1.8B, the MLA + MoE DeepSeek-V2-Lite-16B, the Mamba2 +
+shared-attention hybrid Zamba2-7B, the recurrent xLSTM-350M, the
+encoder-decoder Whisper-small and the cross-attention VLM
+Llama-3.2-Vision-11B. The reference's one other architecture is known by
+name and raises, saying why one card cannot hold it.
 """
 
 from __future__ import annotations
@@ -15,9 +15,13 @@ from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as DEEPSEEK_V2_LITE
 from repro_torch.configs.granite_3_2b import CONFIG as GRANITE_3_2B
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as H2O_DANUBE_1_8B
+from repro_torch.configs.llama32_vision_11b import \
+    CONFIG as LLAMA32_VISION_11B
 from repro_torch.configs.nemotron_4_15b import CONFIG as NEMOTRON_4_15B
 from repro_torch.configs.smollm2_1_7b import CONFIG as SMOLLM2_1_7B
 from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_12B
+from repro_torch.configs.whisper_small import CONFIG as WHISPER_SMALL
+from repro_torch.configs.xlstm_350m import CONFIG as XLSTM_350M
 from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
 
 _CONFIGS = {"smollm2-1.7b": SMOLLM2_1_7B,
@@ -26,20 +30,17 @@ _CONFIGS = {"smollm2-1.7b": SMOLLM2_1_7B,
             "stablelm-12b": STABLELM_12B,
             "nemotron-4-15b": NEMOTRON_4_15B,
             "deepseek-v2-lite-16b": DEEPSEEK_V2_LITE,
-            "zamba2-7b": ZAMBA2_7B}
+            "zamba2-7b": ZAMBA2_7B,
+            "xlstm-350m": XLSTM_350M,
+            "whisper-small": WHISPER_SMALL,
+            "llama-3.2-vision-11b": LLAMA32_VISION_11B}
 
-# arch id -> why it is not built yet: the later port slice that brings it
-# (ROADMAP.md, queue 1), or what stands in its way
+# arch id -> why it is not built yet: what stands in its way
 _LATER = {
-    "whisper-small": "it arrives with the port slice for the audio "
-                     "encoder-decoder family",
-    "xlstm-350m": "it arrives with the port slice for the SSM/xLSTM family",
-    "llama-3.2-vision-11b": "it arrives with the port slice for the vision "
-                            "cross-attention family",
     "qwen3-moe-235b-a22b": "it does not fit one card: 235 B parameters are "
-                           "470 GB in bf16 against one H100's 80 GB, so it "
-                           "waits for a port slice that shards experts "
-                           "across cards",
+                           "470 GB in bf16 against one H100's 80 GB (and "
+                           "four cards' 320 GB), so it waits for a port "
+                           "slice that shards experts across cards",
 }
 
 ALL_ARCHS = tuple(_CONFIGS)

@@ -1,6 +1,7 @@
-"""Dense GQA/MHA self-attention: prefill, cache writes and one-token decode.
+"""Attention: dense GQA/MHA self-attention (prefill, cache writes,
+one-token decode), cross-attention against a memory, and DeepSeek's MLA.
 
-Port of the dense part of ``repro.models.attention``. Projection weights
+Port of ``repro.models.attention``. Projection weights
 keep the reference's einsum layouts (``wq`` (d, H, hd), ``wk``/``wv``
 (d, Hkv, hd), ``wo`` (H, hd, d)); each projection runs as one matmul over a
 reshaped view.
@@ -12,7 +13,10 @@ arguments) and decode attention to the flash-decode kernels (slot cache or
 paged pool), through ``repro_torch.kernels.ops``. Without it, the ports of
 the reference's XLA paths run: ``blockwise_attention`` for prefill and
 ``grouped_attention_narrow`` for decode (over the gathered pages, for the
-paged pool).
+paged pool). Cross-attention (``attend_cached_memory``: Whisper's decoder
+over its encoder's frames, the vision model's image layers over the
+patches) runs on the same two kernels with kernels on, where the reference
+keeps it on XLA; an encoder's attention is ``attend_prefill`` not causal.
 
 Cache writes are in place (the reference rebuilt the cache arrays), and
 only the rows of active slots are written: into their own slot, or into
@@ -147,21 +151,22 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # -------------------------------------------------------------- prefill ----
 def attend_prefill(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-                   layer_window: int = 0,
+                   layer_window: int = 0, causal: bool = True,
                    kv_len: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention over the whole sequence. Returns (y (B,S,d),
+    """Self-attention over the whole sequence: causal, or with ``causal``
+    False every query over every key (an encoder's). Returns (y (B,S,d),
     (k, v) narrow-head (B,S,Hkv,D))."""
     q, k, v = _project_qkv(p, x, cfg, positions)
     scale = 1.0 / math.sqrt(q.shape[-1])
     if cfg.use_kernels:
         out = kops.flash_attention(
-            q, k, v, causal=True, window=layer_window, scale=scale,
+            q, k, v, causal=causal, window=layer_window, scale=scale,
             kv_len=None if kv_len is None else kv_len.to(torch.int32))
     else:
         out = blockwise_attention(q, _repeat_kv(k, cfg.n_heads),
                                   _repeat_kv(v, cfg.n_heads), scale=scale,
-                                  causal=True, window=layer_window,
+                                  causal=causal, window=layer_window,
                                   kv_len=kv_len)
     return _out_proj(out, p.wo, cdt(cfg)), (k, v)
 
@@ -285,6 +290,62 @@ def attend_decode(p, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
             valid = pos[None, :] <= lengths.long()[:, None]
         out = grouped_attention_narrow(q * scale, cache_k, cache_v,
                                        valid)[:, :1]
+    return _out_proj(out, p.wo, c)
+
+
+# ---------------------------------------------------- cross-attention ----
+def project_memory_kv(p, memory: torch.Tensor, cfg
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V from an encoder's or a vision frontend's memory
+    (B, T, d_mem), once: (k, v) (B, T, Hkv, D) in the compute dtype, no
+    RoPE."""
+    c = cdt(cfg)
+    return _proj(memory, p.wk, c), _proj(memory, p.wv, c)
+
+
+def attend_cached_memory(p, x: torch.Tensor, cfg, mem_k: torch.Tensor,
+                         mem_v: torch.Tensor,
+                         mem_len: Optional[torch.Tensor] = None,
+                         active: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Cross-attention of x (B, S, d) against precomputed memory K/V (B, T,
+    Hkv, D): no RoPE, no cache write; ``mem_len`` (B,) masks memory keys
+    past it. Returns y (B, S, d).
+
+    With ``cfg.use_kernels`` it runs on the port's kernels, where the
+    reference keeps it on XLA: S = 1 (a decode step) on the decode kernel
+    with ``n_valid = mem_len`` (T without it; ``active`` lets inactive
+    rows do no work, their output zeros the caller discards), longer S (a
+    prefill wave) on the prefill kernel, not causal, S queries over T
+    keys. Without, the reference's two plain branches: above 256 queries
+    the blockwise online softmax over K/V repeated to every head, else
+    ``grouped_attention_narrow`` on the narrow K/V with q scaled first."""
+    c = cdt(cfg)
+    q = _proj(x, p.wq, c)
+    if cfg.qk_norm:
+        q = rms_norm_heads(q, p.q_norm, cfg.norm_eps)
+    B, S = q.shape[:2]
+    T = mem_k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if cfg.use_kernels:
+        n = (torch.full((B,), T, dtype=torch.int32, device=q.device)
+             if mem_len is None else mem_len.to(torch.int32))
+        if S == 1:
+            out = kops.flash_decode(q[:, 0].contiguous(), mem_k, mem_v, n,
+                                    scale=scale, active=active)[:, None]
+        else:
+            out = kops.flash_attention(q, mem_k, mem_v, causal=False,
+                                       scale=scale, kv_len=n)
+    elif S > 256:
+        out = blockwise_attention(q, _repeat_kv(mem_k, cfg.n_heads),
+                                  _repeat_kv(mem_v, cfg.n_heads),
+                                  scale=scale, causal=False, kv_len=mem_len)
+    else:
+        pos = torch.arange(T, device=q.device)
+        valid = (torch.ones((B, T), dtype=torch.bool, device=q.device)
+                 if mem_len is None
+                 else pos[None, :] < mem_len.long()[:, None])
+        out = grouped_attention_narrow(q * scale, mem_k, mem_v, valid)
     return _out_proj(out, p.wo, c)
 
 

@@ -33,8 +33,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm
-from repro_torch.models.layers import cdt, embed, unembed
-from repro_torch.models.transformer import Block, Embedding, Norm
+from repro_torch.models.layers import cdt, embed
+from repro_torch.models.transformer import (Block, Embedding, LanguageModel,
+                                          Norm)
 from repro_torch.serving.kvcache import merge_slots, select_slots
 
 Cache = Dict[str, torch.Tensor]
@@ -57,7 +58,7 @@ class MambaLayer(nn.Module):
         self.mamba = ssm.Mamba2(cfg, device)
 
 
-class Hybrid(nn.Module):
+class Hybrid(LanguageModel):
     """The Zamba2 hybrid with the ``Transformer``'s interface
     (``forward_hidden``, ``forward``, ``init_cache``, ``prefill``,
     ``decode_step``); the cache is updated in place."""
@@ -79,10 +80,6 @@ class Hybrid(nn.Module):
         self.layers = nn.ModuleList(MambaLayer(cfg, device)
                                     for _ in range(cfg.n_layers))
 
-    @property
-    def device(self) -> torch.device:
-        return self.embed.tok.device
-
     def _schedule(self) -> Iterator[Tuple[str, int]]:
         """The run order: ("attn", g) before each group of ``every`` Mamba2
         layers ("mamba", layer index), then the tail layers."""
@@ -92,9 +89,6 @@ class Hybrid(nn.Module):
                 yield "mamba", g * self.every + i
         for i in range(self.tail):
             yield "mamba", self.n_groups * self.every + i
-
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return unembed(self.embed.tok, x, self.cfg, self.embed.unembed)
 
     def _mamba_prefill(self, i: int, x: torch.Tensor,
                        valid: Optional[torch.Tensor], want_state: bool):
@@ -157,16 +151,13 @@ class Hybrid(nn.Module):
         state in f32, the rest in ``dtype``, default the compute dtype)."""
         cfg = self.cfg
         dtype = dtype or cdt(cfg)
-        device = device or self.device
         kv = (self.n_groups, batch, cache_len, cfg.n_kv_heads,
               cfg.resolved_head_dim)
-        cache = {n: torch.zeros(kv, dtype=dtype, device=device)
-                 for n in self.cache_names}
+        leaves = {n: (kv, dtype) for n in self.cache_names}
         for n, t in ssm.mamba2_init_cache(cfg, batch, dtype,
                                           "meta").items():
-            cache[n] = torch.zeros((cfg.n_layers,) + t.shape, dtype=t.dtype,
-                                   device=device)
-        return cache
+            leaves[n] = ((cfg.n_layers,) + t.shape, t.dtype)
+        return self._zeros(leaves, device)
 
     def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor,
                 cache: Cache,
@@ -177,7 +168,7 @@ class Hybrid(nn.Module):
         ``slots`` is None: the shared block's K/V at positions [0, S), the
         Mamba2 states whole. Returns the logits at ``lengths - 1``, (B,
         V_pad)."""
-        B, S = tokens.shape
+        S = tokens.shape[1]
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = torch.arange(S, device=tokens.device)
         valid = positions[None, :] < lengths[:, None]
@@ -191,10 +182,7 @@ class Hybrid(nn.Module):
                 x, st = self._mamba_prefill(i, x, valid, True)
                 for n in STATE_LEAVES:
                     merge_slots(cache[n][i], st[n], slots, seq=False)
-        x = self.final_norm(x)
-        last = x[torch.arange(B, device=x.device),
-                 torch.clamp(lengths.long() - 1, min=0)]
-        return self._logits(last)
+        return self._last_logits(x, lengths)
 
     def decode_step(self, tokens: torch.Tensor, lengths: torch.Tensor,
                     cache: Cache,
@@ -218,4 +206,4 @@ class Hybrid(nn.Module):
             for n in STATE_LEAVES:
                 old[n].copy_(new[n] if active is None
                              else select_slots(old[n], new[n], active))
-        return self._logits(self.final_norm(x))[:, 0]
+        return self._step_logits(x)

@@ -126,3 +126,17 @@ def apply_mlp(x: torch.Tensor, up: torch.Tensor, down: torch.Tensor, cfg,
     else:  # gelu, tanh-approximated as jax.nn.gelu's default
         h = F.gelu(h_up, approximate="tanh")
     return torch.matmul(h, down.to(c))
+
+
+# ------------------------------------------------------- frontend stubs ----
+def frontend_input(extra, name: str, cfg) -> torch.Tensor:
+    """The frontend input ``name`` (``"frames"`` for the audio family,
+    ``"patches"`` for the VLM; ``models.registry.extra_inputs`` gives its
+    shape) out of ``extra``. Raises, naming the input, where the reference
+    fails at its first prefill on a missing one."""
+    if extra is None or name not in extra:
+        raise ValueError(
+            f"{cfg.arch_id}: the {cfg.family} family needs its frontend "
+            f"input {name!r} (precomputed embeddings, one row per batch "
+            f"row) in extra; got {sorted(extra) if extra else None}")
+    return extra[name]

@@ -1,33 +1,79 @@
-"""Model registry: ``ModelConfig`` -> a built model on a device.
+"""Model registry: ``ModelConfig`` -> a built model on a device, and the
+shapes of a model's inputs.
 
-Port of ``repro.models.registry.build_model`` for the dense family, the
-MoE family with MLA attention and the Mamba2 + shared-attention hybrid.
+Port of ``repro.models.registry``: ``build_model`` for every family the
+reference builds (dense, MoE with MLA attention, the Mamba2 +
+shared-attention hybrid, xLSTM, the audio encoder-decoder and the
+cross-attention VLM), and ``extra_inputs``/``input_specs``, the shapes
+and dtypes of the frontend stubs' inputs and of a shape suite's model
+inputs as meta tensors (the reference's ``ShapeDtypeStruct``s), which
+allocate nothing.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 from torch import nn
 
 from repro_torch import device as devices
+from repro_torch.configs.shapes import ShapeSuite
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.vision import Vision
+from repro_torch.models.xlstm import XLSTM
 # the module, not its names: ``repro_torch.weights`` imports
 # ``repro_torch.models`` itself, and either may be imported first
 from repro_torch import weights
 
 
 def _meta_model(cfg) -> nn.Module:
-    families = {"dense": Transformer, "moe": Transformer, "hybrid": Hybrid}
+    families = {"dense": Transformer, "moe": Transformer, "hybrid": Hybrid,
+                "ssm": XLSTM, "audio": EncDec, "vlm": Vision}
     if cfg.family not in families:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port builds the "
-            f"dense, MoE and hybrid families so far")
+        raise ValueError(f"unknown family {cfg.family!r}")
     with torch.device("meta"):
         return families[cfg.family](cfg, "meta")
+
+
+def extra_inputs(cfg, batch: int, dtype: torch.dtype = torch.bfloat16
+                 ) -> Dict[str, torch.Tensor]:
+    """The frontend stubs' inputs (precomputed embeddings) as meta
+    tensors: ``frames`` (batch, encoder_seq_len, d_model) for the audio
+    family, ``patches`` (batch, vision_tokens, vision_dim) for the VLM,
+    nothing for the others."""
+    if cfg.family == "audio":
+        return {"frames": torch.empty((batch, cfg.encoder_seq_len,
+                                       cfg.d_model), dtype=dtype,
+                                      device="meta")}
+    if cfg.family == "vlm":
+        return {"patches": torch.empty((batch, cfg.vision_tokens,
+                                        cfg.vision_dim), dtype=dtype,
+                                       device="meta")}
+    return {}
+
+
+def input_specs(cfg, suite: ShapeSuite) -> Dict[str, torch.Tensor]:
+    """Meta tensors standing for every model input of a shape suite:
+    train {tokens, labels (+frontend)}, prefill {tokens, lengths
+    (+frontend)}, decode {tokens (B, 1), lengths} (the cache comes from
+    ``init_cache``)."""
+    B, S = suite.global_batch, suite.seq_len
+
+    def tok(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+    if suite.kind == "train":
+        return {"tokens": tok(B, S), "labels": tok(B, S),
+                **extra_inputs(cfg, B)}
+    if suite.kind == "prefill":
+        return {"tokens": tok(B, S), "lengths": tok(B),
+                **extra_inputs(cfg, B)}
+    if suite.kind == "decode":
+        return {"tokens": tok(B, 1), "lengths": tok(B)}
+    raise ValueError(suite.kind)
 
 
 def build_shell(cfg, *, device: Union[str, torch.device] = "cuda"

@@ -1,7 +1,6 @@
-"""Mamba2 (SSD) blocks.
+"""Recurrent blocks: Mamba2 (SSD), mLSTM and sLSTM (xLSTM).
 
-Port of the Mamba2 half of ``repro.models.ssm`` (mLSTM and sLSTM arrive
-with the xLSTM slice). Mamba2 is a gated outer-product recurrence
+Port of ``repro.models.ssm``. Mamba2 is a gated outer-product recurrence
 ``state_t = a_t * state_{t-1} + k_t v_t^T`` with a per-(step, head) scalar
 decay ``a = exp(-exp(A_log) * dt)``, ``k = B`` (group-broadcast), ``q =
 C`` and ``v = dt * x`` (ZOH discretization), plus the D skip and a gated
@@ -17,10 +16,23 @@ H), depthwise conv weights (K, C) and biases, ``A_log``, ``D`` and
 (d_in,), ``out_proj`` (d_in, d)). The per-slot cache of one layer is
 ``{"ssm": (B, H, N, P) f32, "conv_x": (B, K-1, d_in), "conv_bc": (B, K-1,
 2 G N)}``; rounding follows the reference step by step.
+
+mLSTM runs the same chunked core as Mamba2's plain path, as in the
+reference (whose ``mlstm_prefill`` calls ``chunked_linear_attention``
+directly, never the SSD scan kernel): ``a = sigmoid(f_pre)``, k scaled by
+the input gate, q by 1/sqrt(hd), and the normaliser carried by a ones
+channel appended to v (Dv = hd + 1). Its state is (B, H, hd, hd + 1) f32.
+sLSTM has a true hidden-to-gate recurrence, so its prefill is a loop over
+time (``slstm_forward``), one step per position, as the reference's
+``lax.scan`` is; its state is ``{"h": (B, d) in the cache dtype, "c",
+"n": (B, d) f32}``. The ``MLSTM`` and ``SLSTM`` modules hold the
+reference's ``init_mlstm``/``init_slstm`` leaves under the same names,
+``gate_bias`` and the sLSTM's ``bias`` in f32 whatever the param dtype.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -32,10 +44,6 @@ from repro_torch.models.layers import cdt, pdt
 from repro_torch.models.transformer import Norm, _param
 
 Cache = Dict[str, torch.Tensor]
-
-# parameters the reference keeps in f32 whatever the param dtype
-F32_LEAVES = ("A_log", "D", "dt_bias")
-
 
 # ---------------------------------------------------------------- core -----
 def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
@@ -289,3 +297,183 @@ def mamba2_init_cache(cfg, batch: int, dtype: torch.dtype,
         "conv_bc": torch.zeros((batch, s.conv_dim - 1, bc), dtype=dtype,
                                device=device),
     }
+
+
+# ================================================================== mLSTM ==
+def mlstm_dims(cfg) -> Tuple[int, int]:
+    """(d_in, head_dim) of the mLSTM's up-projected inner width."""
+    d_in = int(cfg.d_model * cfg.ssm.mlstm_proj_factor)
+    return d_in, d_in // cfg.n_heads
+
+
+class MLSTM(nn.Module):
+    """One mLSTM's weights in ``init_mlstm``'s shapes: ``up`` (d, 2 d_in)
+    ([x | z]), ``wq``/``wk``/``wv`` (d_in, d_in), ``w_gates`` (d_in, 2 H)
+    ([i | f]), ``gate_bias`` (2 H,) f32, the gated norm over d_in and
+    ``down`` (d_in, d)."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        d, H, dt = cfg.d_model, cfg.n_heads, pdt(cfg)
+        d_in, _ = mlstm_dims(cfg)
+        self.up = _param(d, 2 * d_in, dtype=dt, device=device)
+        self.wq = _param(d_in, d_in, dtype=dt, device=device)
+        self.wk = _param(d_in, d_in, dtype=dt, device=device)
+        self.wv = _param(d_in, d_in, dtype=dt, device=device)
+        self.w_gates = _param(d_in, 2 * H, dtype=dt, device=device)
+        self.gate_bias = _param(2 * H, dtype=torch.float32, device=device)
+        self.norm = Norm(cfg, device, d_in)
+        self.down = _param(d_in, d, dtype=dt, device=device)
+
+
+def _mlstm_qkvg(p: MLSTM, u: torch.Tensor, cfg):
+    """u (B, S, d) -> q (scaled by 1/sqrt(hd)), k (scaled by the input
+    gate), v (B, S, H, hd), the forget gate f (B, S, H) f32 and z."""
+    c = cdt(cfg)
+    d_in, hd = mlstm_dims(cfg)
+    B, S = u.shape[0], u.shape[1]
+    H = cfg.n_heads
+    xz = torch.matmul(u.to(c), p.up.to(c))
+    xin, z = xz[..., :d_in], xz[..., d_in:]
+    q = torch.matmul(xin, p.wq.to(c)).reshape(B, S, H, hd) / math.sqrt(hd)
+    k = torch.matmul(xin, p.wk.to(c)).reshape(B, S, H, hd)
+    v = torch.matmul(xin, p.wv.to(c)).reshape(B, S, H, hd)
+    gates = torch.matmul(xin, p.w_gates.to(c)).float() + \
+        p.gate_bias[None, None, :]
+    i_gate = torch.sigmoid(gates[..., :H])     # bounded input gate
+    f_gate = torch.sigmoid(gates[..., H:])
+    return q, k * i_gate[..., None].to(k.dtype), v, f_gate, z
+
+
+def _mlstm_finish(p: MLSTM, num: torch.Tensor, den: torch.Tensor,
+                  z: torch.Tensor, u: torch.Tensor, cfg) -> torch.Tensor:
+    """num / max(|den|, 1), the gated norm and the down projection."""
+    d_in, _ = mlstm_dims(cfg)
+    h = num / torch.clamp(den.abs(), min=1.0)
+    h = _gated_norm(p, h.reshape(u.shape[0], u.shape[1], d_in), z, cfg)
+    c = cdt(cfg)
+    return torch.matmul(h.to(c), p.down.to(c))
+
+
+def _ones_channel(v: torch.Tensor) -> torch.Tensor:
+    """v (..., hd) -> (..., hd + 1): the denominator's constant channel."""
+    return torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
+
+
+def mlstm_prefill(p: MLSTM, u: torch.Tensor, cfg,
+                  return_state: bool = False,
+                  valid: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """u (B, S, d) -> (out (B, S, d), {"state": (B, H, hd, hd + 1) f32} or
+    None). With ``valid`` (B, S) a padding step adds nothing (k zeroed)
+    and decays nothing (f held at 1), so the state is the one at the
+    row's last valid step. S must be a multiple of ``min(chunk, S)``."""
+    q, k, v, f, z = _mlstm_qkvg(p, u, cfg)
+    if valid is not None:
+        k = k * valid[:, :, None, None].to(k.dtype)
+        f = torch.where(valid[:, :, None], f, torch.ones_like(f))
+    y, state = chunked_linear_attention(q, k, _ones_channel(v),
+                                        torch.log(f + 1e-9), cfg.ssm.chunk)
+    out = _mlstm_finish(p, y[..., :-1].float(), y[..., -1:].float(), z, u,
+                        cfg)
+    return out, ({"state": state} if return_state else None)
+
+
+def mlstm_decode(p: MLSTM, u: torch.Tensor, cfg,
+                 cache: Cache) -> Tuple[torch.Tensor, Cache]:
+    """u (B, 1, d); cache {"state"} -> (out (B, 1, d), the new cache)."""
+    q, k, v, f, z = _mlstm_qkvg(p, u, cfg)
+    y, state = linear_attention_step(cache["state"], q[:, 0], k[:, 0],
+                                     _ones_channel(v)[:, 0], f[:, 0])
+    y = y[:, None]                                       # (B, 1, H, hd + 1)
+    out = _mlstm_finish(p, y[..., :-1].float(), y[..., -1:].float(), z, u,
+                        cfg)
+    return out, {"state": state}
+
+
+def mlstm_init_cache(cfg, batch: int, device) -> Cache:
+    _, hd = mlstm_dims(cfg)
+    return {"state": torch.zeros((batch, cfg.n_heads, hd, hd + 1),
+                                 dtype=torch.float32, device=device)}
+
+
+# ================================================================== sLSTM ==
+class SLSTM(nn.Module):
+    """One sLSTM's weights in ``init_slstm``'s shapes: ``w_in`` and
+    ``w_rec`` (d, 4 d) ([i | f | z | o]), ``bias`` (4 d,) f32, the FFN's
+    ``ffn_up`` (d, d_ff) and ``ffn_down`` (d_ff, d), and a norm over d
+    that the reference initialises and never applies."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        d, dt = cfg.d_model, pdt(cfg)
+        d_ff = int(d * cfg.ssm.slstm_proj_factor)
+        self.w_in = _param(d, 4 * d, dtype=dt, device=device)
+        self.w_rec = _param(d, 4 * d, dtype=dt, device=device)
+        self.bias = _param(4 * d, dtype=torch.float32, device=device)
+        self.ffn_up = _param(d, d_ff, dtype=dt, device=device)
+        self.ffn_down = _param(d_ff, d, dtype=dt, device=device)
+        self.norm = Norm(cfg, device, d)
+
+
+def _slstm_step(p: SLSTM, x_in: torch.Tensor, h: torch.Tensor,
+                c_state: torch.Tensor, n_state: torch.Tensor, cfg):
+    """One sLSTM step from ``x_in`` = x_t @ w_in (B, 4 d), in the compute
+    dtype: the reference's sum of its two compute-dtype products, then f32
+    gates. Returns (h (B, d) in x_in's dtype, c, n (B, d) f32)."""
+    c = cdt(cfg)
+    d = h.shape[-1]
+    pre = (x_in + torch.matmul(h.to(c), p.w_rec.to(c))).float() + \
+        p.bias[None, :]
+    i = torch.sigmoid(pre[:, :d])
+    f = torch.sigmoid(pre[:, d:2 * d])
+    zt = torch.tanh(pre[:, 2 * d:3 * d])
+    o = torch.sigmoid(pre[:, 3 * d:])
+    c_state = f * c_state + i * zt
+    n_state = f * n_state + i
+    h_new = o * (c_state / torch.clamp(n_state, min=1.0))
+    return h_new.to(x_in.dtype), c_state, n_state
+
+
+def slstm_forward(p: SLSTM, u: torch.Tensor, cfg,
+                  cache: Optional[Cache] = None, return_state: bool = False,
+                  valid: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """The sLSTM over u (B, S, d), one step per position (its input
+    product for every position in one matmul first), then its FFN.
+    ``cache`` {"h", "c", "n"} is the state to start from (zeros without
+    it); ``valid`` (B, S) freezes h, c and n at padding steps. Returns (y
+    (B, S, d), the final state when ``return_state`` or ``cache``, else
+    None)."""
+    B, S, d = u.shape
+    c = cdt(cfg)
+    if cache is None:
+        h = torch.zeros((B, d), dtype=u.dtype, device=u.device)
+        c_s = torch.zeros((B, d), dtype=torch.float32, device=u.device)
+        n_s = torch.zeros((B, d), dtype=torch.float32, device=u.device)
+    else:
+        h, c_s, n_s = cache["h"], cache["c"], cache["n"]
+    x_in = torch.matmul(u.to(c), p.w_in.to(c))               # (B, S, 4 d)
+    hs = []
+    for t in range(S):
+        h_new, c_new, n_new = _slstm_step(p, x_in[:, t], h, c_s, n_s, cfg)
+        if valid is not None:
+            keep = valid[:, t, None]
+            h_new = torch.where(keep, h_new, h.to(h_new.dtype))
+            c_new = torch.where(keep, c_new, c_s)
+            n_new = torch.where(keep, n_new, n_s)
+        h, c_s, n_s = h_new, c_new, n_new
+        hs.append(h)
+    y = torch.stack(hs, dim=1)                                # (B, S, d)
+    ff = F.gelu(torch.matmul(y.to(c), p.ffn_up.to(c)), approximate="tanh")
+    y = y + torch.matmul(ff, p.ffn_down.to(c))
+    state = ({"h": h, "c": c_s, "n": n_s}
+             if return_state or cache is not None else None)
+    return y, state
+
+
+def slstm_init_cache(cfg, batch: int, dtype: torch.dtype, device) -> Cache:
+    d = cfg.d_model
+    return {"h": torch.zeros((batch, d), dtype=dtype, device=device),
+            "c": torch.zeros((batch, d), dtype=torch.float32, device=device),
+            "n": torch.zeros((batch, d), dtype=torch.float32, device=device)}

@@ -76,13 +76,26 @@ class Norm(nn.Module):
         return apply_norm(x, self.scale, self.cfg, self.bias)
 
 
+def kv_shape(cfg, cross: bool = False) -> Tuple[int, int]:
+    """(K/V input width, K/V heads) of ``init_attention``: a cross
+    attention's K/V read the vision frontend's ``vision_dim`` when the
+    config has one, and an audio model's cross attention has a K/V head
+    per query head."""
+    n_kv = cfg.n_heads if cross and cfg.family == "audio" else cfg.n_kv_heads
+    return (cfg.vision_dim if cross and cfg.vision_dim else cfg.d_model), n_kv
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg, device):
+    """GQA/MHA weights in ``init_attention``'s layouts; ``cross`` gives the
+    cross-attention shapes (``kv_shape``)."""
+
+    def __init__(self, cfg, device, cross: bool = False):
         super().__init__()
         d, hd, dt = cfg.d_model, cfg.resolved_head_dim, pdt(cfg)
+        kv_in, n_kv = kv_shape(cfg, cross)
         self.wq = _param(d, cfg.n_heads, hd, dtype=dt, device=device)
-        self.wk = _param(d, cfg.n_kv_heads, hd, dtype=dt, device=device)
-        self.wv = _param(d, cfg.n_kv_heads, hd, dtype=dt, device=device)
+        self.wk = _param(kv_in, n_kv, hd, dtype=dt, device=device)
+        self.wv = _param(kv_in, n_kv, hd, dtype=dt, device=device)
         self.wo = _param(cfg.n_heads, hd, d, dtype=dt, device=device)
         if cfg.qk_norm:
             self.q_norm = _param(hd, dtype=dt, device=device)
@@ -252,7 +265,40 @@ class Embedding(nn.Module):
                                device=device))
 
 
-class Transformer(nn.Module):
+class LanguageModel(nn.Module):
+    """What every model family shares: its ``cfg``, ``embed`` and
+    ``final_norm``, the device its weights live on, and the readout of
+    logits from the last hidden states."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.tok.device
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return unembed(self.embed.tok, x, self.cfg, self.embed.unembed)
+
+    def _last_logits(self, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+        """x (B, S, d) final-normed, each row's position ``n - 1`` (0 where
+        n is 0) unembedded: (B, V_pad)."""
+        x = self.final_norm(x)
+        last = x[torch.arange(x.shape[0], device=x.device),
+                 torch.clamp(n.long() - 1, min=0)]
+        return self._logits(last)
+
+    def _step_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 1, d) of a decode step -> logits (B, V_pad)."""
+        return self._logits(self.final_norm(x))[:, 0]
+
+    def _zeros(self, leaves: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+               device=None) -> "Cache":
+        """A zeroed cache: one leaf per name -> (shape, dtype), on
+        ``device`` (default: the model's)."""
+        device = device or self.device
+        return {n: torch.zeros(shape, dtype=dt, device=device)
+                for n, (shape, dt) in leaves.items()}
+
+
+class Transformer(LanguageModel):
     """Dense decoders with full attention (smollm2, granite, stablelm,
     nemotron) or a sliding window (h2o-danube), and MoE decoders with MLA
     attention (deepseek-v2-lite)."""
@@ -286,10 +332,6 @@ class Transformer(nn.Module):
             self.decode_paged = None
 
     @property
-    def device(self) -> torch.device:
-        return self.embed.tok.device
-
-    @property
     def blocks(self) -> List[Block]:
         """Every block in the order it runs (``dense0`` first); block i
         owns layer i of the cache."""
@@ -297,9 +339,6 @@ class Transformer(nn.Module):
 
     def _kv(self, cache: Cache, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
         return tuple(cache[n][i] for n in self.cache_names)
-
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return unembed(self.embed.tok, x, self.cfg, self.embed.unembed)
 
     def forward_hidden(self, tokens: torch.Tensor,
                        lengths: Optional[torch.Tensor] = None,
@@ -354,9 +393,8 @@ class Transformer(nn.Module):
                 lead = (cfg.n_layers, batch, min(cache_len, self.window))
             tails = ((cfg.n_kv_heads, cfg.resolved_head_dim),) * 2
         dtype = dtype or cdt(cfg)
-        device = device or self.device
-        return {n: torch.zeros(lead + t, dtype=dtype, device=device)
-                for n, t in zip(self.cache_names, tails)}
+        return self._zeros({n: (lead + t, dtype)
+                            for n, t in zip(self.cache_names, tails)}, device)
 
     def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor,
                 cache: Cache, slots: Optional[torch.Tensor] = None,
@@ -375,7 +413,7 @@ class Transformer(nn.Module):
         the window decodes over another key set than ``forward`` attends,
         in both packages. Returns the logits at position ``lengths - 1``,
         (B, V_pad)."""
-        B, S = tokens.shape
+        S = tokens.shape[1]
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = torch.arange(S, device=tokens.device)
         for i, blk in enumerate(self.blocks):
@@ -387,10 +425,7 @@ class Transformer(nn.Module):
                     merge_slots(dst, src, slots)
                 else:
                     attn._paged_write_span(dst, src, page_table)
-        x = self.final_norm(x)
-        last = x[torch.arange(B, device=x.device),
-                 torch.clamp(lengths.long() - 1, min=0)]
-        return self._logits(last)
+        return self._last_logits(x, lengths)
 
     def prefill_shared(self, tokens: torch.Tensor, lengths: torch.Tensor,
                        starts: torch.Tensor, cache: Cache,
@@ -403,7 +438,7 @@ class Transformer(nn.Module):
         over them and writes the tail's K/V into the pages at positions
         [starts, starts + Tb), in place. Logits come from logical position
         ``lengths - 1``, which is tail index ``lengths - starts - 1``."""
-        B, Tb = tokens.shape
+        Tb = tokens.shape[1]
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = starts.long()[:, None] + torch.arange(
             Tb, device=tokens.device)[None, :]
@@ -414,10 +449,8 @@ class Transformer(nn.Module):
                 view_v=attn._paged_gather(cache["v"][i], page_table))
             attn._paged_write_span(cache["k"][i], k, page_table, starts)
             attn._paged_write_span(cache["v"][i], v, page_table, starts)
-        x = self.final_norm(x)
-        last = x[torch.arange(B, device=x.device),
-                 torch.clamp(lengths.long() - starts.long() - 1, min=0)]
-        return self._logits(last)
+        return self._last_logits(
+            x, lengths.long() - starts.long())
 
     def decode_step(self, tokens: torch.Tensor, lengths: torch.Tensor,
                     cache: Cache,
@@ -430,7 +463,7 @@ class Transformer(nn.Module):
         for i, blk in enumerate(self.blocks):
             x = blk.decode(x, lengths=lengths, kv=self._kv(cache, i),
                            active=active)
-        return self._logits(self.final_norm(x))[:, 0]
+        return self._step_logits(x)
 
     def decode_paged(self, tokens: torch.Tensor, lengths: torch.Tensor,
                      cache: Cache, page_table: torch.Tensor,
@@ -443,4 +476,4 @@ class Transformer(nn.Module):
         for i, blk in enumerate(self.blocks):
             x = blk.decode_paged(x, lengths=lengths, kv=self._kv(cache, i),
                                  page_table=page_table, active=active)
-        return self._logits(self.final_norm(x))[:, 0]
+        return self._step_logits(x)

@@ -54,6 +54,18 @@ megastep copies any shared page a decode would append into. Pages held
 only by the prefix cache are evicted, LRU first, when an admission needs
 room.
 
+**Frontend inputs (``extra``).** An audio or vision model's frontend is a
+stub, as in the reference: the engine takes ``extra``, a dict of
+precomputed embeddings with ``slots`` rows (``frames`` or ``patches``,
+``models.registry.extra_inputs``), and hands the whole of it to every
+prefill wave. Wave row i reads row i of ``extra``: a request meets the
+frontend row of the wave row it lands in, not a row of its own, which is
+the reference's meaning, mirrored. ``extra`` lives on the device with the
+rest of the context: a demote ships it, a restore brings it back, a
+template carries it. The engine keeps the caller's host tensors as well:
+the wire recipe carries them (base64 pickle) and ``aot_fingerprint`` a
+digest of them.
+
 **Kernels.** With ``cfg.use_kernels`` on a CUDA device, prefill and decode
 attention (and the MoE GEMMs and Mamba2 scans of models that have them)
 run in the hand-written kernels of ``repro_torch/csrc``; the
@@ -85,11 +97,13 @@ each kernel library it finds already built under
 
 from __future__ import annotations
 
+import base64
 import collections
 import copy
 import dataclasses
 import hashlib
 import json
+import pickle
 import sys
 import time
 import traceback
@@ -134,7 +148,8 @@ class InferenceEngine:
                  megastep: int = 1, max_stop_tokens: int = 4,
                  admission: str = "continuous", paged: bool = False,
                  page_size: int = 64, num_pages: Optional[int] = None,
-                 prefix_sharing: bool = True):
+                 prefix_sharing: bool = True,
+                 extra: Optional[Dict] = None):
         dev = devices.resolve(device)
         if admission not in ("continuous", "drain"):
             raise ValueError(f"admission must be 'continuous' or 'drain', "
@@ -156,6 +171,12 @@ class InferenceEngine:
             raise ValueError(f"megastep must be >= 1, got {megastep}")
         self.admission = admission
         self.max_stop_tokens = max_stop_tokens
+        # the host copy the recipe and the fingerprint read, whether or not
+        # the device copy is resident
+        self._extra_host = self._check_extra(extra)
+        self.extra = (None if self._extra_host is None else
+                      {n: t.to(self.device)
+                       for n, t in self._extra_host.items()})
 
         # ---- paged-vs-contiguous resolution: paged=True is a request; a
         # model with no paged decode (the hybrid's recurrent state, a
@@ -272,6 +293,32 @@ class InferenceEngine:
         self.active: Dict[int, Request] = {}          # slot -> request
         self.free_slots: collections.deque = collections.deque(range(slots))
 
+    def _check_extra(self, extra: Optional[Dict]
+                     ) -> Optional[Dict[str, torch.Tensor]]:
+        """``extra`` as floating tensors in host memory (the caller's own
+        when they are there), after checking it is what the model's
+        frontend takes (``models.registry.extra_inputs``) at ``slots``
+        rows. None for none (or an empty dict)."""
+        if not extra:
+            return None
+        from repro_torch.models.registry import extra_inputs
+        want = extra_inputs(self.cfg, self.slots)
+        if set(extra) != set(want):
+            raise ValueError(
+                f"extra holds {sorted(extra)}; {self.cfg.arch_id} (family "
+                f"{self.cfg.family!r}) takes {sorted(want) or 'none'}")
+        out = {}
+        for name, spec in want.items():
+            t = torch.as_tensor(extra[name])
+            if tuple(t.shape) != tuple(spec.shape) \
+                    or not t.is_floating_point():
+                raise ValueError(
+                    f"extra[{name!r}] is {tuple(t.shape)} {t.dtype}; the "
+                    f"engine takes floating {tuple(spec.shape)}: one row "
+                    f"per slot")
+            out[name] = t.detach().cpu()
+        return out
+
     # -------------------------------------------- PCM tier offload/restore --
     @property
     def offloaded(self) -> bool:
@@ -291,10 +338,10 @@ class InferenceEngine:
 
     def offload_device_state(self) -> Dict:
         """Demote: copy every device-resident tensor (weights, KV store,
-        per-slot decode state) and the RNG state to host memory (pinned
-        when the device is the card) and free the device copies. The queue,
-        the host length shadow, the page allocator and prefix cache, the
-        stats and the built kernels stay on this object; a later
+        per-slot decode state, ``extra``) and the RNG state to host memory
+        (pinned when the device is the card) and free the device copies.
+        The queue, the host length shadow, the page allocator and prefix
+        cache, the stats and the built kernels stay on this object; a later
         ``restore_device_state`` needs no rebuild. Offloading twice raises.
 
         A paged engine ships only its live pages, each once
@@ -316,6 +363,9 @@ class InferenceEngine:
         }
         for name in self._state_fields:
             host[name] = self._host_copy(getattr(self, name))
+        if self.extra is not None:
+            host["extra"] = {n: self._host_copy(t)
+                             for n, t in self.extra.items()}
         if self._paged:
             host["_paged_live_ids"] = live
             host["_paged_refcounts"] = np.array(
@@ -327,6 +377,7 @@ class InferenceEngine:
         for p in params.values():
             p.data = torch.empty((0,), dtype=p.dtype, device=self.device)
         self.cache = None
+        self.extra = None
         for name in self._state_fields:
             setattr(self, name, None)
         return host
@@ -344,6 +395,9 @@ class InferenceEngine:
                    if n not in host_state]
         if self._paged and "_paged_live_ids" not in host_state:
             missing.append("_paged_live_ids")
+        if self._extra_host is not None and set(
+                host_state.get("extra") or ()) != set(self._extra_host):
+            missing.append("extra")
         if missing:
             raise ValueError(f"snapshot is missing engine state: {missing}")
         d = self.device
@@ -376,6 +430,8 @@ class InferenceEngine:
             self.cache = {n: put(t) for n, t in host_state["cache"].items()}
         for name in self._state_fields:
             setattr(self, name, put(host_state[name]))
+        if self._extra_host is not None:
+            self.extra = {n: put(t) for n, t in host_state["extra"].items()}
         self._gen.set_state(host_state["_rng"])
         self._sync()
         if self._aot_shared:
@@ -394,10 +450,14 @@ class InferenceEngine:
         this engine's device memory — the weights, as device tensors (no
         host copy; a chunk-streamed export copies them to the host chunk
         by chunk between serving turns, which the weights allow because
-        they never change after the build) — and the RNG state."""
+        they never change after the build) — the RNG state and, for a
+        frontend model, ``extra``."""
         self._require_resident()
-        return {"params": dict(self.model.named_parameters()),
-                "_rng": self._gen.get_state()}
+        out = {"params": dict(self.model.named_parameters()),
+               "_rng": self._gen.get_state()}
+        if self.extra is not None:
+            out["extra"] = dict(self.extra)
+        return out
 
     def export_template_host(self) -> Dict:
         """Host half of the template: every other field of a pristine
@@ -436,6 +496,9 @@ class InferenceEngine:
         host["params"] = {n: self._host_copy(p)
                           for n, p in device["params"].items()}
         host["_rng"] = device["_rng"]
+        if "extra" in device:
+            host["extra"] = {n: self._host_copy(t)
+                             for n, t in device["extra"].items()}
         self._sync()
         return host
 
@@ -464,15 +527,18 @@ class InferenceEngine:
             if self._prefix_cache is not None:
                 clone._prefix_cache = paging.PrefixCache(self.page_size)
         clone.cache = None
+        clone.extra = None
         for name in self._state_fields:
             setattr(clone, name, None)
         return clone
 
     def _kernel_libraries(self) -> Tuple[str, ...]:
         """The kernel libraries (``kernels.build.SOURCES``) this engine's
-        model launches: none on the CPU or without ``use_kernels``; the
+        model launches: none on the CPU or without ``use_kernels``, none for
+        xLSTM (its blocks are torch, as the reference's are XLA); the
         prefill kernel and the decode kernel of the engine's cache for
-        dense attention; the paged MLA decode for MLA on the paged pool
+        dense attention (and the audio and vision models' cross-attention
+        on the same two); the paged MLA decode for MLA on the paged pool
         (its prefill and slot-cache decode are torch); the grouped GEMM for
         MoE; the SSD scan for Mamba2."""
         cfg = self.cfg
@@ -482,7 +548,7 @@ class InferenceEngine:
         if cfg.attention == "mla":
             if self._paged:
                 names.append("paged_mla_decode")
-        else:
+        elif cfg.family != "ssm":
             names += ["flash_attention", "paged_flash_decode" if self._paged
                       else "flash_decode"]
         if cfg.moe.enabled:
@@ -516,6 +582,18 @@ class InferenceEngine:
         return time.monotonic() - t0
 
     # ----------------------------------------------------- wire identity ---
+    def _extra_digest(self) -> Optional[str]:
+        """sha256 over ``extra``'s names, shapes, dtypes and bytes (None
+        without it): what the fingerprint says of the frontend inputs."""
+        if self._extra_host is None:
+            return None
+        h = hashlib.sha256()
+        for n in sorted(self._extra_host):
+            t = self._extra_host[n].contiguous()
+            h.update(f"{n}{tuple(t.shape)}{t.dtype}".encode())
+            h.update(t.view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()
+
     def _wire_knobs(self) -> Dict:
         """Every constructor knob that shapes what the engine launches,
         and the torch, CUDA and device type it runs on."""
@@ -545,6 +623,7 @@ class InferenceEngine:
         if fp is None:
             from repro_torch.kernels import build
             spec = dict(self._wire_knobs(), config=self.cfg.key(),
+                        extra=self._extra_digest(),
                         libraries=[build.library_path(n).name
                                    for n in self._kernel_libraries()])
             fp = hashlib.sha256(
@@ -559,11 +638,16 @@ class InferenceEngine:
         structure with no weights, no device state. ``repro_torch.core.
         wire`` ships this instead of the engine object; the weights travel
         as the snapshot's arrays and the kernels load from the receiver's
-        build directory."""
-        return dict(self._wire_knobs(),
-                    loader="repro_torch.serving.engine:engine_from_wire",
-                    config=dataclasses.asdict(self.cfg),
-                    fingerprint=self.aot_fingerprint)
+        build directory. A frontend model's ``extra`` rides as a base64
+        pickle of its host copy (``extra_b64``), as in the reference."""
+        rec = dict(self._wire_knobs(),
+                   loader="repro_torch.serving.engine:engine_from_wire",
+                   config=dataclasses.asdict(self.cfg),
+                   fingerprint=self.aot_fingerprint)
+        if self._extra_host is not None:
+            rec["extra_b64"] = base64.b64encode(
+                pickle.dumps(self._extra_host)).decode("ascii")
+        return rec
 
     # -------------------------------------------------------------- public --
     def submit(self, req: Request) -> Request:
@@ -771,8 +855,9 @@ class InferenceEngine:
                                              wave_pins, toks_t, lens_t, lens,
                                              starts, shared_wave)
             else:
+                extra = {} if self.extra is None else {"extra": self.extra}
                 logits = self.model.prefill(toks_t, lens_t, self.cache,
-                                            slots=slot_t)
+                                            slots=slot_t, **extra)
         except BaseException:
             # an admission that fails to dispatch hands back everything it
             # claimed (pages, shared references, pins, slots, queue places)
@@ -1097,6 +1182,9 @@ class InferenceEngine:
             "free_pages": self._alloc.free_pages if self._paged else 0,
             "paged_fallback": self.paged_fallback,
             "prefix_fallback": self.prefix_fallback,
+            "extra": (None if self._extra_host is None else
+                      {n: list(t.shape)
+                       for n, t in self._extra_host.items()}),
             "prefix_cache": (self._prefix_cache.stats()
                              if self._prefix_cache is not None else None),
             "compile_seconds": self.compile_seconds,
@@ -1115,7 +1203,9 @@ def engine_from_wire(rec: Dict, device: Optional[Union[str, torch.device]]
     loads its kernel libraries, each found already built counted under
     ``stats.aot_cache_hits`` and only a real ``nvcc`` run under
     ``stats.compiles``. No model object, parameter or kernel crosses the
-    wire inside the recipe."""
+    wire inside the recipe; a frontend model's ``extra`` does
+    (``extra_b64``), and its device copy arrives with the restore, as the
+    rest of the device state does."""
     from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
                                           SSMConfig)
     from repro_torch.models.registry import build_shell
@@ -1138,6 +1228,10 @@ def engine_from_wire(rec: Dict, device: Optional[Union[str, torch.device]]
         page_size=int(rec.get("page_size", 64)),
         num_pages=int(num_pages) if num_pages is not None else None,
         prefix_sharing=bool(rec.get("prefix_sharing", True)))
+    # the host copy only: the device copy arrives with the restore
+    if rec.get("extra_b64"):
+        eng._extra_host = eng._check_extra(
+            pickle.loads(base64.b64decode(rec["extra_b64"])))
     eng.cache = None
     for name in eng._state_fields:
         setattr(eng, name, None)

@@ -20,7 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, extra_inputs  # noqa: E402
 from repro_torch.serving import InferenceEngine, Request  # noqa: E402
 
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
@@ -1145,3 +1145,118 @@ def test_cuda_dense_engines_kernels_match_plain(cuda, arch, head_dim):
               megastep=4)
     with_kernels = InferenceEngine(model, **kw).generate(ps, 40)
     assert with_kernels == InferenceEngine(plain, **kw).generate(ps, 40)
+
+
+def _memory_tol(exp, dtype):
+    """Attention over a memory of T keys: the output's scale falls as
+    1/sqrt(T), so bf16 is held to 2e-2 of the largest plain output (a few
+    bf16 steps of it; chip_smoke.py's CROSS_REL_TOL), not TOL's 3e-2."""
+    if dtype == "bfloat16":
+        return 2e-2 * float(exp.float().abs().max())
+    return TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,Hkv,D", [
+    # Whisper's encoder (S == T, no kv_len) and its cross prefill over the
+    # frames, the VLM's over the patches (group 4), and T not a multiple of
+    # the 64-key tile; a memory shorter than one tile
+    (2, 150, 150, 12, 12, 64), (2, 70, 150, 12, 12, 64),
+    (2, 130, 410, 8, 2, 128), (2, 40, 30, 4, 1, 64),
+    (2, 33, 200, 4, 4, 16)])
+@pytest.mark.parametrize("kv_len", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_not_causal_over_a_memory(cuda, B, S, T, H, Hkv,
+                                                       D, kv_len, dtype):
+    """The prefill kernel not causal, S queries over T keys (the encoder's
+    and the cross-attention prefill's calls), with kv_len = T per row or a
+    ragged one, against the plain version."""
+    q = _rand(10, (B, S, H, D), cuda, dtype)
+    k = _rand(11, (B, T, Hkv, D), cuda, dtype)
+    v = _rand(12, (B, T, Hkv, D), cuda, dtype)
+    kl = (torch.tensor([T] + [max(1, T // (i + 2)) for i in range(B - 1)],
+                       dtype=torch.int32, device=cuda) if kv_len else None)
+    kw = dict(causal=False, scale=D ** -0.5, kv_len=kl)
+    out = ops.flash_attention(q, k, v, **kw)
+    exp = ref.flash_attention_ref(q, k, v, **kw)
+    assert float((out.float() - exp.float()).abs().max()) \
+        < _memory_tol(exp, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D,Skv", [(12, 12, 64, 150), (8, 2, 128, 410),
+                                         (32, 8, 128, 4100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_decode_over_a_whole_memory(cuda, H, Hkv, D, Skv, dtype):
+    """The decode kernel over a cross-attention memory: n_valid = Skv for
+    every row, an inactive row zeros; the same kernel with the last 4 keys
+    unread must fail the bound."""
+    q = _rand(13, (3, H, D), cuda, dtype)
+    ck = _rand(14, (3, Skv, Hkv, D), cuda, dtype)
+    cv = _rand(15, (3, Skv, Hkv, D), cuda, dtype)
+    n = torch.full((3,), Skv, dtype=torch.int32, device=cuda)
+    act = torch.tensor([True, False, True], device=cuda)
+    out = ops.flash_decode(q, ck, cv, n, scale=D ** -0.5, active=act)
+    exp = ref.flash_decode_ref(q, ck, cv, n, scale=D ** -0.5, active=act)
+    tol = _memory_tol(exp, dtype)
+    assert float((out.float() - exp.float()).abs().max()) < tol
+    assert not out[1].any()
+    short = ops.flash_decode(q, ck, cv, n - 4, scale=D ** -0.5, active=act)
+    assert float((short.float() - exp.float()).abs().max()) > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-small",
+                                  "llama-3.2-vision-11b"])
+def test_cuda_family_engines_kernels_match_plain(cuda, arch):
+    """Reduced xLSTM, Whisper and the VLM (gates at 1.0, 8 heads over 2)
+    in f32 with their frontend inputs: greedy output through the kernels
+    equals the plain path's, at megastep 1 and 4."""
+    over = dict(use_kernels=True)
+    if arch == "llama-3.2-vision-11b":
+        over.update(n_heads=8, n_kv_heads=2)
+    cfg = get_reduced_config(arch, **over)
+    model = build_model(cfg, device=cuda, seed=0)
+    for blk in getattr(model, "cross", ()):
+        if hasattr(blk, "gate_attn"):
+            blk.gate_attn.fill_(1.0)
+            blk.gate_mlp.fill_(1.0)
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                        device=cuda, params=dict(model.state_dict()))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    extra = {n: torch.randn(t.shape, generator=gen, device=cuda)
+             for n, t in extra_inputs(cfg, 4).items()} or None
+    rng = np.random.RandomState(0)
+    ps = [list(rng.randint(8, cfg.vocab_size, size=rng.randint(3, 30)))
+          for _ in range(9)]
+    kw = dict(device=cuda, slots=4, cache_len=96, prefill_buckets=(32,),
+              extra=extra)
+    want = InferenceEngine(plain, megastep=4, **kw).generate(ps, 40)
+    for K in (1, 4):
+        assert InferenceEngine(model, megastep=K, **kw).generate(ps, 40) \
+            == want
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_matches_cpu(cuda):
+    """The reduced xLSTM in f32 on the card against the CPU on the same
+    weights: a padded wave over two mLSTM chunks prefilled, then 4 decode
+    steps, every call's logits within TOL."""
+    cfg = get_reduced_config("xlstm-350m")
+    cpu = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device=cuda, params=dict(cpu.state_dict()))
+    S = 2 * cfg.ssm.chunk
+    toks = torch.as_tensor(np.random.RandomState(7).randint(
+        8, cfg.vocab_size, size=(3, S)), dtype=torch.int32)
+    lens = torch.tensor([S, 20, 3], dtype=torch.int32)
+    caches = [m.init_cache(3, S + 8, torch.float32) for m in (cpu, card)]
+    want = cpu.prefill(toks, lens, caches[0])
+    got = card.prefill(toks.to(cuda), lens.to(cuda), caches[1])
+    assert float((got.cpu() - want).abs().max()) < TOL["float32"]
+    for _ in range(4):
+        nxt = want[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+        lens = lens + 1
+        want = cpu.decode_step(nxt, lens, caches[0])
+        got = card.decode_step(nxt.to(cuda), lens.to(cuda), caches[1])
+        assert float((got.cpu() - want).abs().max()) < TOL["float32"]

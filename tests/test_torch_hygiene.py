@@ -49,7 +49,9 @@ def test_port_file_list_is_complete():
             "frontdoor.py", "pipeline.py", "shapes.py", "optimizer.py",
             "trainstep.py", "loop.py", "train.py", "granite_3_2b.py",
             "h2o_danube_1_8b.py", "stablelm_12b.py",
-            "nemotron_4_15b.py"} <= names
+            "nemotron_4_15b.py", "xlstm.py", "encdec.py", "vision.py",
+            "xlstm_350m.py", "whisper_small.py",
+            "llama32_vision_11b.py"} <= names
 
 
 def test_every_kernel_has_its_source():
@@ -86,15 +88,20 @@ def test_engine_refuses_a_model_on_another_device():
 
 
 def test_unported_architectures_name_their_slice():
+    """The one architecture still refused names the port slice it waits
+    for and why; every other reference id is served."""
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="port slice"):
-        get_config("xlstm-350m")
+        get_config("qwen3-moe-235b-a22b")
     with pytest.raises(NotImplementedError, match="does not fit one card"):
         get_config("qwen3-moe-235b-a22b")
     with pytest.raises(KeyError):
         get_config("no-such-model")
     assert get_config("deepseek-v2-lite-16b").family == "moe"
     assert get_config("zamba2-7b").family == "hybrid"
+    assert get_config("xlstm-350m").family == "ssm"
+    assert get_config("whisper-small").family == "audio"
+    assert get_config("llama-3.2-vision-11b").family == "vlm"
 
 
 def test_runtime_entry_points_raise_without_cuda(monkeypatch):
