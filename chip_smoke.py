@@ -172,11 +172,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 torch.profiler over (h)'s prompts at 16 new tokens. Its
                 demote/restore (about 19 GB of pinned host memory) is left
                 to the CPU tests;
-  8. dense    - the dense GQA decoders Granite-3-2B (2.53 B parameters),
-                StableLM-12B (12.14 B, head dim 160) and Nemotron-4-15B
-                (15.63 B, GQA group 6) and the sliding-window decoder
-                H2O-Danube-1.8B (1.83 B, head dim 80, a 4096-token window),
-                one at a time, at full width and depth, seeded random bf16
+  8. dense    - the dense GQA decoders Granite-3-2B, StableLM-12B (head
+                dim 160) and Nemotron-4-15B (GQA group 6) and the
+                sliding-window decoder H2O-Danube-1.8B (head dim 80, a
+                4096-token window), one at a time, at full width and a
+                quarter of their depth (DENSE_DEPTH), seeded random bf16
                 weights drawn on the card, with the kernels: mixes (a) and
                 (b) on the slot cache; for the three full-attention models
                 (c) on the paged pool, which must give (b)'s tokens, and
@@ -210,6 +210,24 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 and Whisper demoted to host and restored, after which (b)
                 decodes the same; the VLM's patches must move its logits
                 by more than LOGIT_TOL.
+ 10. sharded  - the sharded path (launch/steps.py) over a one-rank NCCL
+                mesh (1, 1) of ("data", "model"), started from a
+                FileStore: SmolLM2-1.7B's train cell (16 x 128 tokens, 2
+                microbatches, remat "block") 3 steps against the unsharded
+                train step from the same weights and batches (losses
+                within 1e-5); its prefill cell (16 x 512 into a cache of
+                1024) against the unsharded kernel path (LOGIT_TOL) and 16
+                greedy steps of its decode cell, tokens equal; each cell
+                with the launch counts at 0 (flash_attention, flash_decode);
+                DeepSeek-V2-Lite-16B's prefill cell (16 x 256) under the
+                experts rule, the expert-parallel MoE on the grouped GEMM
+                (capacity 768 at the reference's prefill factor 2.0), then
+                its first MoE layer's capacity pass at the config's 1.25
+                (capacity 480) on the kernel against the plain pass, the
+                dropped assignments counted, and the grouped GEMM timed at
+                (64, 480, 2048) x (64, 2048, 1408) beside a padded bmm and
+                its bound; Qwen3-MoE-235B planned on a (16, 16) shape-only
+                mesh on the meta device (bytes of weights a rank).
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -240,6 +258,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config, get_reduced_config  # noqa
+from repro_torch.configs.shapes import SHAPES, ShapeSuite  # noqa: E402
 from repro_torch.cluster import traces  # noqa: E402
 from repro_torch.cluster.node import spawn_node_process  # noqa: E402
 from repro_torch.core import (ContextMode, PCMClient, PCMManager,  # noqa
@@ -251,9 +270,12 @@ from repro_torch.data.tokenizer import BOS, LABEL_TOKENS  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import gemm_shape  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import sharding as shp  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import build_model, extra_inputs  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models.registry import abstract_model  # noqa: E402
 from repro_torch.serving import (InferenceEngine, Request,  # noqa: E402
                                  ShedError, SLOClass, TenantQuota)
 from repro_torch.train import (LoopConfig, OptimizerConfig,  # noqa: E402
@@ -3277,23 +3299,25 @@ def phase_train() -> dict:
 # --------------------------------------------------------- 6. deepseek ----
 class RouteLog:
     """Records every MoE routing decision while active: for each call of
-    ``route`` (one per MoE layer per wave or decode step), each token's
-    chosen experts in ascending order, on the device."""
+    ``route`` (one per MoE layer per wave or decode step; ``ep_route``, the
+    expert-parallel path's, with ``name="ep_route"``), each token's chosen
+    experts in ascending order, on the device."""
 
-    def __init__(self):
+    def __init__(self, name: str = "route"):
         self.calls = []
-        self._route = moe_lib.route
+        self.name = name
+        self._route = getattr(moe_lib, name)
 
     def __enter__(self):
-        def logged(p, x, cfg):
-            ids, w, aux = self._route(p, x, cfg)
-            self.calls.append(ids.sort(dim=1).values)
-            return ids, w, aux
-        moe_lib.route = logged
+        def logged(*args):
+            out = self._route(*args)
+            self.calls.append(out[0].sort(dim=1).values)
+            return out
+        setattr(moe_lib, self.name, logged)
         return self
 
     def __exit__(self, *exc):
-        moe_lib.route = self._route
+        setattr(moe_lib, self.name, self._route)
 
 
 def compare_routed(label, kern, plain, log_k, log_p, cfg, slots):
@@ -3575,6 +3599,13 @@ def phase_zamba2() -> dict:
 # ------------------------------------------------------------ 8. dense ----
 DENSE_ARCHS = ("granite-3-2b", "h2o-danube-1.8b", "stablelm-12b",
                "nemotron-4-15b")
+# each at full width and a quarter of its depth (40, 24, 40 and 32
+# layers): the whole script must end inside its 1200 s on a slow host too
+# (a run at full depth took 1247.8 s there, every phase 1.2-1.6x as long
+# as on the hosts of earlier runs), and depth only repeats layers whose
+# shapes the kernels already see
+DENSE_DEPTH = {"granite-3-2b": 10, "h2o-danube-1.8b": 6, "stablelm-12b": 10,
+               "nemotron-4-15b": 8}
 # H2O-Danube's long mix: 8 prompts of 3 000-6 000 tokens in one wave of
 # the 8192 bucket, past its 4096-token window, so the prefill kernel skips
 # the key tiles below the window and the ring buffer of 4096 wraps
@@ -3626,14 +3657,16 @@ def danube_in_window(model, plain_model, prompts) -> dict:
 
 
 def dense_arch(arch) -> dict:
-    """One dense decoder at full width and depth (seeded random bf16
-    weights drawn on the card) through the kernels, against a plain engine
+    """One dense decoder at full width and ``DENSE_DEPTH`` layers (seeded
+    random bf16 weights drawn on the card) through the kernels, against a
+    plain engine
     over the same weights: (a) and (b) on the slot cache; for the full-
     attention models (c) on the paged pool and (d) with prefix sharing on
     and off; for H2O-Danube the long mix instead, the paged and prefix
     fallbacks and the in-window check."""
     t_arch = time.monotonic()
-    cfg = dataclasses.replace(get_config(arch), use_kernels=True)
+    cfg = dataclasses.replace(get_config(arch), use_kernels=True,
+                              n_layers=DENSE_DEPTH[arch])
     window = cfg.sliding_window if cfg.attention == "sliding_window" else 0
     sync()
     t0 = time.monotonic()
@@ -4001,6 +4034,391 @@ def phase_families() -> dict:
     return out
 
 
+# ---------------------------------------------------------- 10. sharded ----
+SHARDED_TRAIN = ShapeSuite("sharded_train", "train", 128, 16)
+SHARDED_PREFILL = ShapeSuite("sharded_prefill", "prefill", 512, 16)
+SHARDED_DECODE = ShapeSuite("sharded_decode", "decode", 1024, 16)
+SHARDED_DECODE_STEPS = 16
+DS_SHARDED_PREFILL = ShapeSuite("ds_sharded_prefill", "prefill", 256, 16)
+# the sharded train cell against the unsharded train step from the same
+# weights and batches: on a one-rank mesh every op is the same local op,
+# so the gap should be 0; held to the card-vs-CPU step's loss bound
+SHARDED_LOSS_TOL = TRAIN_LOSS_TOL
+
+
+def sharded_train(mesh) -> dict:
+    """(1) SmolLM2-1.7B's train cell (16 x 128 tokens, 2 microbatches,
+    remat "block", CE chunks of 64) for 3 steps against the unsharded
+    make_train_step from the same seeded weights and batches."""
+    cfg = dataclasses.replace(get_config("smollm2-1.7b"), remat="block")
+    fn, args, rules = steps.build_cell(cfg, SHARDED_TRAIN, mesh,
+                                       accum_steps=2, ce_chunk=64)
+    params, opt, _ = steps.materialize(
+        args, mesh, torch.Generator("cuda").manual_seed(0))
+    model = build_model(cfg, device="cuda", params={
+        n: p.full_tensor().detach().clone() for n, p in params.items()})
+    named = trainable(model)
+    st = init_state(named)
+    step = make_train_step(model, OptimizerConfig(**TRAIN_OPT),
+                           accum_steps=2, ce_chunk=64)
+    data = fact_data(cfg)(0)
+    losses, secs = [], []
+    for _ in range(3):
+        batch = to_device(next(data), torch.device("cuda"))
+        sync()
+        t = time.monotonic()
+        params, opt, met = fn(params, opt, batch)
+        sync()
+        secs.append(time.monotonic() - t)
+        named, st, rmet = step(named, st, batch)
+        losses.append((float(met["loss"]), float(rmet["loss"])))
+    gap = max(abs(a - b) for a, b in losses)
+    pgap = max(float((params[n].detach().full_tensor().float()
+                      - named[n].detach().float()).abs().max())
+               for n in named)
+    log(f"[sharded] (1) train cell, rules {rules}: losses (cell, "
+        f"unsharded) {[(round(a, 6), round(b, 6)) for a, b in losses]}, "
+        f"largest loss gap {gap:.3e} (predicted 0, bound "
+        f"{SHARDED_LOSS_TOL:g}), parameters' largest gap {pgap:.3e}; cell "
+        f"step seconds {[round(x, 3) for x in secs]}")
+    if gap > SHARDED_LOSS_TOL or not all(np.isfinite(losses).ravel()):
+        raise AssertionError(f"sharded train: losses {losses}")
+    del params, opt, model, named, st
+    return dict(rules={k: str(v) for k, v in rules.items()}, losses=losses,
+                loss_gap=gap, param_gap=pgap, step_s=secs)
+
+
+def sharded_serve(mesh) -> dict:
+    """(2) SmolLM2-1.7B's prefill cell with the kernels, 16 x 512 tokens
+    of mixed lengths into a cache of 1024, against the unsharded kernel
+    path; (3) 16 greedy steps of the decode cell over that cache against
+    the unsharded decode_step. Each cell runs with the launch counts at
+    0."""
+    cfg = dataclasses.replace(get_config("smollm2-1.7b"), use_kernels=True)
+    fn_p, args_p, _ = steps.build_cell(cfg, SHARDED_PREFILL, mesh)
+    fn_d, _, rules_d = steps.build_cell(cfg, SHARDED_DECODE, mesh)
+    params = steps.materialize(
+        args_p, mesh, torch.Generator("cuda").manual_seed(0))[0]
+    model = build_model(cfg, device="cuda", params={
+        n: p.full_tensor() for n, p in params.items()})
+    B, S, C = 16, SHARDED_PREFILL.seq_len, SHARDED_DECODE.seq_len
+    gen = torch.Generator("cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    lens = torch.randint(S // 2, S + 1, (B,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    cache = model.init_cache(B, C, torch.bfloat16)
+    rcache = model.init_cache(B, C, torch.bfloat16)
+    out = {"launches": {}}
+    with torch.no_grad():
+        want = model.prefill(toks, lens, rcache)
+        ops.reset_launches()
+        logits, cache = fn_p(params, toks, lens, cache)
+        sync()
+        out["launches"]["prefill"] = launched = dict(ops.LAUNCHES)
+        gap = float((logits.full_tensor().float() - want.float()).abs().max())
+        log(f"[sharded] (2) prefill cell 16 x {S} (lengths {int(lens.min())}-"
+            f"{int(lens.max())}): logits gap {gap:.3e} (LOGIT_TOL "
+            f"{LOGIT_TOL}), launches {launched}")
+        if gap > LOGIT_TOL or launched["flash_attention"] <= 0:
+            raise AssertionError(f"sharded prefill: gap {gap}, launches "
+                                 f"{launched}")
+        out["prefill_gap"] = gap
+        t_ref = t_got = want.argmax(-1)
+        launched = dict.fromkeys(ops.LAUNCHES, 0)
+        same, steps_s = True, []
+        for _ in range(SHARDED_DECODE_STEPS):
+            ops.reset_launches()            # the cell's launches only
+            sync()
+            t = time.monotonic()
+            lg, cache = fn_d(params, t_got[:, None], lens, cache)
+            sync()
+            steps_s.append(time.monotonic() - t)
+            launched = {k: launched[k] + v for k, v in ops.LAUNCHES.items()}
+            t_got = lg.full_tensor().argmax(-1)
+            t_ref = model.decode_step(t_ref[:, None], lens, rcache).argmax(-1)
+            same &= bool(torch.equal(t_ref, t_got))
+            lens = lens + 1
+        out["launches"]["decode"] = launched
+        log(f"[sharded] (3) decode cell, rules {rules_d}: "
+            f"{SHARDED_DECODE_STEPS} greedy steps over a cache of {C}, "
+            f"tokens equal to the unsharded decode's: {same}; launches "
+            f"{launched}; median step {1e3 * float(np.median(steps_s)):.1f} "
+            f"ms (host clock)")
+        if not same or launched["flash_decode"] <= 0:
+            raise AssertionError(f"sharded decode: tokens equal {same}, "
+                                 f"launches {launched}")
+    out.update(decode_tokens_equal=same, decode_step_s=steps_s)
+    del params, model, cache, rcache
+    return out
+
+
+def drops_by_count(ids: torch.Tensor, capacity: int) -> set:
+    """The (token, expert) assignments past an expert's ``capacity``,
+    counted expert by expert over ``ids`` (T, k) in token order, as the
+    reference's test does: a plain count, independent of
+    ``moe.capacity_slots``."""
+    ids = ids.cpu().numpy()
+    out = set()
+    for e in np.unique(ids):
+        toks = np.nonzero((ids == e).any(axis=1))[0]
+        out.update((int(t), int(e)) for t in toks[capacity:])
+    return out
+
+
+def ep_reference(p, x: torch.Tensor, cfg, capacity: int) -> torch.Tensor:
+    """The expert-parallel MoE's output (shared experts aside) computed
+    another way: the single-device routing (``moe.route``, the iterative
+    top-k), the assignments past each expert's ``capacity`` found by a
+    plain count (``drops_by_count``), then every expert on every token,
+    weighted by the token's kept routing weight for it, summed in f32.
+    x (T, d) -> (T, d) f32. ``p`` is the MoE layer (DTensor parameters of
+    a one-rank mesh: their local tensors are the whole values)."""
+    E = cfg.moe.n_experts
+    ex = p.experts
+    plain = types.SimpleNamespace(
+        router=p.router.full_tensor(),
+        experts=types.SimpleNamespace(
+            up=ex.up.full_tensor(), down=ex.down.full_tensor(),
+            gate=None if ex.gate is None else ex.gate.full_tensor()))
+    ids, w, _ = moe_lib.route(plain, x, cfg)
+    w_te = torch.zeros(x.shape[0], E, device=x.device).scatter_(1, ids, w)
+    for t, e in drops_by_count(ids, capacity):
+        w_te[t, e] = 0.0
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(E):
+        y = moe_lib._expert_ffn(plain.experts, x[None], cfg,
+                                slice(e, e + 1))[0]
+        out += y.float() * w_te[:, e, None]
+    return out
+
+
+def sharded_deepseek(mesh) -> dict:
+    """(4) DeepSeek-V2-Lite-16B's prefill cell (16 x 256) under the
+    experts rule: the expert-parallel MoE on the grouped GEMM's (E, C, d)
+    form, launch counts at 0. Every MoE layer's dropped assignments are
+    held to a plain per-expert count, and its output to ``ep_reference``
+    on the same input; the end-to-end routing against the unsharded
+    kernel path (which never drops) is reported. Then the first MoE
+    layer's capacity pass at the config's capacity factor on the kernel
+    against the plain pass, and the kernel timed at that shape."""
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              use_kernels=True)
+    fn, args, rules = steps.build_cell(cfg, DS_SHARDED_PREFILL, mesh)
+    real = steps.materialize(args, mesh, torch.Generator("cuda").manual_seed(0))
+    B, S = 16, DS_SHARDED_PREFILL.seq_len
+    gen = torch.Generator("cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    seen, layers, moe_io = [], [], []
+    orig, ep_orig = moe_lib._local_expert_pass, moe_lib._expert_parallel
+
+    def record(x_flat, ids, w, experts, cfg_, n_local, shard_idx, capacity,
+               use_kernels=None):
+        if not seen:
+            seen.append((x_flat, ids, w, experts, n_local, shard_idx,
+                         capacity))
+        layers.append((ids, moe_lib.capacity_slots(
+            ids, w, n_local, shard_idx, capacity)[2], n_local, shard_idx,
+            capacity))
+        return orig(x_flat, ids, w, experts, cfg_, n_local, shard_idx,
+                    capacity, use_kernels)
+
+    def record_io(p, x, cfg_, cf):
+        y, aux = ep_orig(p, x, cfg_, cf)
+        d = x.shape[-1]
+        moe_io.append((p, x.full_tensor().reshape(-1, d),
+                       y.full_tensor().reshape(-1, d)))
+        return y, aux
+    moe_lib._local_expert_pass = record
+    moe_lib._expert_parallel = record_io
+    try:
+        ops.reset_launches()
+        with RouteLog("ep_route") as log_cell:
+            logits, _ = fn(real[0], toks, lens, real[3])
+        sync()
+    finally:
+        moe_lib._local_expert_pass = orig
+        moe_lib._expert_parallel = ep_orig
+    launched = dict(ops.LAUNCHES)
+    lg = logits.full_tensor()
+    drops, errs = [], []
+    with torch.no_grad():
+        for (ids_l, dropped, n_local, idx, cap), (p, x, y) in zip(layers,
+                                                                 moe_io):
+            lo = idx * n_local
+            counted = {(t, e) for t, e in drops_by_count(ids_l, cap)
+                       if lo <= e < lo + n_local}
+            slots = {(int(t), lo + int(e))
+                     for t, e in dropped.nonzero().tolist()}
+            if slots != counted:
+                raise AssertionError(
+                    f"capacity {cap}, MoE layer {len(drops)}: capacity_slots"
+                    f" drops {len(slots)} assignments, a plain count "
+                    f"{len(counted)}")
+            drops.append(len(slots))
+            want = ep_reference(p, x, cfg, cap)
+            errs.append((float((y.float() - want).abs().max()),
+                         TOL[torch.bfloat16] * float(want.abs().max())))
+        # the unsharded kernel path never drops: where the cell dropped,
+        # its routing parts from the cell's (reported, not bounded)
+        model = build_model(cfg, device="cuda", params={   # shares weights
+            n: p.full_tensor() for n, p in real[0].items()})
+        with RouteLog() as log_plain:
+            want = model.prefill(toks, lens,
+                                 model.init_cache(B, S, torch.bfloat16))
+        sync()
+    diff = torch.stack([(a != b).any(dim=1) for a, b in
+                        zip(log_cell.calls, log_plain.calls)])  # (L, T)
+    by_layer = [round(float(v), 5) for v in diff.float().mean(dim=1)]
+    gap = float((lg.float() - want.float()).abs().max())
+    x_flat, ids, w, experts, n_local, idx, cap_cell = seen[0]
+    worst = max(range(len(errs)), key=lambda i: errs[i][0] / errs[i][1])
+    log(f"[sharded] (4) deepseek prefill cell 16 x {S}, rules {rules}: "
+        f"capacity {cap_cell} at prefill's factor 2.0 (the reference's), "
+        f"dropped assignments by MoE layer {drops} (each equal to a plain "
+        f"count); each MoE layer's output against ep_reference on its "
+        f"input: largest error {errs[worst][0]:.3e} (layer {worst}, tol "
+        f"{errs[worst][1]:.3e}); launches {launched}; against the "
+        f"unsharded kernel path (no drops): routing decisions that differ "
+        f"by MoE layer {by_layer}, logits' largest gap {gap:.3e}")
+    if (not torch.isfinite(lg).all() or launched["grouped_gemm"] <= 0
+            or len(moe_io) != cfg.n_layers - cfg.moe.first_dense_layers
+            or any(e > t for e, t in errs) or by_layer[0] != 0.0):
+        raise AssertionError(
+            f"sharded deepseek prefill: layer errors {errs}, first MoE "
+            f"layer's routing differs in {by_layer[0]}, launches "
+            f"{launched}")
+    del model, want, layers, moe_io
+    T = x_flat.shape[0]
+    res = {"launches": {"deepseek prefill": launched}, "capacity_cell":
+           cap_cell, "tokens": T, "drops_by_layer": drops,
+           "layer_errors": errs, "route_diff_by_layer": by_layer,
+           "logits_gap_unsharded": gap}
+    with torch.no_grad():
+        for label, cap in (("cell", cap_cell),
+                           ("config", moe_lib._capacity(T, cfg))):
+            dropped = moe_lib.capacity_slots(ids, w, n_local, idx, cap)[2]
+            kern = orig(x_flat, ids, w, experts, cfg, n_local, idx, cap,
+                        use_kernels=True)
+            plain = orig(x_flat, ids, w, experts, cfg, n_local, idx, cap,
+                         use_kernels=False)
+            sync()
+            err = float((kern.float() - plain.float()).abs().max())
+            tol = min(1.0 * cfg.moe.d_ff ** 0.5,
+                      TOL[torch.bfloat16] * float(plain.float().abs().max()))
+            n_drop = int(dropped.sum())
+            share = float(dropped.any(dim=1).float().mean())
+            counted = drops_by_count(ids, cap)
+            check(f"expert-parallel pass, capacity {cap} ({label}), kernel "
+                  f"vs plain", err, torch.bfloat16, tol=tol,
+                  extra=f"({n_drop} dropped (token, expert) assignments of "
+                        f"{T * cfg.moe.experts_per_token}, {100 * share:.2f}"
+                        f" % of tokens with a drop; {len(counted)} by a "
+                        f"plain count)")
+            slots = {(int(t), idx * n_local + int(e))
+                     for t, e in dropped.nonzero().tolist()}
+            if slots != counted:
+                raise AssertionError(
+                    f"capacity {cap}: capacity_slots drops {len(slots)} "
+                    f"assignments, the plain count {len(counted)}, "
+                    f"{len(slots ^ counted)} differ")
+            res[f"capacity_{label}"] = dict(capacity=cap, max_abs_err=err,
+                                            tol=tol, dropped=n_drop,
+                                            dropped_by_count=len(counted),
+                                            token_share=share)
+        cap = res["capacity_config"]["capacity"]
+        tok = moe_lib.capacity_slots(ids, w, n_local, idx, cap)[0]
+        xt = x_flat.index_select(0, tok).reshape(n_local, cap, -1)
+        wt = experts.up
+        E, C, d, f = n_local, cap, xt.shape[-1], wt.shape[-1]
+        got = ops.grouped_gemm(xt, wt)
+        exp = ref.grouped_gemm_ref(xt, wt)
+        sync()
+        err = float((got.float() - exp.float()).abs().max())
+        check(f"grouped_gemm ({E},{C},{d}) x ({E},{d},{f}) capacity form",
+              err, torch.bfloat16,
+              tol=min(d ** 0.5, TOL[torch.bfloat16]
+                      * float(exp.float().abs().max())))
+        ms = device_ms(lambda: ops.grouped_gemm(xt, wt), iters=20)
+        lib = device_ms(lambda: torch.bmm(xt, wt), iters=20)
+        plain_ms = time_ms(lambda: ref.grouped_gemm_ref(xt, wt), iters=3)
+        nbytes = 2 * (E * C * d + E * d * f + E * C * f)
+        flops = 2.0 * E * C * d * f
+        bms, by = bound_ms(nbytes, flops)
+    log(f"[sharded] grouped_gemm capacity form ({E},{C},{d}) x ({E},{d},"
+        f"{f}) bf16: kernel {ms:.4f} ms ({rate(nbytes, flops, ms, by)}), "
+        f"padded bmm {lib:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} "
+        f"GFLOP), max_abs_err {err:.3e}")
+    res["gemm_capacity_form"] = dict(
+        shape=[E, C, d, f], ms=ms, library_ms=lib, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, max_abs_err=err,
+        achieved=rate(nbytes, flops, ms, by))
+    del real, logits, seen
+    return res
+
+
+def qwen3_plan() -> dict:
+    """(5) Qwen3-MoE-235B planned on a (16, 16) shape-only mesh, on the
+    meta device: the rules and each rank's bytes of weights."""
+    cfg = get_config("qwen3-moe-235b-a22b")
+    mesh = types.SimpleNamespace(shape={"data": 16, "model": 16})
+    rules = shp.make_rules(cfg, mesh, SHAPES["train_4k"])
+    model = abstract_model(cfg)
+    specs = shp.param_specs(model, cfg, mesh, rules)
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    per_rank = shp.bytes_per_rank(model, specs, mesh)
+    log(f"[sharded] (5) qwen3-moe-235b on (data 16, model 16), rules "
+        f"{rules}: {total / 1e9:.1f} GB of bf16 weights, "
+        f"{per_rank / 1e9:.2f} GB a rank under the plan "
+        f"({cfg.moe.n_experts // 16} experts a rank); nothing allocated")
+    return dict(rules={k: str(v) for k, v in rules.items()},
+                weight_bytes=total, bytes_per_rank=per_rank)
+
+
+def phase_sharded() -> dict:
+    """Phase 10: the sharded path over a one-rank NCCL mesh (1, 1) of
+    ("data", "model"): SmolLM2's train, prefill and decode cells from
+    launch/steps.py, DeepSeek's expert-parallel prefill cell, Qwen3's
+    plan."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp.name, "store"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        log(f"[sharded] mesh {mesh}")
+        out = {"launches": {}}
+        out["train"] = sharded_train(mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_res = sharded_serve(mesh)
+        out["launches"].update(serve_res.pop("launches"))
+        out["serve"] = serve_res
+        gc.collect()
+        torch.cuda.empty_cache()
+        ds = sharded_deepseek(mesh)
+        out["launches"].update(ds.pop("launches"))
+        out["deepseek"] = ds
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["qwen3"] = qwen3_plan()
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    out["seconds"] = time.monotonic() - t0
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[sharded] phase {out['seconds']:.1f} s, peak device memory "
+        f"{out['peak_mem_gb']:.2f} GB")
+    return out
+
+
 class PlantFault:
     """For --faults: breaks one kernel entry point at run time (the code
     stays as it is) while active. ``gemm_drop_expert`` zeroes the grouped
@@ -4209,6 +4627,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["families"] = phase_families()
     phase_done("families")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["sharded"] = phase_sharded()
+    phase_done("sharded")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's launches on the main paths, summed over its entry points
@@ -4218,7 +4640,7 @@ def main() -> int:
                               report["multihost"], report["frontdoor"],
                               report["train"], report["deepseek"],
                               report["zamba2"], report["dense"],
-                              report["families"])
+                              report["families"], report["sharded"])
             for run in phase["launches"].values()]
     kernels = []
     for name, row in rows.items():

@@ -4,9 +4,12 @@ The port serves the dense GQA/MHA decoders SmolLM2-1.7B, Granite-3-2B,
 StableLM-12B and Nemotron-4-15B, the sliding-window decoder
 H2O-Danube-1.8B, the MLA + MoE DeepSeek-V2-Lite-16B, the Mamba2 +
 shared-attention hybrid Zamba2-7B, the recurrent xLSTM-350M, the
-encoder-decoder Whisper-small and the cross-attention VLM
-Llama-3.2-Vision-11B. The reference's one other architecture is known by
-name and raises, saying why one card cannot hold it.
+encoder-decoder Whisper-small, the cross-attention VLM
+Llama-3.2-Vision-11B, and Qwen3-MoE-235B: every architecture of the
+reference. Qwen3-MoE's 470 GB of bf16 weights fit no card the port runs
+on, one H100 or four: the sharded path plans it (``launch.sharding``,
+``launch.steps`` on the meta device) and ``models.registry.build_model``
+refuses to allocate it.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from repro_torch.configs.h2o_danube_1_8b import CONFIG as H2O_DANUBE_1_8B
 from repro_torch.configs.llama32_vision_11b import \
     CONFIG as LLAMA32_VISION_11B
 from repro_torch.configs.nemotron_4_15b import CONFIG as NEMOTRON_4_15B
+from repro_torch.configs.qwen3_moe_235b import CONFIG as QWEN3_MOE_235B
 from repro_torch.configs.smollm2_1_7b import CONFIG as SMOLLM2_1_7B
 from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_12B
 from repro_torch.configs.whisper_small import CONFIG as WHISPER_SMALL
@@ -33,15 +37,8 @@ _CONFIGS = {"smollm2-1.7b": SMOLLM2_1_7B,
             "zamba2-7b": ZAMBA2_7B,
             "xlstm-350m": XLSTM_350M,
             "whisper-small": WHISPER_SMALL,
-            "llama-3.2-vision-11b": LLAMA32_VISION_11B}
-
-# arch id -> why it is not built yet: what stands in its way
-_LATER = {
-    "qwen3-moe-235b-a22b": "it does not fit one card: 235 B parameters are "
-                           "470 GB in bf16 against one H100's 80 GB (and "
-                           "four cards' 320 GB), so it waits for a port "
-                           "slice that shards experts across cards",
-}
+            "llama-3.2-vision-11b": LLAMA32_VISION_11B,
+            "qwen3-moe-235b-a22b": QWEN3_MOE_235B}
 
 ALL_ARCHS = tuple(_CONFIGS)
 
@@ -49,9 +46,6 @@ ALL_ARCHS = tuple(_CONFIGS)
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id in _CONFIGS:
         return _CONFIGS[arch_id]
-    if arch_id in _LATER:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: {_LATER[arch_id]}")
     raise KeyError(f"unknown arch {arch_id!r}; available: "
                    f"{', '.join(sorted(_CONFIGS))}")
 

@@ -22,6 +22,20 @@ Cache writes are in place (the reference rebuilt the cache arrays), and
 only the rows of active slots are written: into their own slot, or into
 their own pages through the page table, with every masked write aimed at
 the pool's TRASH page.
+
+Under a mesh (``models.sharding``) the reference's ``shard`` sites place
+q (batch, seq, heads, -), K/V (batch, seq, -, -) and the outputs, and
+every attention core runs in ``sharding.local`` over the rank's own rows
+and query heads, as plain tensors: the kernel calls (``attend_prefill``,
+``attend_prefill_shared``, ``attend_decode``, ``attend_cached_memory``,
+``paged_attend_decode``, ``paged_mla_decode``), their plain branches, and
+the slot cache's row writes (``write_cache_row``, an indexed write DTensor
+has no sharding strategy for). K/V come in with every head; each rank
+takes the heads its query heads read (``_local_heads``). A decode cache
+sharded on ``kv_seq`` is gathered to whole rows for the step and its
+rank's part written back (``shard``, then ``sharding.write_back``): an
+all-gather per layer and step, right but not fast. The paged pool is the
+engine's, and the engine never runs under a mesh.
 """
 
 from __future__ import annotations
@@ -32,8 +46,10 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models import sharding
 from repro_torch.models.layers import (apply_rope, cdt, rms_norm_heads,
                                        rope_cos_sin)
+from repro_torch.models.sharding import shard
 from repro_torch.serving.kvcache import select_slots
 
 NEG_INF = -1e30
@@ -73,6 +89,30 @@ def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     if hkv == n_heads:
         return k
     return k.repeat_interleave(n_heads // hkv, dim=2)
+
+
+# logical axes of attention's tensors under a mesh: queries and outputs
+# (B, S, H, D), K/V and slot caches (B, S, Hkv, D), per-row vectors (B,)
+QA = ("batch", "seq", "heads", None)
+KA = ("batch", "seq", None, None)
+ROW = ("batch",)
+
+
+def _local_heads(kv: torch.Tensor, n_local: int, n_heads: int
+                 ) -> torch.Tensor:
+    """The K/V heads (B, T, Hkv, D) that serve this rank's ``n_local`` of
+    the ``n_heads`` query heads, keeping GQA: kv head j serves query heads
+    j*G..j*G+G-1. All of them with no head sharding; a contiguous slice
+    when a rank's query heads cover whole groups; else one K/V head per
+    query head."""
+    if n_local == n_heads:
+        return kv
+    g = n_heads // kv.shape[2]
+    h0 = sharding.axis_index("heads") * n_local
+    if n_local % g == 0:
+        return kv[:, :, h0 // g:(h0 + n_local) // g].contiguous()
+    idx = (h0 + torch.arange(n_local, device=kv.device)) // g
+    return kv.index_select(2, idx)
 
 
 def write_cache_row(cache: torch.Tensor, new_row: torch.Tensor,
@@ -158,17 +198,26 @@ def attend_prefill(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     False every query over every key (an encoder's). Returns (y (B,S,d),
     (k, v) narrow-head (B,S,Hkv,D))."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    if cfg.use_kernels:
-        out = kops.flash_attention(
-            q, k, v, causal=causal, window=layer_window, scale=scale,
-            kv_len=None if kv_len is None else kv_len.to(torch.int32))
-    else:
-        out = blockwise_attention(q, _repeat_kv(k, cfg.n_heads),
-                                  _repeat_kv(v, cfg.n_heads), scale=scale,
-                                  causal=causal, window=layer_window,
-                                  kv_len=kv_len)
-    return _out_proj(out, p.wo, cdt(cfg)), (k, v)
+    q = shard(q, *QA)
+    k = shard(k, *KA)
+    v = shard(v, *KA)
+
+    def core(q, k, v, kv_len):
+        k = _local_heads(k, q.shape[2], cfg.n_heads)
+        v = _local_heads(v, q.shape[2], cfg.n_heads)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        if cfg.use_kernels:
+            return kops.flash_attention(
+                q, k, v, causal=causal, window=layer_window, scale=scale,
+                kv_len=None if kv_len is None else kv_len.to(torch.int32))
+        return blockwise_attention(q, _repeat_kv(k, q.shape[2]),
+                                   _repeat_kv(v, q.shape[2]), scale=scale,
+                                   causal=causal, window=layer_window,
+                                   kv_len=kv_len)
+    out = sharding.local(core, (QA, KA, KA, ROW), (QA,))(q, k, v, kv_len)
+    out = shard(out, *QA)
+    y = shard(_out_proj(out, p.wo, cdt(cfg)), "batch", "seq", None)
+    return y, (k, v)
 
 
 def _merge_rows(view: torch.Tensor, tail: torch.Tensor,
@@ -215,18 +264,27 @@ def attend_prefill_shared(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     writes the tail into the row's pages (the reference returned the merged
     view and scattered it back whole)."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    mk = _merge_rows(view_k, k, starts)
-    mv = _merge_rows(view_v, v, starts)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    if cfg.use_kernels:
-        out = kops.flash_attention(q, mk, mv, causal=True, scale=scale,
-                                   kv_len=kv_len.to(torch.int32),
-                                   q_offset=starts.to(torch.int32))
-    else:
-        out = blockwise_attention(q, _repeat_kv(mk, cfg.n_heads),
-                                  _repeat_kv(mv, cfg.n_heads), scale=scale,
-                                  causal=True, q_offset=starts, kv_len=kv_len)
-    return _out_proj(out, p.wo, cdt(cfg)), (k, v)
+    q = shard(q, *QA)
+
+    def core(q, k, v, view_k, view_v, starts, kv_len):
+        mk = _local_heads(_merge_rows(view_k, k, starts), q.shape[2],
+                          cfg.n_heads)
+        mv = _local_heads(_merge_rows(view_v, v, starts), q.shape[2],
+                          cfg.n_heads)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        if cfg.use_kernels:
+            return kops.flash_attention(q, mk, mv, causal=True, scale=scale,
+                                        kv_len=kv_len.to(torch.int32),
+                                        q_offset=starts.to(torch.int32))
+        return blockwise_attention(q, _repeat_kv(mk, q.shape[2]),
+                                   _repeat_kv(mv, q.shape[2]), scale=scale,
+                                   causal=True, q_offset=starts,
+                                   kv_len=kv_len)
+    out = sharding.local(core, (QA, KA, KA, KA, KA, ROW, ROW), (QA,))(
+        q, k, v, view_k, view_v, starts, kv_len)
+    out = shard(out, *QA)
+    y = shard(_out_proj(out, p.wo, cdt(cfg)), "batch", "seq", None)
+    return y, (k, v)
 
 
 # --------------------------------------------------------------- decode ----
@@ -270,27 +328,36 @@ def attend_decode(p, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
 
-    s_cache = cache_k.shape[1]
-    slot = (lengths.long() % s_cache if layer_window
-            else torch.clamp(lengths.long(), max=s_cache - 1))
-    write_cache_row(cache_k, k_new[:, 0], slot, active)
-    write_cache_row(cache_v, v_new[:, 0], slot, active)
-
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
-    n_valid = torch.clamp(lengths + 1, max=s_cache)
-    if cfg.use_kernels:
-        out = kops.flash_decode(q[:, 0].contiguous(), cache_k, cache_v,
-                                n_valid.to(torch.int32), scale=scale,
-                                active=active)[:, None]
-    else:
+
+    def core(q, k_new, v_new, cache_k, cache_v, lengths, active):
+        s_cache = cache_k.shape[1]
+        slot = (lengths.long() % s_cache if layer_window
+                else torch.clamp(lengths.long(), max=s_cache - 1))
+        write_cache_row(cache_k, k_new[:, 0], slot, active)
+        write_cache_row(cache_v, v_new[:, 0], slot, active)
+        ck = _local_heads(cache_k, q.shape[2], cfg.n_heads)
+        cv = _local_heads(cache_v, q.shape[2], cfg.n_heads)
+        n_valid = torch.clamp(lengths + 1, max=s_cache)
+        if cfg.use_kernels:
+            return kops.flash_decode(q[:, 0].contiguous(), ck, cv,
+                                     n_valid.to(torch.int32), scale=scale,
+                                     active=active)[:, None]
         pos = torch.arange(s_cache, device=cache_k.device)
         if layer_window:
             valid = pos[None, :] < n_valid.long()[:, None]
         else:
             valid = pos[None, :] <= lengths.long()[:, None]
-        out = grouped_attention_narrow(q * scale, cache_k, cache_v,
-                                       valid)[:, :1]
-    return _out_proj(out, p.wo, c)
+        return grouped_attention_narrow(q * scale, ck, cv, valid)[:, :1]
+
+    # the kernel reads whole rows: a kv_seq-sharded cache is gathered for
+    # the step, written in the gathered copy and its shards written back
+    ck, cv = shard(cache_k, *KA), shard(cache_v, *KA)
+    out = sharding.local(core, (QA, KA, KA, KA, KA, ROW, ROW), (QA,))(
+        shard(q, *QA), k_new, v_new, ck, cv, lengths, active)
+    sharding.write_back(cache_k, ck)
+    sharding.write_back(cache_v, cv)
+    return _out_proj(shard(out, *QA), p.wo, c)
 
 
 # ---------------------------------------------------- cross-attention ----
@@ -324,29 +391,35 @@ def attend_cached_memory(p, x: torch.Tensor, cfg, mem_k: torch.Tensor,
     q = _proj(x, p.wq, c)
     if cfg.qk_norm:
         q = rms_norm_heads(q, p.q_norm, cfg.norm_eps)
-    B, S = q.shape[:2]
-    T = mem_k.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if cfg.use_kernels:
-        n = (torch.full((B,), T, dtype=torch.int32, device=q.device)
-             if mem_len is None else mem_len.to(torch.int32))
-        if S == 1:
-            out = kops.flash_decode(q[:, 0].contiguous(), mem_k, mem_v, n,
-                                    scale=scale, active=active)[:, None]
-        else:
-            out = kops.flash_attention(q, mem_k, mem_v, causal=False,
-                                       scale=scale, kv_len=n)
-    elif S > 256:
-        out = blockwise_attention(q, _repeat_kv(mem_k, cfg.n_heads),
-                                  _repeat_kv(mem_v, cfg.n_heads),
-                                  scale=scale, causal=False, kv_len=mem_len)
-    else:
+
+    def core(q, mem_k, mem_v, mem_len, active):
+        B, S, H = q.shape[:3]
+        T = mem_k.shape[1]
+        mem_k = _local_heads(mem_k, H, cfg.n_heads)
+        mem_v = _local_heads(mem_v, H, cfg.n_heads)
+        if cfg.use_kernels:
+            n = (torch.full((B,), T, dtype=torch.int32, device=q.device)
+                 if mem_len is None else mem_len.to(torch.int32))
+            if S == 1:
+                return kops.flash_decode(q[:, 0].contiguous(), mem_k, mem_v,
+                                         n, scale=scale,
+                                         active=active)[:, None]
+            return kops.flash_attention(q, mem_k, mem_v, causal=False,
+                                        scale=scale, kv_len=n)
+        if S > 256:
+            return blockwise_attention(q, _repeat_kv(mem_k, H),
+                                       _repeat_kv(mem_v, H), scale=scale,
+                                       causal=False, kv_len=mem_len)
         pos = torch.arange(T, device=q.device)
         valid = (torch.ones((B, T), dtype=torch.bool, device=q.device)
                  if mem_len is None
                  else pos[None, :] < mem_len.long()[:, None])
-        out = grouped_attention_narrow(q * scale, mem_k, mem_v, valid)
-    return _out_proj(out, p.wo, c)
+        return grouped_attention_narrow(q * scale, mem_k, mem_v, valid)
+    out = sharding.local(core, (QA, KA, KA, ROW, ROW), (QA,))(
+        shard(q, *QA), mem_k, mem_v, mem_len, active)
+    y = _out_proj(shard(out, *QA), p.wo, c)
+    return shard(y, "batch", "seq", None)
 
 
 # ------------------------------------------------------------ paged pool ----
@@ -436,9 +509,16 @@ def paged_attend_decode(p, x: torch.Tensor, cfg, *, k_pages: torch.Tensor,
     if cfg.use_kernels:
         n_valid = torch.where(active, torch.clamp(lengths + 1, max=cap),
                               0).to(torch.int32)
-        out = kops.paged_flash_decode(q[:, 0].contiguous(), k_pages,
-                                      v_pages, page_table, n_valid,
-                                      scale=scale)[:, None]
+
+        def core(q, page_table, n_valid, k_pages, v_pages):
+            return kops.paged_flash_decode(
+                q[:, 0].contiguous(), k_pages, v_pages, page_table, n_valid,
+                scale=scale)[:, None]
+        out = sharding.local(
+            core, (("batch", None, None, None), ("batch", None), ROW,
+                   (None,) * 4, (None,) * 4),
+            (("batch", None, None, None),))(
+            q, page_table, n_valid, k_pages, v_pages)
     else:
         kv = _paged_gather(k_pages, page_table)
         vv = _paged_gather(v_pages, page_table)
@@ -526,7 +606,8 @@ def mla_prefill(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         acc = acc * corr[..., None] + torch.einsum("bshc,bchd->bshd", pr, v_i)
         m = m_new
     out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(c)
-    return _out_proj(out, p.wo, c), (ckv, k_rope)
+    y = shard(_out_proj(out, p.wo, c), "batch", "seq", None)
+    return y, (ckv, k_rope)
 
 
 def _mla_attend_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
@@ -569,14 +650,26 @@ def mla_decode(p, x: torch.Tensor, cfg, *, cache_ckv: torch.Tensor,
     Sc-1)`` for active rows. Plain torch on every device: the reference has
     no kernel for it either. Returns y (B,1,d)."""
     q_lat, q_rope, ckv_new, kr_new = _mla_decode_q(p, x, cfg, lengths)
-    s_cache = cache_ckv.shape[1]
-    slot = torch.clamp(lengths.long(), max=s_cache - 1)
-    write_cache_row(cache_ckv, ckv_new, slot, active)
-    write_cache_row(cache_krope, kr_new, slot, active)
-    pos = torch.arange(s_cache, device=x.device)
-    valid = pos[None, :] <= lengths.long()[:, None]
-    out_lat = _mla_attend_latent(q_lat, q_rope, cache_ckv, cache_krope, valid,
-                                 _mla_scale(cfg))
+
+    def core(q_lat, q_rope, ckv_new, kr_new, cache_ckv, cache_krope,
+             lengths, active):
+        s_cache = cache_ckv.shape[1]
+        slot = torch.clamp(lengths.long(), max=s_cache - 1)
+        write_cache_row(cache_ckv, ckv_new, slot, active)
+        write_cache_row(cache_krope, kr_new, slot, active)
+        pos = torch.arange(s_cache, device=q_lat.device)
+        valid = pos[None, :] <= lengths.long()[:, None]
+        return _mla_attend_latent(q_lat, q_rope, cache_ckv, cache_krope,
+                                  valid, _mla_scale(cfg))
+    lat, row, cache = ("batch", None, "heads", None), ("batch", None), \
+        ("batch", None, None)
+    ckv, kr = (shard(cache_ckv, *cache),
+               shard(cache_krope, *cache))
+    out_lat = sharding.local(
+        core, (lat, lat, row, row, cache, cache, ROW, ROW), (lat,))(
+        q_lat, q_rope, ckv_new, kr_new, ckv, kr, lengths, active)
+    sharding.write_back(cache_ckv, ckv)
+    sharding.write_back(cache_krope, kr)
     return _mla_out(p, out_lat, cfg)
 
 
@@ -601,9 +694,18 @@ def paged_mla_decode(p, x: torch.Tensor, cfg, *, ckv_pages: torch.Tensor,
     if cfg.use_kernels:
         n_valid = torch.where(active, torch.clamp(lengths + 1, max=cap),
                               0).to(torch.int32)
-        out_lat = kops.paged_mla_decode(
-            q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous(), ckv_pages,
-            krope_pages, page_table, n_valid, scale=scale)[:, None].float()
+
+        def core(q_lat, q_rope, page_table, n_valid, ckv_pages,
+                 krope_pages):
+            return kops.paged_mla_decode(
+                q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous(),
+                ckv_pages, krope_pages, page_table, n_valid,
+                scale=scale)[:, None].float()
+        out_lat = sharding.local(
+            core, (("batch", None, "heads", None),) * 2
+            + (("batch", None), ROW, (None,) * 3, (None,) * 3),
+            (("batch", None, "heads", None),))(
+            q_lat, q_rope, page_table, n_valid, ckv_pages, krope_pages)
     else:
         pos = torch.arange(cap, device=x.device)
         valid = pos[None, :] <= lengths.long()[:, None]

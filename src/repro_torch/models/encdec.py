@@ -32,9 +32,10 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import cdt, embed, frontend_input
+from repro_torch.models.sharding import remat
 from repro_torch.models.transformer import (MLP, Attention, Embedding,
-                                          LanguageModel, Norm)
-from repro_torch.serving.kvcache import merge_slots
+                                          LanguageModel, Norm,
+                                          write_prefill)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -107,17 +108,21 @@ class EncDec(LanguageModel):
 
     def forward_hidden(self, tokens: torch.Tensor,
                        lengths: Optional[torch.Tensor] = None,
-                       extra: Optional[Dict] = None
+                       extra: Optional[Dict] = None, train: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) and ``extra["frames"]`` -> (the final-normed
         decoder states (B, S, d), an f32 zero). ``lengths`` masks padding
-        keys of the self-attention. (Training, with the reference's remat,
-        is not ported for this family yet.)"""
+        keys of the self-attention. With ``train`` and ``cfg.remat`` not
+        "none" each decoder block runs under ``torch.utils.checkpoint``,
+        as the reference wraps its decoder body."""
         enc = self.encode(frontend_input(extra, "frames", self.cfg))
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        use_remat = train and self.cfg.remat != "none"
         for blk in self.decoder:
-            x = self._dec_prefill(blk, x, positions, lengths, enc)[0]
+            def body(x, blk=blk):
+                return self._dec_prefill(blk, x, positions, lengths, enc)[0]
+            x = remat(body, x) if use_remat else body(x)
         return (self.final_norm(x),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -158,10 +163,10 @@ class EncDec(LanguageModel):
         for i, blk in enumerate(self.decoder):
             x, (k, v), (mk, mv) = self._dec_prefill(blk, x, positions,
                                                     lengths, enc)
-            merge_slots(cache["k"][i], k, slots)
-            merge_slots(cache["v"][i], v, slots)
-            merge_slots(cache["cross_k"][i], mk, slots, seq=False)
-            merge_slots(cache["cross_v"][i], mv, slots, seq=False)
+            write_prefill(cache["k"][i], k, slots)
+            write_prefill(cache["v"][i], v, slots)
+            write_prefill(cache["cross_k"][i], mk, slots, seq=False)
+            write_prefill(cache["cross_v"][i], mv, slots, seq=False)
         return self._last_logits(x, lengths)
 
     def decode_step(self, tokens: torch.Tensor, lengths: torch.Tensor,

@@ -30,13 +30,13 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm
 from repro_torch.models.layers import cdt, embed
+from repro_torch.models.sharding import remat
 from repro_torch.models.transformer import (Block, Embedding, LanguageModel,
-                                          Norm)
-from repro_torch.serving.kvcache import merge_slots, select_slots
+                                          Norm, write_prefill)
+from repro_torch.serving.kvcache import select_slots
 
 Cache = Dict[str, torch.Tensor]
 
@@ -110,7 +110,7 @@ class Hybrid(LanguageModel):
 
     def forward_hidden(self, tokens: torch.Tensor,
                        lengths: Optional[torch.Tensor] = None,
-                       train: bool = False
+                       extra: Optional[Dict] = None, train: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (the final-normed hidden states (B, S, d), an
         f32 zero: the hybrid has no auxiliary loss). ``lengths`` masks
@@ -119,16 +119,16 @@ class Hybrid(LanguageModel):
         With ``train`` and ``cfg.remat`` in ("block", "full"), each group
         (the shared block and its Mamba2 layers; not the tail) runs under
         ``torch.utils.checkpoint``, as the reference wraps its
-        ``group_body``."""
+        ``group_body``. ``extra`` is unused: every family shares this
+        signature."""
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         valid = (None if lengths is None
                  else positions[None, :] < lengths[:, None])
-        remat = train and self.cfg.remat in ("block", "full")
+        use_remat = train and self.cfg.remat in ("block", "full")
         for g in range(self.n_groups):
-            if remat:
-                x = checkpoint(self._group, g, x, positions, lengths, valid,
-                               use_reentrant=False)
+            if use_remat:
+                x = remat(self._group, g, x, positions, lengths, valid)
             else:
                 x = self._group(g, x, positions, lengths, valid)
         for i in range(self.tail):
@@ -177,11 +177,11 @@ class Hybrid(LanguageModel):
                 x, kv, _ = self.shared_block.prefill(
                     x, positions=positions, kv_len=lengths)
                 for n, src in zip(self.cache_names, kv):
-                    merge_slots(cache[n][i], src, slots)
+                    write_prefill(cache[n][i], src, slots)
             else:
                 x, st = self._mamba_prefill(i, x, valid, True)
                 for n in STATE_LEAVES:
-                    merge_slots(cache[n][i], st[n], slots, seq=False)
+                    write_prefill(cache[n][i], st[n], slots, seq=False)
         return self._last_logits(x, lengths)
 
     def decode_step(self, tokens: torch.Tensor, lengths: torch.Tensor,

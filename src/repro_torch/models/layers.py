@@ -7,6 +7,11 @@ package needs no transpose. Rounding follows the reference step by step:
 norms compute in f32 and cast back, RoPE casts cos and sin to the
 activation dtype before multiplying, and logits are computed in the compute
 dtype and then cast to the logit dtype.
+
+The reference's ``shard`` sites are kept (``models.sharding``): embedded
+tokens (batch, seq, -), logits (batch, seq, vocab) and the MLP's hidden
+(batch, seq, d_ff) and output (batch, seq, -). Without a mesh they
+return their input.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.sharding import shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -73,8 +80,14 @@ def rms_norm_heads(x: torch.Tensor, scale: torch.Tensor,
 
 # ----------------------------------------------------------- embeddings ----
 def embed(tok: torch.Tensor, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """tok (V_pad, d); tokens (...) int -> (..., d) in the compute dtype."""
-    return F.embedding(tokens.long(), tok).to(cdt(cfg))
+    """tok (V_pad, d); tokens (B, S) int -> (B, S, d) in the compute
+    dtype. Under a mesh a step that trains reads the table whole (an
+    all-gather of a vocab-sharded one): DTensor cannot take a gradient
+    back through the masked partial sum of a vocab-sharded lookup."""
+    if tok.requires_grad and torch.is_grad_enabled():
+        tok = shard(tok, None, None)
+    return shard(F.embedding(tokens.long(), tok).to(cdt(cfg)),
+                 "batch", "seq", None)
 
 
 def unembed(tok: torch.Tensor, x: torch.Tensor, cfg,
@@ -84,8 +97,8 @@ def unembed(tok: torch.Tensor, x: torch.Tensor, cfg,
     ``cfg.logit_dtype``."""
     c = cdt(cfg)
     w = tok.t() if w_unembed is None else w_unembed
-    logits = torch.matmul(x.to(c), w.to(c))
-    return logits.to(dt(cfg.logit_dtype))
+    logits = torch.matmul(x.to(c), w.to(c)).to(dt(cfg.logit_dtype))
+    return shard(logits, "batch", *(["seq"] * (logits.dim() - 2)), "vocab")
 
 
 # --------------------------------------------------------------- rope ------
@@ -125,7 +138,10 @@ def apply_mlp(x: torch.Tensor, up: torch.Tensor, down: torch.Tensor, cfg,
         h = r * r
     else:  # gelu, tanh-approximated as jax.nn.gelu's default
         h = F.gelu(h_up, approximate="tanh")
-    return torch.matmul(h, down.to(c))
+    if h.dim() == 3:
+        h = shard(h, "batch", "seq", "d_ff")
+    y = torch.matmul(h, down.to(c))
+    return shard(y, "batch", "seq", None) if y.dim() == 3 else y
 
 
 # ------------------------------------------------------- frontend stubs ----

@@ -8,10 +8,16 @@ cross-attention VLM), and ``extra_inputs``/``input_specs``, the shapes
 and dtypes of the frontend stubs' inputs and of a shape suite's model
 inputs as meta tensors (the reference's ``ShapeDtypeStruct``s), which
 allocate nothing.
+
+``build_model`` and ``build_shell`` refuse a config whose weights exceed
+the memory of the device they would go on (Qwen3-MoE's 470 GB in bf16
+against one H100's 80 GB), naming the sizes, before allocating anything:
+such a model is only planned, on the meta device, by the sharded path.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Union
 
 import torch
@@ -37,6 +43,13 @@ def _meta_model(cfg) -> nn.Module:
         raise ValueError(f"unknown family {cfg.family!r}")
     with torch.device("meta"):
         return families[cfg.family](cfg, "meta")
+
+
+def abstract_model(cfg) -> nn.Module:
+    """``cfg``'s model on the meta device: every parameter's name, shape
+    and dtype, nothing allocated (the reference's ``eval_shape`` of
+    ``init``; what the step builders plan and place)."""
+    return _meta_model(cfg)
 
 
 def extra_inputs(cfg, batch: int, dtype: torch.dtype = torch.bfloat16
@@ -76,6 +89,32 @@ def input_specs(cfg, suite: ShapeSuite) -> Dict[str, torch.Tensor]:
     raise ValueError(suite.kind)
 
 
+def _device_bytes(dev: torch.device) -> int:
+    """The memory of ``dev``: the card's, or the host's for the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def check_fits(cfg, model: nn.Module, dev: torch.device) -> None:
+    """Refuse, naming the sizes, a config whose weights (those of
+    ``model``, its meta-device build) alone exceed the memory of the
+    device they would be allocated on."""
+    n = sum(p.numel() for p in model.parameters())
+    need = sum(p.numel() * p.element_size() for p in model.parameters())
+    have = _device_bytes(dev)
+    if need > have:
+        name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                else "this host")
+        raise ValueError(
+            f"{cfg.arch_id} does not fit one card: its {n / 1e9:.0f} B "
+            f"parameters are {need / 1e9:.0f} GB in "
+            f"{'bf16' if cfg.param_dtype == 'bfloat16' else cfg.param_dtype}"
+            f", more than the {have / 1e9:.0f} GB of {name}: plan it "
+            f"sharded on a mesh (launch.steps, on the meta device) instead "
+            f"of allocating it")
+
+
 def build_shell(cfg, *, device: Union[str, torch.device] = "cuda"
                 ) -> nn.Module:
     """``cfg``'s model with every parameter an empty tensor on ``device``
@@ -84,6 +123,7 @@ def build_shell(cfg, *, device: Union[str, torch.device] = "cuda"
     nothing of the model's size."""
     dev = devices.resolve(device)
     shell = _meta_model(cfg)
+    check_fits(cfg, shell, dev)
     for mod in shell.modules():
         for name, p in list(mod.named_parameters(recurse=False)):
             setattr(mod, name, nn.Parameter(
@@ -102,6 +142,7 @@ def build_model(cfg, *, device: Union[str, torch.device] = "cuda",
     the device and dtype; else the port's own init from ``seed``."""
     dev = devices.resolve(device)
     model = _meta_model(cfg)
+    check_fits(cfg, model, dev)
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)

@@ -28,6 +28,13 @@ time (``slstm_forward``), one step per position, as the reference's
 "n": (B, d) f32}``. The ``MLSTM`` and ``SLSTM`` modules hold the
 reference's ``init_mlstm``/``init_slstm`` leaves under the same names,
 ``gate_bias`` and the sLSTM's ``bias`` in f32 whatever the param dtype.
+
+Under a mesh (``models.sharding``) the Mamba2 prefill keeps the
+reference's ``shard`` sites, x (batch, seq, heads, -) and the output
+(batch, seq, -), and runs its scan (the SSD kernel, or the plain chunked
+core) in ``sharding.local`` over the rank's heads: v and log_a come in
+sharded on heads, B and C with every group, and each rank takes the
+groups its heads read (``attention._local_heads``).
 """
 
 from __future__ import annotations
@@ -40,7 +47,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models import sharding
+from repro_torch.models.attention import _local_heads
 from repro_torch.models.layers import cdt, pdt
+from repro_torch.models.sharding import shard
 from repro_torch.models.transformer import Norm, _param
 
 Cache = Dict[str, torch.Tensor]
@@ -247,14 +257,21 @@ def mamba2_prefill(p: Mamba2, u: torch.Tensor, cfg,
     xBC = torch.cat([x_c, bc_c], dim=-1)
     x, Bm, Cm, v, log_a = _mamba2_core_inputs(p, xBC, dt, cfg,
                                                  valid=valid)
-    if cfg.use_kernels:  # the kernel reads B and C once per group
-        y, state = kops.ssm_scan(Cm, Bm, v, log_a, chunk=cfg.ssm.chunk)
-    else:
-        H = v.shape[2]
-        y, state = chunked_linear_attention(_per_head(Cm, H),
-                                            _per_head(Bm, H), v, log_a,
-                                            cfg.ssm.chunk)
-    out = _finish(p, y, x, z, u, cfg)
+    x = shard(x, "batch", "seq", "heads", None)
+    n_heads = mamba2_dims(cfg)[1]
+
+    def scan(Cm, Bm, v, log_a):
+        H = v.shape[2]                         # this rank's heads
+        Cm, Bm = (_local_heads(t, H, n_heads) for t in (Cm, Bm))
+        if cfg.use_kernels:  # the kernel reads B and C once per group
+            return kops.ssm_scan(Cm, Bm, v, log_a, chunk=cfg.ssm.chunk)
+        return chunked_linear_attention(_per_head(Cm, H), _per_head(Bm, H),
+                                        v, log_a, cfg.ssm.chunk)
+    grp, hd = ("batch", "seq", None, None), ("batch", "seq", "heads", None)
+    y, state = sharding.local(
+        scan, (grp, grp, hd, ("batch", "seq", "heads")),
+        (hd, ("batch", "heads", None, None)))(Cm, Bm, v, log_a)
+    out = shard(_finish(p, y, x, z, u, cfg), "batch", "seq", None)
     cache = ({"ssm": state, "conv_x": conv_x_state,
               "conv_bc": conv_bc_state} if return_state else None)
     return out, cache

@@ -1,9 +1,11 @@
 """Decoder-only transformer: the dense family (full or sliding-window
-attention) and the MoE family with DeepSeek's Multi-head Latent Attention.
+attention) and the MoE family, with DeepSeek's Multi-head Latent
+Attention or GQA.
 
 Port of ``repro.models.transformer.build_decoder`` for ``family="dense"``
 (GQA/MHA attention, full or with a sliding window, dense MLPs) and
-``family="moe"`` with MLA attention (DeepSeek-V2-Lite), as
+``family="moe"`` with MLA attention (DeepSeek-V2-Lite) or GQA with
+qk-norm (Qwen3-MoE, planned on a mesh, never allocated whole), as
 ``nn.Module``s. ``Transformer`` has the methods of
 the reference's ``Model`` record: ``init_cache``, ``forward``, ``prefill``,
 ``prefill_shared``, ``decode_step`` and ``decode_paged`` (``init`` is
@@ -33,6 +35,16 @@ is: MLA latents recompress and MoE routing is sequence-dependent, so a
 tail-only prefill could diverge from a whole one, and ring buffers do not
 page. ``decode_paged`` is None for sliding-window models likewise, so the
 engine keeps them on the slot cache.
+
+Under a mesh (``models.sharding``) the methods run on DTensor parameters,
+inputs and caches (``launch.steps`` places them). The cache is still
+written in place: a prefill's rows by ``write_prefill`` and a decode's by
+the attention cores, each rank into its own rows, inside
+``sharding.local``; ``shard_kv_cache`` gives the placement the reference
+constrains a layer's cache to. Each row's last hidden state is picked
+locally too (``_last_logits``). MoE layers take the reference's capacity
+factors: the config's in ``forward_hidden``, 2.0 in ``prefill`` and the
+decode steps (only the expert-parallel path reads them).
 """
 
 from __future__ import annotations
@@ -41,10 +53,11 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import sharding
+from repro_torch.models.sharding import remat, shard
 from repro_torch.models.layers import (apply_mlp, apply_norm, cdt, embed,
                                        pdt, unembed)
 from repro_torch.serving.kvcache import merge_slots
@@ -56,6 +69,43 @@ def _window(cfg) -> int:
     """The attention window of every layer: ``cfg.sliding_window`` for the
     sliding-window family, else 0 (full attention)."""
     return cfg.sliding_window if cfg.attention == "sliding_window" else 0
+
+
+def shard_kv_cache(kv):
+    """The reference's constraint on one layer's cache leaves: each placed
+    (batch, kv_seq, -...). The port writes caches in place, so a leaf must
+    lie so already (``launch.sharding.cache_specs`` places a cell's cache
+    alike): placing it here would write into a copy, which is refused."""
+    for c in kv:
+        if sharding.shard(c, "batch", "kv_seq",
+                          *([None] * (c.dim() - 2))) is not c:
+            raise ValueError(
+                f"a cache leaf placed {c.placements} where the rules place "
+                f"it (batch, kv_seq, ...): place the cache by "
+                f"launch.sharding.cache_specs; its writes are in place")
+    return kv
+
+
+def write_prefill(dst: torch.Tensor, src: torch.Tensor,
+                  slots: Optional[torch.Tensor] = None,
+                  seq: bool = True) -> None:
+    """``kvcache.merge_slots`` (a prefill's rows into the cache, in place)
+    that also runs under a mesh: each rank writes its own rows of a
+    batch-sharded cache. Under a mesh the rows go to rows 0..n-1 (the step
+    builders' whole-batch prefill); slot lists are the engine's, which
+    never runs under one."""
+    if not sharding.active():
+        merge_slots(dst, src, slots, seq)
+        return
+    if slots is not None:
+        raise ValueError("write_prefill: slots are the engine's; under a "
+                         "mesh the prefill writes its rows in order")
+    d_axes = ("batch",) + (None,) * (dst.dim() - 1)
+    s_axes = ("batch",) + (None,) * (src.dim() - 1)
+    d = shard(dst, *d_axes)
+    sharding.local(lambda d, s: merge_slots(d, s, None, seq),
+                   (d_axes, s_axes), ())(d, src)
+    sharding.write_back(dst, d)
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
@@ -194,17 +244,18 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(cfg, device, d_ff)
 
-    def _ffn(self, x: torch.Tensor
+    def _ffn(self, x: torch.Tensor, capacity_factor: Optional[float] = None
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(x + the FFN of ln2(x), the MoE load-balance loss, or None for a
         dense MLP)."""
         h = self.ln2(x)
         if hasattr(self, "moe"):
-            y, aux = moe_lib.apply_moe(self.moe, h, self.cfg)
+            y, aux = moe_lib.apply_moe(self.moe, h, self.cfg,
+                                       capacity_factor=capacity_factor)
             return x + y, aux
         return x + self.mlp(h), None
 
-    def prefill(self, x, *, positions, kv_len):
+    def prefill(self, x, *, positions, kv_len, capacity_factor=None):
         """Returns (x, the sequence's two cache leaves (narrow-head (k, v)
         or MLA's (c_kv, k_rope)), the MoE aux loss or None)."""
         h = self.ln1(x)
@@ -216,7 +267,7 @@ class Block(nn.Module):
                                         positions=positions,
                                         layer_window=self.window,
                                         kv_len=kv_len)
-        x, aux = self._ffn(x + a)
+        x, aux = self._ffn(x + a, capacity_factor)
         return x, kv, aux
 
     def prefill_shared(self, x, *, positions, starts, kv_len, view_k,
@@ -240,7 +291,7 @@ class Block(nn.Module):
                                    cache_v=kv[1], lengths=lengths,
                                    layer_window=self.window,
                                    active=active)
-        return self._ffn(x + a)[0]
+        return self._ffn(x + a, 2.0)[0]
 
     def decode_paged(self, x, *, lengths, kv, page_table, active):
         h = self.ln1(x)
@@ -252,7 +303,7 @@ class Block(nn.Module):
             a = attn.paged_attend_decode(
                 self.attn, h, self.cfg, k_pages=kv[0], v_pages=kv[1],
                 page_table=page_table, lengths=lengths, active=active)
-        return self._ffn(x + a)[0]
+        return self._ffn(x + a, 2.0)[0]
 
 
 class Embedding(nn.Module):
@@ -280,9 +331,11 @@ class LanguageModel(nn.Module):
     def _last_logits(self, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
         """x (B, S, d) final-normed, each row's position ``n - 1`` (0 where
         n is 0) unembedded: (B, V_pad)."""
-        x = self.final_norm(x)
-        last = x[torch.arange(x.shape[0], device=x.device),
-                 torch.clamp(n.long() - 1, min=0)]
+        def pick(x, n):
+            return x[torch.arange(x.shape[0], device=x.device),
+                     torch.clamp(n.long() - 1, min=0)]
+        last = sharding.local(pick, (("batch", "seq", None), ("batch",)),
+                              (("batch", None),))(self.final_norm(x), n)
         return self._logits(last)
 
     def _step_logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -301,18 +354,19 @@ class LanguageModel(nn.Module):
 class Transformer(LanguageModel):
     """Dense decoders with full attention (smollm2, granite, stablelm,
     nemotron) or a sliding window (h2o-danube), and MoE decoders with MLA
-    attention (deepseek-v2-lite)."""
+    attention (deepseek-v2-lite) or GQA (qwen3-moe)."""
 
     def __init__(self, cfg, device):
         super().__init__()
         if (cfg.family, cfg.attention) not in (("dense", "full"),
                                                ("dense", "sliding_window"),
-                                               ("moe", "mla")):
+                                               ("moe", "mla"),
+                                               ("moe", "full")):
             raise NotImplementedError(
                 f"the port builds dense decoders with full or "
-                f"sliding-window attention and MoE decoders with MLA so "
-                f"far; {cfg.arch_id!r} is family {cfg.family!r} with "
-                f"{cfg.attention!r} attention")
+                f"sliding-window attention and MoE decoders with MLA or "
+                f"full GQA attention; {cfg.arch_id!r} is family "
+                f"{cfg.family!r} with {cfg.attention!r} attention")
         self.cfg = cfg
         self.window = _window(cfg)
         n_dense = cfg.moe.first_dense_layers if cfg.moe.enabled else 0
@@ -338,11 +392,12 @@ class Transformer(LanguageModel):
         return list(self.dense0) + list(self.layers)
 
     def _kv(self, cache: Cache, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        return tuple(cache[n][i] for n in self.cache_names)
+        kv = tuple(cache[n][i] for n in self.cache_names)
+        return shard_kv_cache(kv) if sharding.active() else kv
 
     def forward_hidden(self, tokens: torch.Tensor,
                        lengths: Optional[torch.Tensor] = None,
-                       train: bool = False
+                       extra: Optional[Dict] = None, train: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B,S) -> (the final-normed hidden states (B,S,d), the
         MoE load-balance loss summed over the layers in order, f32; 0 for
@@ -354,15 +409,16 @@ class Transformer(LanguageModel):
         recompute the whole block here: the reference's "block" keeps its
         batch-free dots (``dots_with_no_batch_dims_saveable``), a memory
         policy with no counterpart in eager PyTorch. The values are the
-        same either way."""
+        same either way. ``extra`` (the frontend inputs of the audio and
+        vision families) is unused: every family shares this signature."""
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        remat = train and self.cfg.remat in ("block", "full")
+        use_remat = train and self.cfg.remat in ("block", "full")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, blk in enumerate(self.blocks):
-            if remat and i >= len(self.dense0):
-                x, _, a = checkpoint(blk.prefill, x, use_reentrant=False,
-                                     positions=positions, kv_len=lengths)
+            if use_remat and i >= len(self.dense0):
+                x, _, a = remat(blk.prefill, x, positions=positions,
+                                kv_len=lengths)
             else:
                 x, _, a = blk.prefill(x, positions=positions,
                                       kv_len=lengths)
@@ -417,12 +473,13 @@ class Transformer(LanguageModel):
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = torch.arange(S, device=tokens.device)
         for i, blk in enumerate(self.blocks):
-            x, kv, _ = blk.prefill(x, positions=positions, kv_len=lengths)
+            x, kv, _ = blk.prefill(x, positions=positions, kv_len=lengths,
+                                   capacity_factor=2.0)
             for dst, src in zip(self._kv(cache, i), kv):
                 if page_table is None:
                     if self.window and S > dst.shape[1]:
                         src = src[:, S - dst.shape[1]:]
-                    merge_slots(dst, src, slots)
+                    write_prefill(dst, src, slots)
                 else:
                     attn._paged_write_span(dst, src, page_table)
         return self._last_logits(x, lengths)

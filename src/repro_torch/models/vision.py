@@ -34,9 +34,10 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import cdt, embed, frontend_input
+from repro_torch.models.sharding import remat
 from repro_torch.models.transformer import (MLP, Attention, Block, Embedding,
-                                            LanguageModel, Norm, _param)
-from repro_torch.serving.kvcache import merge_slots
+                                            LanguageModel, Norm, _param,
+                                            write_prefill)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -99,17 +100,23 @@ class Vision(LanguageModel):
 
     def forward_hidden(self, tokens: torch.Tensor,
                        lengths: Optional[torch.Tensor] = None,
-                       extra: Optional[Dict] = None
+                       extra: Optional[Dict] = None, train: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) and ``extra["patches"]`` -> (the final-normed
         hidden states (B, S, d), an f32 zero). ``lengths`` masks padding
-        keys. (Training, with the reference's remat, is not ported for
-        this family yet.)"""
+        keys. With ``train`` and ``cfg.remat`` not "none" each group (its
+        cross block and self layers) runs under
+        ``torch.utils.checkpoint``, as the reference wraps its group
+        body."""
         patches = frontend_input(extra, "patches", self.cfg)
         x = embed(self.embed.tok, tokens, self.cfg)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        use_remat = train and self.cfg.remat != "none"
         for g in range(self.n_groups):
-            x = self._group_prefill(g, x, positions, lengths, patches)[0]
+            def body(x, g=g):
+                return self._group_prefill(g, x, positions, lengths,
+                                           patches)[0]
+            x = remat(body, x) if use_remat else body(x)
         return (self.final_norm(x),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -151,11 +158,11 @@ class Vision(LanguageModel):
         for g in range(self.n_groups):
             x, (mk, mv), kvs = self._group_prefill(g, x, positions, lengths,
                                                    patches)
-            merge_slots(cache["cross_k"][g], mk, slots, seq=False)
-            merge_slots(cache["cross_v"][g], mv, slots, seq=False)
+            write_prefill(cache["cross_k"][g], mk, slots, seq=False)
+            write_prefill(cache["cross_v"][g], mv, slots, seq=False)
             for i, (k, v) in enumerate(kvs):
-                merge_slots(cache["k"][g * self.every + i], k, slots)
-                merge_slots(cache["v"][g * self.every + i], v, slots)
+                write_prefill(cache["k"][g * self.every + i], k, slots)
+                write_prefill(cache["v"][g * self.every + i], v, slots)
         return self._last_logits(x, lengths)
 
     def decode_step(self, tokens: torch.Tensor, lengths: torch.Tensor,

@@ -28,12 +28,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm
 from repro_torch.models.layers import cdt, embed
-from repro_torch.models.transformer import Embedding, LanguageModel, Norm
-from repro_torch.serving.kvcache import merge_slots, select_slots
+from repro_torch.models.sharding import remat
+from repro_torch.models.transformer import (Embedding, LanguageModel, Norm,
+                                          write_prefill)
+from repro_torch.serving.kvcache import select_slots
 
 Cache = Dict[str, torch.Tensor]
 
@@ -98,22 +99,22 @@ class XLSTM(LanguageModel):
 
     def forward_hidden(self, tokens: torch.Tensor,
                        lengths: Optional[torch.Tensor] = None,
-                       train: bool = False
+                       extra: Optional[Dict] = None, train: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (the final-normed hidden states (B, S, d), an
         f32 zero: xLSTM has no auxiliary loss). ``lengths`` makes padding
         steps state no-ops, as the reference's ``batch["lengths"]`` does.
         With ``train`` and ``cfg.remat`` in ("block", "full") each group
         runs under ``torch.utils.checkpoint``, as the reference wraps its
-        group body."""
+        group body. ``extra`` is unused: every family shares this
+        signature."""
         x = embed(self.embed.tok, tokens, self.cfg)
         valid = self._valid(tokens, lengths)
-        remat = train and self.cfg.remat in ("block", "full")
+        use_remat = train and self.cfg.remat in ("block", "full")
         for g in range(self.n_groups):
-            if remat:
-                x = checkpoint(lambda x, g=g: self._group(g, x, valid,
-                                                          False)[0],
-                               x, use_reentrant=False)
+            if use_remat:
+                x = remat(lambda x, g=g: self._group(g, x, valid, False)[0],
+                          x)
             else:
                 x = self._group(g, x, valid, False)[0]
         return (self.final_norm(x),
@@ -152,10 +153,10 @@ class XLSTM(LanguageModel):
         for g in range(self.n_groups):
             x, s_state, m_states = self._group(g, x, valid, True)
             for n in SLSTM_LEAVES:
-                merge_slots(cache[f"slstm_{n}"][g], s_state[n], slots,
+                write_prefill(cache[f"slstm_{n}"][g], s_state[n], slots,
                             seq=False)
             for i, st in enumerate(m_states):
-                merge_slots(cache["mlstm"][g * self.n_m + i], st["state"],
+                write_prefill(cache["mlstm"][g * self.n_m + i], st["state"],
                             slots, seq=False)
         return self._last_logits(x, lengths)
 

@@ -12,7 +12,10 @@ scale from the global norm, the moments, the bias corrections, the
 decoupled weight decay on the leaves ``decay`` names (the reference's
 ``p.ndim >= 2`` on its stacked pytree: ``weights.decay_mask``), then the
 cast back to the parameter dtype. Unlike the reference it updates the
-parameters and moments in place, under ``torch.no_grad()``.
+parameters and moments in place, under ``torch.no_grad()``. On DTensor
+parameters (the sharded path) each moment is placed as its parameter, the
+global norm sums every leaf's whole value, and the update, elementwise,
+runs on each rank's own shards (``_shards``), as plain tensors.
 """
 
 from __future__ import annotations
@@ -54,17 +57,47 @@ def init_state(params: Mapping[str, torch.Tensor]) -> dict:
     """Zero moments in f32, keyed and shaped like ``params``, on their
     device; step 0."""
     device = next(iter(params.values())).device
-    zeros = lambda: {n: torch.zeros(p.shape, dtype=torch.float32,  # noqa
-                                    device=p.device)
+    zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)  # noqa
                      for n, p in params.items()}
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
             "mu": zeros(), "nu": zeros()}
 
 
 def global_norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(torch.stack(
-        [torch.sum(torch.square(x.float())) for x in leaves]).sum())
+    """sqrt of the sum of squares of every leaf, in f32 (a DTensor leaf's
+    over its whole value)."""
+    def sq(x):
+        s = torch.sum(torch.square(x.float()))
+        while hasattr(s, "full_tensor"):         # see _local
+            s = s.full_tensor()
+        return s
+    return torch.sqrt(torch.stack([sq(x) for x in leaves]).sum())
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The plain tensor of a DTensor's own shard, through every DTensor
+    layer: in some runs on the card's torch 2.11 the gradients of a bf16
+    model's DTensor parameters came back as DTensors whose local tensor
+    is a DTensor again (PERF.md, PR 24; never on the CPU's torch
+    2.13)."""
+    while hasattr(t, "to_local"):
+        t = t.to_local()
+    return t
+
+
+def _shards(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+            nu: torch.Tensor):
+    """(p, g, mu, nu) as tensors to update elementwise in place: for a
+    DTensor parameter each rank's own shards, the gradient first placed as
+    the parameter (it may come back otherwise, e.g. a partial sum), the
+    moments placed so since ``init_state``; plain tensors as they are."""
+    if not hasattr(p, "to_local"):
+        return p, g, mu, nu
+    if not mu.placements == nu.placements == p.placements:
+        raise ValueError("AdamW's moments are not placed as their "
+                         "parameter")
+    return (_local(p), _local(g.redistribute(p.device_mesh, p.placements)),
+            _local(mu), _local(nu))
 
 
 @torch.no_grad()
@@ -86,8 +119,9 @@ def apply_updates(cfg: OptimizerConfig, params: Mapping[str, torch.Tensor],
     b1c = 1 - torch.pow(cfg.b1, stepf)
     b2c = 1 - torch.pow(cfg.b2, stepf)
     for name, p in params.items():
-        g = grads[name].float() * scale
-        mu, nu = state["mu"][name], state["nu"][name]
+        p, g, mu, nu = _shards(p, grads[name], state["mu"][name],
+                               state["nu"][name])
+        g = g.float() * scale
         mu.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
         nu.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
         delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)

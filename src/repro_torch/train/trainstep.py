@@ -12,6 +12,12 @@ blocks is the model's (``forward_hidden(train=True)`` with ``cfg.remat``).
 Training runs the plain PyTorch path, as the reference trains with
 ``use_kernels`` off: the port's CUDA kernels are forward-only, so
 ``make_train_step`` refuses a config with ``use_kernels`` set.
+
+The step runs unchanged on DTensor parameters under a mesh
+(``launch.steps.build_train_cell``): the CE logits take the reference's
+(batch, seq, vocab) placement, gradients and AdamW's moments take their
+parameter's, and the update runs in place on each rank's shards.
+Microbatches are the same global rows as without a mesh.
 """
 
 from __future__ import annotations
@@ -21,12 +27,16 @@ from typing import Callable, Dict, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models.sharding import remat, shard
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.weights import decay_mask
 
 Batch = Mapping[str, torch.Tensor]
+
+# the frontend inputs a batch may carry (``models.extra_inputs``): the
+# audio family's frames, the VLM's patches
+FRONTEND_INPUTS = ("frames", "patches")
 
 
 def trainable(model: nn.Module) -> Dict[str, nn.Parameter]:
@@ -51,11 +61,15 @@ def _chunk_nll(h: torch.Tensor, y: torch.Tensor, w: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One chunk: (sum of the NLL over labelled positions, their count),
     f32. h (B, c, d) f32, y (B, c) with -100 = ignore, w (d, V) f32."""
-    logits = torch.matmul(h, w)
+    logits = shard(torch.matmul(h, w), "batch", "seq", "vocab")
     mask = y != -100
     safe_y = torch.where(mask, y, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe_y[..., None])[..., 0]
+    # over a vocab-sharded logit DTensor the gathered column is a masked
+    # partial sum, reduced here with its trailing dim still on (DTensor's
+    # mask reduction needs it)
+    gold = shard(torch.gather(logits, -1, safe_y[..., None]),
+                 "batch", "seq", None)[..., 0]
     nll = torch.where(mask, lse - gold, 0.0)
     return nll.sum(), mask.float().sum()
 
@@ -75,8 +89,8 @@ def chunked_cross_entropy(hidden: torch.Tensor, embed: nn.Module,
     loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, S, chunk):
-        s, n = checkpoint(_chunk_nll, hf[:, c0:c0 + chunk],
-                          labels[:, c0:c0 + chunk], w, use_reentrant=False)
+        s, n = remat(_chunk_nll, hf[:, c0:c0 + chunk],
+                     labels[:, c0:c0 + chunk], w)
         loss_sum = loss_sum + s
         count = count + n
     return loss_sum / torch.clamp(count, min=1.0)
@@ -84,14 +98,29 @@ def chunked_cross_entropy(hidden: torch.Tensor, embed: nn.Module,
 
 def make_loss_fn(model: nn.Module, ce_chunk: int = 512) -> Callable:
     """loss_fn(batch) -> (CE + the MoE aux loss, {"ce_loss", "aux_loss"})
-    on the model's current parameters."""
+    on the model's current parameters. The batch's frontend inputs
+    (``FRONTEND_INPUTS``) go to ``forward_hidden`` as its ``extra``."""
     def loss_fn(batch: Batch):
+        extra = {k: batch[k] for k in FRONTEND_INPUTS if k in batch}
         hidden, aux = model.forward_hidden(batch["tokens"],
-                                           batch.get("lengths"), train=True)
+                                           batch.get("lengths"),
+                                           extra or None, train=True)
         loss = chunked_cross_entropy(hidden, model.embed, batch["labels"],
                                      model.cfg, chunk=ce_chunk)
         return loss + aux, {"ce_loss": loss, "aux_loss": aux}
     return loss_fn
+
+
+def _rows(v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Rows [lo, hi) of a batch leaf: a DTensor's are cut from its whole
+    value and placed as the leaf was (a slice of the sharded batch dim
+    itself is not what DTensor gives back)."""
+    if not hasattr(v, "full_tensor"):
+        return v[lo:hi]
+    from torch.distributed.tensor import Replicate
+    mesh = v.device_mesh
+    whole = v.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return whole[lo:hi].redistribute(mesh, v.placements)
 
 
 def make_train_step(model: nn.Module, opt_cfg: opt_lib.OptimizerConfig,
@@ -144,16 +173,17 @@ def make_train_step(model: nn.Module, opt_cfg: opt_lib.OptimizerConfig,
     def accumulated(params, opt_state, batch):
         B = batch["tokens"].shape[0]
         mb = B // accum_steps
-        acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = {n: torch.zeros_like(p, dtype=torch.float32)
                for n, p in params.items()}
         loss_acc = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
         for i in range(accum_steps):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            micro = {k: _rows(v, i * mb, (i + 1) * mb)
+                     for k, v in batch.items()}
             loss, _, grads = grads_of(params, micro)
-            with torch.no_grad():
+            with torch.no_grad():       # out of place: see optimizer.py
                 for n, g in grads.items():
-                    acc[n] += g.float() / accum_steps
+                    acc[n] = acc[n] + g.float() / accum_steps
             loss_acc = loss_acc + loss / accum_steps
         params, opt_state, om = update(params, opt_state, acc)
         return params, opt_state, {"loss": loss_acc, **om}

@@ -36,6 +36,11 @@ port leaf the rank of the reference leaf it came from (what AdamW's
 decay mask reads, ``decay_mask``). ``_split_layers`` (reference to
 port) and ``_stacked_axes`` (port to reference) state the layout
 mapping; the public functions go through them.
+
+On a mesh, ``launch.sharding.distribute_params`` places either state dict
+(the port's init or the reference's parameters through
+``from_jax_params``) by ``param_specs`` after ``build_model`` has loaded
+it.
 """
 
 from __future__ import annotations
@@ -150,7 +155,9 @@ def from_jax_params(params_np: Mapping, cfg, device: torch.device,
         arr = np.array(arr, dtype=np.float32)  # a writable copy
         for name, a in _split_layers(path, arr, cfg).items():
             leaf_dtype = dtype or dtypes.get(name, pdt(cfg))
-            state[name] = torch.from_numpy(np.ascontiguousarray(a)).to(
+            # np.array, not ascontiguousarray: a stacked scalar (the
+            # VLM's per-block gates) stays 0-d
+            state[name] = torch.from_numpy(np.array(a)).to(
                 device=device, dtype=leaf_dtype)
     return state
 

@@ -1260,3 +1260,75 @@ def test_cuda_xlstm_matches_cpu(cuda):
         want = cpu.decode_step(nxt, lens, caches[0])
         got = card.decode_step(nxt.to(cuda), lens.to(cuda), caches[1])
         assert float((got.cpu() - want).abs().max()) < TOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_expert_parallel_ffn_kernel_matches_plain(cuda, dtype):
+    """One expert shard's capacity pass (the expert-parallel MoE's
+    ``_local_expert_pass``) with its three GEMMs on ``grouped_gemm``'s
+    (E_loc, C, d) form against the same pass on batched matmuls: 4 of 8
+    experts (the second shard), a capacity low enough to drop
+    assignments, the drops the same."""
+    from types import SimpleNamespace
+    from repro_torch.models import moe as moe_lib
+    cfg = get_reduced_config("deepseek-v2-lite-16b", param_dtype=dtype,
+                             compute_dtype=dtype)
+    T, d, f, E, k = 256, cfg.d_model, cfg.moe.d_ff, 8, 2
+    x = _rand(0, (T, d), cuda, dtype)
+    probs = torch.softmax(_rand(1, (T, E), cuda, "float32"), dim=-1)
+    w, ids = torch.topk(probs, k, dim=-1)
+    experts = SimpleNamespace(**{n: _rand(2 + i, shape, cuda, dtype)
+                                 * shape[1] ** -0.5 for i, (n, shape) in
+                                 enumerate((("up", (4, d, f)),
+                                            ("gate", (4, d, f)),
+                                            ("down", (4, f, d))))})
+    cap = moe_lib._capacity(T // 2, cfg)          # below T * k / E
+    before = ops.LAUNCHES["grouped_gemm"]
+    with torch.no_grad():
+        got = moe_lib._local_expert_pass(x, ids, w, experts, cfg, 4, 1, cap,
+                                         use_kernels=True)
+        assert ops.LAUNCHES["grouped_gemm"] == before + 3
+        exp = moe_lib._local_expert_pass(x, ids, w, experts, cfg, 4, 1, cap,
+                                         use_kernels=False)
+    dropped = moe_lib.capacity_slots(ids, w, 4, 1, cap)[2]
+    assert int(dropped.sum()) > 0
+    assert float((got.float() - exp.float()).abs().max()) <= \
+        _gemm_tol(dtype, f, exp)
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_mesh_prefill_matches_unsharded_kernels(cuda,
+                                                              tmp_path):
+    """The prefill cell of ``launch.steps`` on a one-rank NCCL mesh (1, 1)
+    with the kernels against the unsharded kernel path on the same
+    weights: the same local ops, so the same logits, and the prefill
+    kernel launched inside the cell."""
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_reduced_config("smollm2-1.7b", param_dtype="bfloat16",
+                             compute_dtype="bfloat16", use_kernels=True)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        fn, args, _ = steps.build_cell(cfg, ShapeSuite("p", "prefill", 64, 4),
+                                       mesh)
+        params = steps.materialize(
+            args, mesh, torch.Generator(cuda).manual_seed(0))[0]
+        model = build_model(cfg, device=cuda, params={
+            n: p.full_tensor() for n, p in params.items()})
+        toks = torch.as_tensor(np.random.RandomState(3).randint(
+            8, cfg.vocab_size, size=(4, 64)), dtype=torch.int32,
+            device=cuda)
+        lens = torch.tensor([64, 40, 9, 64], dtype=torch.int32, device=cuda)
+        with torch.no_grad():
+            want = model.prefill(toks, lens, model.init_cache(4, 64))
+            ops.reset_launches()
+            got, _ = fn(params, toks, lens, model.init_cache(4, 64))
+            assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+        assert torch.equal(got.full_tensor(), want)
+    finally:
+        dist.destroy_process_group()

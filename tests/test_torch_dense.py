@@ -105,11 +105,19 @@ def run_keeping_logits(eng, ps, max_new):
 
 
 # ---------------------------------------------------------- the models ----
-def test_registry_serves_the_four_and_refuses_qwen3_moe():
+def test_registry_serves_the_four_and_refuses_qwen3_moe(monkeypatch):
+    """The four are served; qwen3-moe's config is there to plan, and
+    building it on a device of one H100's 80 GB is refused, for its
+    size, before anything is allocated."""
+    from repro_torch.models import registry
     for arch in ARCHS:
         assert get_config(arch).arch_id == arch
-    with pytest.raises(NotImplementedError, match="470 GB in bf16"):
-        get_config("qwen3-moe-235b-a22b")
+    qwen = get_config("qwen3-moe-235b-a22b")
+    assert (qwen.moe.n_experts, qwen.moe.experts_per_token) == (128, 8)
+    monkeypatch.setattr(registry, "_device_bytes", lambda dev: 80 * 10**9)
+    with pytest.raises(ValueError, match="470 GB in bf16, more than the "
+                                         "80 GB"):
+        build_model(qwen, device="cpu")
     assert get_config(DANUBE).sliding_window == 4096
     assert get_config("stablelm-12b").resolved_head_dim == 160
     assert get_config(DANUBE).resolved_head_dim == 80

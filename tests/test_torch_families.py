@@ -58,6 +58,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import build_model, extra_inputs  # noqa: E402
 from repro_torch.models import input_specs, ssm  # noqa: E402
+from repro_torch.models.registry import build_shell  # noqa: E402
 from repro_torch.serving import InferenceEngine, Request  # noqa: E402
 from repro_torch.serving.engine import engine_from_wire  # noqa: E402
 from repro_torch.weights import from_jax_params, to_jax_params  # noqa: E402
@@ -127,13 +128,16 @@ def jax_engine(jm, params, cfg, seed=0, **kw):
 
 
 # ---------------------------------------------------------- the models ----
-def test_registry_builds_the_three():
-    """The three ids are served; qwen3-moe is refused for its size; the
-    frontend inputs' shapes and a suite's specs, allocating nothing."""
+def test_registry_builds_the_three(monkeypatch):
+    """The three ids are served; a shell of qwen3-moe is refused for its
+    size, even on a device of four H100s' 320 GB; the frontend inputs'
+    shapes and a suite's specs, allocating nothing."""
+    from repro_torch.models import registry
     for arch, family in zip(ARCHS, ("ssm", "audio", "vlm")):
         assert get_config(arch).family == family
-    with pytest.raises(NotImplementedError, match="320 GB"):
-        get_config("qwen3-moe-235b-a22b")
+    monkeypatch.setattr(registry, "_device_bytes", lambda dev: 320 * 10**9)
+    with pytest.raises(ValueError, match="more than the 320 GB"):
+        build_shell(get_config("qwen3-moe-235b-a22b"), device="cpu")
     w, v = get_config(WHISPER), get_config(VISION)
     assert {n: tuple(t.shape) for n, t in extra_inputs(w, 16).items()} == \
         {"frames": (16, 1500, 768)}

@@ -87,14 +87,19 @@ def test_engine_refuses_a_model_on_another_device():
         InferenceEngine(model, device="meta")
 
 
-def test_unported_architectures_name_their_slice():
-    """The one architecture still refused names the port slice it waits
-    for and why; every other reference id is served."""
+def test_unported_architectures_name_their_slice(monkeypatch):
+    """Every reference id has its config; the one architecture no card
+    holds is refused where it would be allocated (here a device of one
+    H100's 80 GB), saying why and naming the sharded path that plans it
+    instead."""
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="port slice"):
-        get_config("qwen3-moe-235b-a22b")
-    with pytest.raises(NotImplementedError, match="does not fit one card"):
-        get_config("qwen3-moe-235b-a22b")
+    from repro_torch.models import registry
+    monkeypatch.setattr(registry, "_device_bytes", lambda dev: 80 * 10**9)
+    qwen = get_config("qwen3-moe-235b-a22b")
+    with pytest.raises(ValueError, match="launch.steps"):
+        build_model(qwen, device="cpu")
+    with pytest.raises(ValueError, match="does not fit one card"):
+        build_model(qwen, device="cpu")
     with pytest.raises(KeyError):
         get_config("no-such-model")
     assert get_config("deepseek-v2-lite-16b").family == "moe"

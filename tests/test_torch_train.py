@@ -29,6 +29,15 @@ come from numpy seeds. Tolerances, max-abs in f32:
   gradients and one AdamW update from the same gradients are held to
   their strict bounds above, so a wrong decay mask, schedule or moment
   fails those.
+- xLSTM's three steps are held from the reference's state of each step
+  instead (tests/test_torch_train_families.py,
+  ``test_xlstm_train_steps_match_reference_from_each_state``):
+  its first update leaves 54 of 604 848 elements over 1e-5 (up to
+  3.7e-4, the eps effect above), and the sLSTM recurrence carries those
+  into every gradient after, so a free-running run has 19 394 over 1e-5
+  after three steps (3.2 %) while each step from the same state leaves
+  at most 54 (and 0 and 1 at steps 2 and 3), and the losses of the free
+  run stay within 1e-5. Measured on the CPU.
 """
 
 import dataclasses
@@ -65,7 +74,7 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
 from repro_torch.data import PipelineConfig, batches  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, extra_inputs  # noqa: E402
 from repro_torch.train import (LoopConfig, OptimizerConfig,  # noqa: E402
                                apply_updates, chunked_cross_entropy,
                                init_state, make_eval_step, make_loss_fn,
@@ -77,6 +86,16 @@ from repro_torch.weights import (_flatten, _split_layers,  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["smollm2-1.7b", "deepseek-v2-lite-16b", "zamba2-7b"]
+# the other three families run the same checks from
+# tests/test_torch_train_families.py (a file of its own, so that the
+# driver's workers share the load)
+FAMILY_ARCHS = ["xlstm-350m", "whisper-small", "llama-3.2-vision-11b"]
+# a norm scale of each family's stacked layers (AdamW decays it: ndim 2
+# in the reference's stacked pytree)
+STACKED_NORM = {"zamba2-7b": "layers.0.ln.scale",
+                "xlstm-350m": "mlstm.0.ln.scale",
+                "whisper-small": "decoder.0.ln1.scale",
+                "llama-3.2-vision-11b": "self_groups.0.ln1.scale"}
 HIDDEN_TOL = 2e-4
 LOSS_TOL = 1e-5
 AUX_TOL = 1e-6
@@ -85,15 +104,19 @@ PARAM_TOL = 1e-5
 OUTLIER_SHARE = 2e-3
 
 
-@pytest.fixture(scope="module")
-def families():
+def reference_models(archs):
     """arch -> (reference model, its params, their numpy copy)."""
     out = {}
-    for arch in ARCHS:
+    for arch in archs:
         jm = jax_build(jax_config(arch))
         params = jm.init(jax.random.PRNGKey(0))
         out[arch] = (jm, params, jax.device_get(params))
     return out
+
+
+@pytest.fixture(scope="module")
+def families():
+    return reference_models(ARCHS)
 
 
 def port_model(families, arch, **overrides):
@@ -109,6 +132,22 @@ def lm_batch(vocab, B=4, S=32, seed=1, ignore=5):
     labels = toks.copy()
     labels[:, :ignore] = -100
     return {"tokens": toks, "labels": labels}
+
+
+def family_batch(cfg, B=4, S=32, seed=1, ignore=5):
+    """``lm_batch`` plus the family's frontend input (``frames`` or
+    ``patches``, f32 standard normal from the same seed), if it has one."""
+    batch = lm_batch(cfg.vocab_size, B, S, seed, ignore)
+    rs = np.random.RandomState(seed + 1000)
+    for name, t in extra_inputs(cfg, B).items():
+        batch[name] = rs.standard_normal(tuple(t.shape)).astype(np.float32)
+    return batch
+
+
+def grad_of(p):
+    """p's gradient, zeros where the loss does not reach it (xLSTM's
+    sLSTM norm bias): what ``jax.grad`` and the train step give it."""
+    return p.grad if p.grad is not None else torch.zeros_like(p)
 
 
 def as_jax(batch):
@@ -216,10 +255,12 @@ def test_chunked_ce_refuses_a_ragged_chunk(families):
 def test_forward_hidden_and_aux_match_reference(families, arch):
     jm, params, _ = families[arch]
     model = port_model(families, arch)
-    b = lm_batch(model.cfg.vocab_size, B=2, S=32)
+    b = family_batch(model.cfg, B=2, S=32)
+    extra = {k: torch.from_numpy(v) for k, v in b.items()
+             if k in ("frames", "patches")} or None
     lengths = np.array([32, 19], np.int32)
     for lens in (None, lengths):
-        jb = {"tokens": jnp.asarray(b["tokens"])}
+        jb = {k: jnp.asarray(v) for k, v in b.items() if k != "labels"}
         if lens is not None:
             jb["lengths"] = jnp.asarray(lens)
         hj, aj = jm.forward_hidden(params, jb, train=True)
@@ -227,7 +268,7 @@ def test_forward_hidden_and_aux_match_reference(families, arch):
             ht, at = model.forward_hidden(
                 torch.from_numpy(b["tokens"]),
                 None if lens is None else torch.from_numpy(lens),
-                train=True)
+                extra, train=True)
         assert ht.shape == hj.shape and at.dtype == torch.float32
         assert max_err(ht, hj) < HIDDEN_TOL
         assert abs(float(at) - float(aj)) < AUX_TOL
@@ -237,7 +278,7 @@ def test_forward_hidden_and_aux_match_reference(families, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_remat_changes_no_value_and_no_gradient(families, arch):
-    b = as_torch(lm_batch(get_reduced_config(arch).vocab_size, B=2, S=32))
+    b = as_torch(family_batch(get_reduced_config(arch), B=2, S=32))
     out = []
     for remat in ("none", "block", "full"):
         model = port_model(families, arch, remat=remat)
@@ -245,7 +286,7 @@ def test_remat_changes_no_value_and_no_gradient(families, arch):
         loss, parts = make_loss_fn(model, ce_chunk=16)(b)
         loss.backward()
         out.append((float(loss.detach()), float(parts["aux_loss"].detach()),
-                    {n: p.grad.clone() for n, p in named.items()}))
+                    {n: grad_of(p).clone() for n, p in named.items()}))
     for loss, aux, grads in out[1:]:
         assert loss == out[0][0] and aux == out[0][1]
         for n, g in grads.items():
@@ -257,7 +298,7 @@ def test_remat_changes_no_value_and_no_gradient(families, arch):
 def test_loss_and_every_gradient_match_reference(families, arch):
     jm, params, _ = families[arch]
     model = port_model(families, arch)
-    b = lm_batch(model.cfg.vocab_size, B=2, S=64)
+    b = family_batch(model.cfg, B=2, S=64)
     (jl, jparts), jg = jax.jit(jax.value_and_grad(
         jax_loss_fn(jm, 32), has_aux=True))(params, as_jax(b))
     named = trainable(model)
@@ -272,7 +313,7 @@ def test_loss_and_every_gradient_match_reference(families, arch):
     assert set(ref) == set(named)
     for n, g in ref.items():
         tol = GRAD_TOL * max(1.0, float(g.abs().max()))
-        assert max_err(named[n].grad, g) < tol, n
+        assert max_err(grad_of(named[n]), g) < tol, n
     if arch == "deepseek-v2-lite-16b":     # the aux loss reaches the router
         assert float(named["layers.0.moe.router"].grad.abs().max()) > 0
 
@@ -292,8 +333,7 @@ def test_decay_mask_is_the_reference_ndim_test(families, arch):
     mask = decay_mask(cfg, state)
     assert {n for n, d in mask.items() if d} == want
     assert mask["final_norm.scale"] is False
-    assert mask["layers.0.ln1.scale" if arch != "zamba2-7b"
-                else "layers.0.ln.scale"] is True
+    assert mask[STACKED_NORM.get(arch, "layers.0.ln1.scale")] is True
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -381,7 +421,7 @@ def test_three_train_steps_match_reference(families, arch, accum):
     named = trainable(model)
     st = init_state(named)
     for i in range(3):
-        b = lm_batch(model.cfg.vocab_size, B=4, S=32, seed=10 + i)
+        b = family_batch(model.cfg, B=4, S=32, seed=10 + i)
         jp, jst, jmet = jstep(jp, jst, as_jax(b))
         named, st, met = step(named, st, as_torch(b))
         assert abs(float(met["loss"]) - float(jmet["loss"])) < LOSS_TOL
