@@ -228,6 +228,24 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 (64, 480, 2048) x (64, 2048, 1408) beside a padded bmm and
                 its bound; Qwen3-MoE-235B planned on a (16, 16) shape-only
                 mesh on the meta device (bytes of weights a rank).
+ 11. dryrun   - (1) python -m repro_torch.launch.dryrun on the card
+                (--device cuda: fake CUDA tensors on a fake world of 256
+                or 512 ranks, nothing allocated, no collective run), one
+                subprocess a cell, all started together: DeepSeek-V2-
+                Lite prefill_32k (MLA, the expert-parallel MoE), Granite
+                decode_32k, Zamba2 long_500k, Qwen3-MoE-235B decode_32k,
+                xLSTM decode_32k on 2x16x16, Whisper train_4k
+                --gate-only; every cell ok; the roofline table of their
+                artifacts (H100 constants) and perf.py's line for
+                Granite decode_32k --set kv_update=mask against its
+                artifact; (2) SmolLM2's prefill (16 x 512 into a cache
+                of 1024) and train (16 x 128, 2 microbatches) cells of
+                phase 10 on a one-rank mesh, plain path, over fake
+                tensors in a fake world and over real ones in an NCCL
+                world: FLOPs and collective bytes equal, the dry-run's
+                peak bytes within DRYRUN_MEM_* of max_memory_allocated's
+                rise, the device time (median of 5) beside the
+                roofline's step_seconds_bound.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -269,6 +287,7 @@ from repro_torch.data import (HashTokenizer, PipelineConfig,  # noqa: E402
 from repro_torch.data.tokenizer import BOS, LABEL_TOKENS  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import gemm_shape  # noqa: E402
+from repro_torch.launch import hlo, roofline  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import sharding as shp  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -4419,6 +4438,245 @@ def phase_sharded() -> dict:
     return out
 
 
+# ----------------------------------------------------------- 11. dryrun ----
+# the dry-run's cells as users run them (python -m repro_torch.launch.dryrun
+# on the card), one subprocess each, all started together; dropped from
+# the end of this list when the phase outgrows its budget
+DRYRUN_CELLS = (
+    ("deepseek-v2-lite-16b", "prefill_32k", ()),
+    ("granite-3-2b", "decode_32k", ()),
+    ("zamba2-7b", "long_500k", ()),
+    ("qwen3-moe-235b-a22b", "decode_32k", ()),
+    ("xlstm-350m", "decode_32k", ("--multipod",)),
+    ("whisper-small", "train_4k", ("--gate-only",)),
+)
+DRYRUN_PERF = ("granite-3-2b", "decode_32k", "kv_update=mask")
+DRYRUN_TIMEOUT = 400        # s, one subprocess
+# the fake run's peak bytes against max_memory_allocated's rise over the
+# same cell on the card, as predicted before the first run (PERF.md): within
+# 10 % of the rise plus 64 MiB (the allocator's 512-byte rounding and
+# scratch that no op reports, such as cuBLAS's workspace)
+DRYRUN_MEM_REL = 0.10
+DRYRUN_MEM_ABS = 64 * 2 ** 20
+ONE_CARD_ITERS = 5
+
+
+def dryrun_cmd(module, *flags):
+    return [sys.executable, "-m", f"repro_torch.launch.{module}",
+            "--device", "cuda", *flags]
+
+
+def dryrun_cells(tmp, meanwhile) -> tuple:
+    """(1) The dry-run cells of DRYRUN_CELLS, each a subprocess on the
+    card, all started together; ``meanwhile()`` runs in this process
+    while they do (work that times nothing); perf.py over DRYRUN_PERF
+    against the decode artifact as soon as that cell is done; then the
+    roofline table of the artifacts -> (readings, meanwhile's result)."""
+    out_dir = os.path.join(tmp, "dryrun_torch")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    p_arch, p_shape, p_set = DRYRUN_PERF
+
+    def start(name, cmd):
+        outf = open(os.path.join(tmp, f"{len(procs)}.log"), "w+")
+        procs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=outf,
+                                        stderr=subprocess.STDOUT),
+                       outf, time.monotonic())
+
+    procs, secs, lines = {}, {}, {}
+    try:
+        for arch, shape, flags in DRYRUN_CELLS:
+            start(f"{arch} {shape}", dryrun_cmd(
+                "dryrun", "--arch", arch, "--shape", shape, "--out",
+                out_dir, "--force", *flags))
+        during = meanwhile()
+        deadline = time.monotonic() + DRYRUN_TIMEOUT
+        while len(secs) < len(procs):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"dryrun: still running after "
+                                     f"{DRYRUN_TIMEOUT} s: "
+                                     f"{sorted(set(procs) - set(secs))}")
+            for name, (proc, outf, t0) in list(procs.items()):
+                if name in secs or proc.poll() is None:
+                    continue
+                secs[name] = time.monotonic() - t0
+                outf.seek(0)
+                text = outf.read()
+                kept = [ln for ln in text.splitlines()
+                        if not ln.startswith("[rank0]:W")]
+                lines[name] = kept[-1] if kept else ""
+                log(f"[dryrun] (1) {name}: {lines[name]} (subprocess "
+                    f"{secs[name]:.1f} s, rc {proc.returncode})")
+                if proc.returncode != 0:
+                    raise AssertionError(f"dryrun {name}: rc "
+                                         f"{proc.returncode}\n"
+                                         f"{text[-4000:]}")
+                if name == f"{p_arch} {p_shape}":
+                    start("perf", dryrun_cmd(
+                        "perf", "--arch", p_arch, "--shape", p_shape,
+                        "--set", p_set, "--tag", "mask_update",
+                        "--baseline", os.path.join(
+                            out_dir, f"{p_arch}__{p_shape}__pod1.json"),
+                        "--out", os.path.join(tmp, "perf_torch")))
+            time.sleep(0.2)
+    finally:
+        for proc, outf, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            outf.close()
+    arts = {p.name: json.loads(p.read_text())
+            for p in sorted(Path(out_dir).glob("*.json"))}
+    for name, art in arts.items():
+        if not art.get("ok"):
+            raise AssertionError(f"dryrun {name}: {art.get('error')}")
+        mem = art["memory_analysis"]
+        log(f"[dryrun] (1) {name}: rank 0 peak "
+            f"{mem['peak_size_in_bytes'] / 1e9:.2f} GB (arguments "
+            f"{mem['argument_size_in_bytes'] / 1e9:.2f} GB), fits "
+            f"{art['fits']}; FLOPs {art.get('cost_unrolled', {}).get('flops')}"
+            f", collective bytes a rank "
+            f"{art.get('collectives', {}).get('by_kind')}")
+    table = roofline.format_table(roofline.load_table(out_dir))
+    log("[dryrun] (1) the roofline of the cells on the H100 (PEAK "
+        f"{roofline.PEAK_FLOPS:g} FLOP/s, HBM {roofline.HBM_BW:g} B/s, link "
+        f"{roofline.ICI_BW:g} B/s):\n{table}")
+    return dict(seconds=secs, artifacts=arts, table=table,
+                perf=lines.pop("perf")), during
+
+
+def one_card_cells(mesh):
+    """The two SmolLM2 cells of phase 10 on a (1, 1) mesh, plain path:
+    name -> (fn, make, suite); make() gives the cell's arguments (drawn
+    on the card, or fake under FakeTensorMode)."""
+    cfg = get_config("smollm2-1.7b")
+    fn_p, args_p, _ = steps.build_cell(cfg, SHARDED_PREFILL, mesh)
+    B, S, C = 16, SHARDED_PREFILL.seq_len, SHARDED_DECODE.seq_len
+
+    def make_prefill():
+        gen = torch.Generator("cuda").manual_seed(1)
+        params = steps.materialize(args_p, mesh, gen)[0]
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        cache = fn_p.model.init_cache(B, C, torch.bfloat16, device="cuda")
+        return params, toks, lens, cache
+    tcfg = dataclasses.replace(cfg, remat="block")
+    fn_t, args_t, _ = steps.build_cell(tcfg, SHARDED_TRAIN, mesh,
+                                       accum_steps=2, ce_chunk=64)
+
+    def make_train():
+        return steps.materialize(args_t, mesh,
+                                 torch.Generator("cuda").manual_seed(0))
+    return {"prefill": (fn_p, make_prefill, SHARDED_PREFILL),
+            "train": (fn_t, make_train, SHARDED_TRAIN)}
+
+
+def one_card_fake() -> dict:
+    """Each one-card cell once over fake tensors in a fake world of one
+    rank, as the dry-run runs a cell -> name -> counter."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    out = {}
+    with fake_world(1, "cuda"):
+        mesh = make_host_mesh(1, 1)
+        for name, (fn, make, _) in one_card_cells(mesh).items():
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                _, out[name] = hlo.run_counted(fn, make())
+    return out
+
+
+def one_card_counts(fake) -> dict:
+    """(2) The one-card cells with real tensors on the card in a one-rank
+    NCCL world: counted as the fake runs were (FLOPs and collective bytes
+    must be equal), max_memory_allocated's rise beside the fake run's
+    peak, and the device time (median of ONE_CARD_ITERS) beside the
+    roofline's bound."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp.name, "store"), 1),
+        rank=0, world_size=1)
+    res = {}
+    try:
+        mesh = make_host_mesh(1, 1)
+        for name, (fn, make, suite) in one_card_cells(mesh).items():
+            args = make()
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _, real = hlo.run_counted(fn, args)
+            sync()
+            rise = torch.cuda.max_memory_allocated() - base
+            f = fake[name]
+            coll = (hlo.collective_bytes(f), hlo.collective_bytes(real))
+            ms = []
+            for _ in range(ONE_CARD_ITERS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(*args)
+                end.record()
+                sync()
+                ms.append(start.elapsed_time(end))
+            med = float(np.median(ms))
+            art = {"arch": "smollm2-1.7b", "shape": suite.name,
+                   "mesh": "1x1", "kind": suite.kind, "ok": True,
+                   "cost_unrolled": hlo.cost_stats(real, 1),
+                   "collectives": {"extrapolated_total_bytes": float(
+                       coll[1].get("total", 0)), "by_kind": {}}}
+            row = roofline.cell_roofline(art, suite)
+            bound_ms = 1e3 * row["step_seconds_bound"]
+            tol = DRYRUN_MEM_REL * rise + DRYRUN_MEM_ABS
+            log(f"[dryrun] (2) smollm2-1.7b {name} ({suite.global_batch} x "
+                f"{suite.seq_len}), one rank: FLOPs fake {f.flops} real "
+                f"{real.flops}; collective bytes fake {coll[0]} real "
+                f"{coll[1]}; peak bytes, dry-run {f.peak_bytes} (the real "
+                f"run's tracker {real.peak_bytes}) vs max_memory_allocated "
+                f"rise {rise} (gap {f.peak_bytes - rise:+d}, tolerance "
+                f"{tol:.0f}); device time median {med:.2f} ms of "
+                f"{[round(x, 2) for x in ms]}, roofline bound {bound_ms:.2f}"
+                f" ms ({row['dominant']}), bound/measured "
+                f"{bound_ms / med:.3f}")
+            if f.flops != real.flops or coll[0] != coll[1] or \
+                    coll[1].get("total", 0) != 0 or f.flops <= 0:
+                raise AssertionError(f"one-card {name}: counts differ")
+            if abs(f.peak_bytes - rise) > tol:
+                raise AssertionError(f"one-card {name}: peak {f.peak_bytes}"
+                                     f" vs rise {rise}")
+            res[name] = dict(flops=f.flops, collective_bytes=coll[1],
+                             fake_peak=f.peak_bytes, real_peak=real.peak_bytes,
+                             rise=rise, device_ms=ms, median_ms=med,
+                             bound_ms=bound_ms, dominant=row["dominant"],
+                             fraction=bound_ms / med)
+            del args
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    return res
+
+
+def phase_dryrun() -> dict:
+    """Phase 11: the dry-run, the roofline and perf.py as users run them
+    (the one-card cells' fake runs meanwhile), then the one-card cells'
+    counts held against the card."""
+    t0 = time.monotonic()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        out, fake = dryrun_cells(tmp.name, one_card_fake)
+    finally:
+        tmp.cleanup()
+    t1 = time.monotonic()
+    out["one_card"] = one_card_counts(fake)
+    out["one_card_seconds"] = time.monotonic() - t1
+    out["seconds"] = time.monotonic() - t0
+    log(f"[dryrun] phase {out['seconds']:.1f} s ((2)'s real runs "
+        f"{out['one_card_seconds']:.1f} s)")
+    return out
+
+
 class PlantFault:
     """For --faults: breaks one kernel entry point at run time (the code
     stays as it is) while active. ``gemm_drop_expert`` zeroes the grouped
@@ -4631,6 +4889,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["sharded"] = phase_sharded()
     phase_done("sharded")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["dryrun"] = phase_dryrun()
+    phase_done("dryrun")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's launches on the main paths, summed over its entry points

@@ -41,6 +41,12 @@ _CONFIGS = {"smollm2-1.7b": SMOLLM2_1_7B,
             "qwen3-moe-235b-a22b": QWEN3_MOE_235B}
 
 ALL_ARCHS = tuple(_CONFIGS)
+# the ten the dry-run plans (every arch but the paper's own SmolLM2), in
+# the reference's order
+ASSIGNED_ARCHS = ("stablelm-12b", "nemotron-4-15b", "granite-3-2b",
+                  "h2o-danube-1.8b", "whisper-small", "xlstm-350m",
+                  "zamba2-7b", "llama-3.2-vision-11b", "qwen3-moe-235b-a22b",
+                  "deepseek-v2-lite-16b")
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -27,6 +27,7 @@ import threading
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (flash_decode_cuda,
@@ -63,7 +64,13 @@ def _on_cpu(name: str, x: torch.Tensor, *inputs: Optional[torch.Tensor]
             ) -> bool:
     """True when ``x`` lies on the CPU (the plain version runs); False on
     the card, where the kernel ``name`` will launch: after refusing inputs
-    that need a gradient, which the kernel cannot give."""
+    that need a gradient, which the kernel cannot give. Fake tensors are
+    refused on every device."""
+    if any(isinstance(t, FakeTensor) for t in (x,) + inputs):
+        raise RuntimeError(
+            f"{name}: a fake tensor (FakeTensorMode, as the dry-run runs a "
+            f"cell) has no data for the kernel to read, and a kernel launch "
+            f"is not counted; run the plain path (cfg.use_kernels=False)")
     if x.device.type == "cpu":
         return True
     if x.device.type != "cuda":

@@ -572,40 +572,51 @@ def mla_prefill(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     keys and values are decompressed from the latent one chunk of
     ``chunk`` positions at a time (the reference's XLA path; no kernel).
     Returns (y (B,S,d), (c_kv (B,S,R), k_rope (B,S,dr))), the latents the
-    cache keeps."""
+    cache keeps.
+
+    Under a mesh the chunk loop runs in ``sharding.local`` over the rank's
+    rows and query heads, as the other attention cores do: the score
+    einsum of DTensors folds batch and heads into one ``bmm`` dim sharded
+    on two mesh dims (a ``_StridedShard``), whose sharding DTensor's cost
+    model cannot work out over fake tensors."""
     c = cdt(cfg)
-    B, S, _ = x.shape
     q_nope, q_rope, ckv, k_rope = _mla_qk(p, x, cfg, positions)
     scale = _mla_scale(cfg)
-    qn = q_nope.float() * scale
-    qr = q_rope.float() * scale
-    dev = x.device
-    qp = torch.arange(S, device=dev)[:, None]
-    H, dv = cfg.n_heads, cfg.mla.v_head_dim
-    acc = torch.zeros((B, S, H, dv), dtype=torch.float32, device=dev)
-    m = torch.full((B, S, H), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, S, H), dtype=torch.float32, device=dev)
-    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
-    w_uk, w_uv = p.w_uk.to(c), p.w_uv.to(c)
-    for c0 in range(0, S, min(chunk, S)):
-        ckv_i = ckv[:, c0:c0 + chunk].to(c)
-        k_i = torch.einsum("bcr,rhk->bchk", ckv_i, w_uk).float()
-        v_i = torch.einsum("bcr,rhk->bchk", ckv_i, w_uv).float()
-        s = torch.einsum("bshd,bchd->bshc", qn, k_i)
-        s = s + torch.einsum("bshd,bcd->bshc", qr,
-                             k_rope[:, c0:c0 + chunk].float())
-        k_pos = c0 + torch.arange(k_i.shape[1], device=dev)
-        s = torch.where((qp >= k_pos)[None, :, None, :], s, neg)
-        if kv_len is not None:
-            valid = k_pos[None, :] < kv_len.long()[:, None]         # (B,C)
-            s = torch.where(valid[:, None, None, :], s, neg)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        pr = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + pr.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bshc,bchd->bshd", pr, v_i)
-        m = m_new
-    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(c)
+    dv = cfg.mla.v_head_dim
+
+    def core(q_nope, q_rope, ckv, k_rope, w_uk, w_uv, kv_len):
+        B, S, h = q_nope.shape[:3]
+        qn = q_nope.float() * scale
+        qr = q_rope.float() * scale
+        dev = qn.device
+        qp = torch.arange(S, device=dev)[:, None]
+        acc = torch.zeros((B, S, h, dv), dtype=torch.float32, device=dev)
+        m = torch.full((B, S, h), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, S, h), dtype=torch.float32, device=dev)
+        neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+        for c0 in range(0, S, min(chunk, S)):
+            ckv_i = ckv[:, c0:c0 + chunk].to(c)
+            k_i = torch.einsum("bcr,rhk->bchk", ckv_i, w_uk).float()
+            v_i = torch.einsum("bcr,rhk->bchk", ckv_i, w_uv).float()
+            s = torch.einsum("bshd,bchd->bshc", qn, k_i)
+            s = s + torch.einsum("bshd,bcd->bshc", qr,
+                                 k_rope[:, c0:c0 + chunk].float())
+            k_pos = c0 + torch.arange(k_i.shape[1], device=dev)
+            s = torch.where((qp >= k_pos)[None, :, None, :], s, neg)
+            if kv_len is not None:
+                valid = k_pos[None, :] < kv_len.long()[:, None]     # (B,C)
+                s = torch.where(valid[:, None, None, :], s, neg)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            pr = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + pr.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bshc,bchd->bshd",
+                                                       pr, v_i)
+            m = m_new
+        return (acc / torch.clamp(l, min=1e-30)[..., None]).to(c)
+    lat, w = ("batch", "seq", None), (None, "heads", None)
+    out = sharding.local(core, (QA, QA, lat, lat, w, w, ROW), (QA,))(
+        q_nope, q_rope, ckv, k_rope, p.w_uk.to(c), p.w_uv.to(c), kv_len)
     y = shard(_out_proj(out, p.wo, c), "batch", "seq", None)
     return y, (ckv, k_rope)
 

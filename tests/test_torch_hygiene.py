@@ -51,7 +51,8 @@ def test_port_file_list_is_complete():
             "h2o_danube_1_8b.py", "stablelm_12b.py",
             "nemotron_4_15b.py", "xlstm.py", "encdec.py", "vision.py",
             "xlstm_350m.py", "whisper_small.py",
-            "llama32_vision_11b.py"} <= names
+            "llama32_vision_11b.py", "dryrun.py", "hlo.py", "roofline.py",
+            "perf.py"} <= names
 
 
 def test_every_kernel_has_its_source():
