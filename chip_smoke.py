@@ -9,6 +9,16 @@ kernel engine of its model at run time: the readings behind the routing
 bounds and the logits tolerances. It exits 0 when the sound run passes
 and every fault is caught, and prints no ok line.
 
+With --seq-decode (four cards) it runs phases 1-2 and then the
+sequence-sharded decode on a (2, 2) NCCL mesh, one rank process a card:
+Granite-3-2B (kv_update "scatter" and "mask") and DeepSeek-V2-Lite-16B
+at full width and a cut depth in f32, the cache of 1024 split in two key
+ranges of 512 (each rank's share from flash_decode with its log-sum-exp,
+or mla_decode's plain latent attention, merged by all-reduces), 8 greedy
+steps of the decode cell against the unsharded kernel path on each card
+(phase_seq_decode). It exits 0 when every case agrees, and prints no ok
+line.
+
 Phases (any failure exits non-zero; no phase swallows an exception):
   1. card     - the card's name and power limit, torch and CUDA versions;
   2. build    - nvcc builds the hand-written kernels from csrc/;
@@ -37,7 +47,10 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 cross-attention prefill over a memory (512 queries over
                 Llama-3.2-Vision's 4100 patch keys, 256 over Whisper's
                 1500 frames), the decode over both memories at n_valid =
-                Skv), with times beside the
+                Skv; flash_decode's log-sum-exp against the plain
+                version's, and its main shape cut into 2 and 4 key ranges
+                merged by combine_partials against one whole-cache call),
+                with times beside the
                 least time the card could take (bound_ms), the achieved
                 TB/s or TFLOP/s, and a PyTorch library call computing the
                 same function where there is one (every kernel and its
@@ -58,14 +71,15 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 (b) and (c) served again at 32 new tokens, three times
                 with the megastep's per-step stop-flag read and three
                 without, alternating, for its cost in decode tok/s;
-                torch.profiler over (b);
+                torch.profiler over (b) at 16 new tokens;
   5. pcm      - a context's cold build, its demote to pinned host memory
                 and its restore, after which (b) decodes identically; then
                 the paged sharing engine of (d) demoted (weights and live
                 pages only), restored and run on (d) again (every wave
                 hits, same tokens), and a template of it cloned into a
                 twin that serves (c) with the same tokens and no build;
-  5b. runtime - full-width SmolLM2-1.7B through the PCM runtime
+  5b. runtime - SmolLM2-1.7B at full width and 8 of its 24 layers
+                (RUNTIME_DEPTH, as in 5c and 5d) through the PCM runtime
                 (repro_torch.core): the seeded weights written with the
                 port's CheckpointManager; a 2-worker PCMManager whose
                 workers build their context with launch/serve.py's
@@ -86,7 +100,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 joined to PCMManager.listen() over loopback, from 5b's
                 checkpoint: node A builds the context cold and serves the
                 first 4 batches; node B joins with --aot-cache at the
-                build directory and bootstraps the 4.2 GB context from A
+                build directory and bootstraps the 1.5 GB context from A
                 by PEER over the socket (striped, sha256-verified chunks)
                 while A serves the other 12; a steady sweep of the 16 on
                 both nodes (claims/s against 5b's bare engine); a sweep
@@ -95,7 +109,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 engine's, B must build nothing (each kernel library a
                 cache hit) and each task's kernel launches, counted in its
                 node, must match its waves and decode steps;
-  5d. frontdoor - full-width SmolLM2-1.7B sessions through the streaming
+  5d. frontdoor - SmolLM2-1.7B sessions (5b's depth) through the streaming
                 front door (repro_torch.serving.frontdoor) over a 2-worker
                 in-process PCMManager whose workers build the paged pool
                 with prefix sharing (phase 4 (d)'s knobs) from 5b's
@@ -129,7 +143,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 of the bf16 peak; (2) the reduced SmolLM2 in f32, three
                 steps from the same seeded weights and batches on the
                 card and on the CPU, losses and parameters held together;
-                (3) full width at depth 2: four steps with checkpoints at
+                (3) full width at depth 1: four steps with checkpoints at
                 3 and 4 (the reference's layout), then train(total_steps=
                 6) in that directory, which must resume at step 5 with an
                 uninterrupted run's losses; (4) step 1's verifier served
@@ -141,9 +155,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 each template's verification accuracy; and a
                 flash_attention call on a tensor that requires grad must
                 raise;
-  6. deepseek - full-width DeepSeek-V2-Lite-16B (MLA + MoE, 27 layers,
-                15.7 B parameters, seeded random bf16 weights drawn on the
-                card) on the paged pool with the kernels: (e) fact
+  6. deepseek - full-width DeepSeek-V2-Lite-16B (MLA + MoE, seeded
+                random bf16 weights drawn on the card) on the paged pool
+                with the kernels: (e) fact
                 verification, 4 templates x 64 claims, one token each, and
                 (f) mix (b)'s 16 long prompts, 64 new tokens each, each with
                 the launch counts set to 0 (the paged MLA decode and the
@@ -152,10 +166,14 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 logits gap and the routing decisions that differed. Its
                 demote/restore (31 GB of pinned host memory) is left to the
                 CPU tests; then torch.profiler over (f) on the kernel
-                engine;
-  7. zamba2   - full-width Zamba2-7B (81 Mamba2 layers and one shared
-                attention block applied 13 times, 6.79 B parameters,
-                seeded random bf16 weights drawn on the card) on the slot
+                engine at 16 new tokens. At 9 of its 27 layers
+                (DS_DEPTH; the full model's 15.7 B parameters counted on
+                the meta device);
+  7. zamba2   - full-width Zamba2-7B (at 27 of its 81 Mamba2
+                layers, ZAMBA_DEPTH, the shared attention block applied 4
+                of 13 times; the full model's 6.79 B parameters counted on
+                the meta device; seeded random bf16 weights drawn on the
+                card) on the slot
                 cache with the kernels (a paged request falls back to it):
                 (g) fact verification, 4 templates x 64 claims, one token
                 each, and (h) mix (b)'s 16 long prompts, 64 new tokens each,
@@ -217,7 +235,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 train step from the same weights and batches (losses
                 within 1e-5); its prefill cell (16 x 512 into a cache of
                 1024) against the unsharded kernel path (LOGIT_TOL) and 16
-                greedy steps of its decode cell, tokens equal; each cell
+                greedy steps of its decode cell, tokens and logits equal
+                bit for bit (one rank: the unsharded path's code); each cell
                 with the launch counts at 0 (flash_attention, flash_decode);
                 DeepSeek-V2-Lite-16B's prefill cell (16 x 256) under the
                 experts rule, the expert-parallel MoE on the grouped GEMM
@@ -231,14 +250,21 @@ Phases (any failure exits non-zero; no phase swallows an exception):
  11. dryrun   - (1) python -m repro_torch.launch.dryrun on the card
                 (--device cuda: fake CUDA tensors on a fake world of 256
                 or 512 ranks, nothing allocated, no collective run), one
-                subprocess a cell, all started together: DeepSeek-V2-
+                subprocess a cell, all started together at the end of
+                phase 2 and run beside phases 3-10 at a lower CPU
+                priority (their readings are counts, not times): DeepSeek-V2-
                 Lite prefill_32k (MLA, the expert-parallel MoE), Granite
                 decode_32k, Zamba2 long_500k, Qwen3-MoE-235B decode_32k,
                 xLSTM decode_32k on 2x16x16, Whisper train_4k
                 --gate-only; every cell ok; the roofline table of their
                 artifacts (H100 constants) and perf.py's line for
                 Granite decode_32k --set kv_update=mask against its
-                artifact; (2) SmolLM2's prefill (16 x 512 into a cache
+                artifact; each decode cell's collective bytes by kind and
+                its terms, Granite decode_32k's all-gather and collective
+                term held to SEQ_GATHER_MAX and SEQ_COLL_MS_MAX (its cache
+                stays on its ranks), and the mask write's counted bytes
+                changed with its collectives the same; (2) SmolLM2's
+                prefill (16 x 512 into a cache
                 of 1024) and train (16 x 128, 2 microbatches) cells of
                 phase 10 on a one-rank mesh, plain path, over fake
                 tensors in a fake world and over real ones in an NCCL
@@ -255,6 +281,7 @@ card; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import gc
 import importlib
@@ -264,6 +291,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -312,32 +340,44 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 LOGIT_TOL = 0.25
 # DeepSeek, the same comparison on requests whose prefill routed every token
 # to the same experts in both engines, held to SmolLM2's bound. Readings
-# (chip_smoke.py --faults, H100): 0.0 sound; with a fault planted, every
-# request's routing differed and the gap over all requests was 0.62-0.98.
+# (chip_smoke.py --faults, H100, 27 layers): 0.0 sound; with a fault
+# planted, every request's routing differed and the gap over all requests
+# was 0.62-0.98 (at DS_DEPTH: 0.0 sound, 0.82-0.96 with the dropped
+# expert).
 DS_LOGIT_TOL = 0.25
 # Routing is discrete: last-bit differences flip a token's choice where its
 # 6th and 7th expert probabilities nearly tie, and a flip moves its hidden
 # state by a whole expert's output, so requests with a flip are counted and
 # not held to DS_LOGIT_TOL. The share of (token, layer) decisions that
 # differ is bounded instead, between the readings of the sound run and of
-# the planted faults (--faults, H100): prefill 0 sound, 22-35 % with the
-# grouped GEMM dropping one expert; decode 0.68-0.79 % sound (the MLA kernel
-# returns bf16 latents where the plain path keeps f32), 2.5 % with the MLA
-# kernel reading one key too few, 1.6 % with the dropped expert.
+# the planted faults (--faults, H100; at 27 layers, then at DS_DEPTH):
+# prefill 0 sound, 22-35 % (15.0-17.5 %) with the grouped GEMM dropping one
+# expert; decode 0.68-0.79 % (1.30 %) sound (the MLA kernel returns bf16
+# latents where the plain path keeps f32), 2.5 % (6.7 %) with the MLA
+# kernel reading one key too few, 1.6 % (1.8 %) with the dropped expert.
 PREFILL_ROUTE_DIFF_MAX = 0.05
 DECODE_ROUTE_DIFF_MAX = 0.015
 # DeepSeek-V2-Lite's tensors: the reference's param_count() (15 706 357 760)
 # plus the 126 464 norm scales it leaves out
 DS_PARAMS = 15_706_484_224
+# phases 6 and 7 (and --faults) run at full width and a third of the
+# depth: at full depth the two took 147 s and 104 s of a run that must end
+# within 1200 s on the slowest host. DeepSeek keeps its dense first layer
+# and 8 MoE layers of 26; Zamba2 4 applications of the shared block (every
+# 6th layer) and a tail of 3. Each full model's parameter count is still
+# held, on the meta device (full_depth_params)
+DS_DEPTH = 9
+ZAMBA_DEPTH = 27
 # Zamba2-7B's: the reference's param_count() (6 786 849 504) plus the
 # 881 664 norm scales, 601 344 conv biases and 9 072 dt_bias it leaves out
 ZAMBA_PARAMS = 6_788_341_584
 # Zamba2's first-token logits, kernel engine vs plain engine, both bf16,
 # max-abs over every request: the kernel path keeps the SSD scan's y in f32
 # where the plain chunked path rounds it to bf16 (the reference's two paths
-# do the same), in each of 81 layers. Readings (--faults, H100): 1.14 (g)
-# and 1.56 (h) sound; 5.78 (h) with the state not carried from tile to
-# tile, 6.28-6.61 with each step's own input left out.
+# do the same), in each Mamba2 layer. Readings (--faults, H100; at 81
+# layers, then at ZAMBA_DEPTH): 1.14 (1.00) (g) and 1.56 (0.92) (h) sound;
+# 5.78 (5.25) (h) with the state not carried from tile to tile, 6.28-6.61
+# (6.17-6.38) with each step's own input left out.
 ZAMBA_LOGIT_TOL = 3.0
 # the same comparison in f32 at full width, the depth cut to one group and
 # the tail (7 layers), where only the order of f32 sums differs
@@ -369,7 +409,14 @@ PAGED_KW = dict(ENGINE_KW, paged=True, page_size=64)
 PREAMBLE_LEN = 448                       # 7 pages of 64
 
 
+# (seconds since the script started, the line's start) of every line
+# logged, for the report: where the run's time goes, step by step
+LOG_TIMES = []
+T_START = time.monotonic()
+
+
 def log(msg: str) -> None:
+    LOG_TIMES.append((round(time.monotonic() - T_START, 1), msg[:80]))
     print(msg, flush=True)
 
 
@@ -433,8 +480,11 @@ def rate(nbytes, flops, ms, by):
 
 
 def randn(rng, shape, dtype):
-    x = rng.standard_normal(shape).astype(np.float32)
-    return torch.from_numpy(x).to("cuda", dtype)
+    """Standard normals of ``shape`` in ``dtype``, drawn on the card by a
+    generator seeded with one draw of ``rng``: numpy drawing them on the
+    host (~20 M a second) took about half of phase 3."""
+    gen = torch.Generator("cuda").manual_seed(int(rng.randint(2 ** 31)))
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
 # ------------------------------------------------------------- 1. card ----
@@ -768,6 +818,7 @@ def phase_kernels() -> dict:
         raise AssertionError("flash_decode and paged_flash_decode differ on "
                              "the same K/V")
     rows["flash_decode"]["paged_bitwise_equal"] = same
+    rows["flash_decode"].update(decode_lse_and_ranges(q, ck, cv, ln, kw))
     del q, ck, cv, mask, qt, kt, vt, kp, vp
 
     *_, err = dec_case(3, 16, 1, 64, 128, torch.float32,
@@ -864,6 +915,57 @@ def phase_kernels() -> dict:
     phase_kernels_wide(rows)
     phase_kernels_cross(rows)
     return rows
+
+
+def decode_lse_and_ranges(q, ck, cv, ln, kw) -> dict:
+    """What the sequence-sharded decode asks of flash_decode, at the main
+    shape: the output's bits unchanged when the log-sum-exp is asked for,
+    the kernel's log-sum-exp against the plain version's (f32; -inf at
+    the same slots: the length-0 one), then the cache cut into 2 and 4 key
+    ranges, one kernel call each over its own valid keys, merged by
+    ``combine_partials`` (the collectives' reductions as sums and maxima
+    over a stack) against one whole-cache call, within the bf16
+    tolerance."""
+    whole = ops.flash_decode(q, ck, cv, ln, **kw)
+    out, lse = ops.flash_decode(q, ck, cv, ln, return_lse=True, **kw)
+    sync()
+    _, want = ref.flash_decode_ref(q, ck, cv, ln, return_lse=True, **kw)
+    if not torch.equal(out, whole):
+        raise AssertionError("flash_decode: the output changed when the "
+                             "log-sum-exp was asked for")
+    if not torch.equal(torch.isneginf(lse), torch.isneginf(want)) or \
+            bool(torch.isnan(lse).any()):
+        raise AssertionError("flash_decode: the log-sum-exp's empty slots "
+                             "differ from the plain version's")
+    live = torch.isfinite(want)
+    res = {"lse_max_abs_err": check(
+        "flash_decode log-sum-exp (16,32,64) Skv 1024 vs plain",
+        float((lse[live] - want[live]).abs().max()), torch.float32),
+        "ranges": {}}
+    Skv = ck.shape[1]
+    for parts in (2, 4):
+        per = Skv // parts
+        outs, lses = [], []
+        for r in range(parts):
+            n = torch.clamp(ln - r * per, 0, per).to(torch.int32)
+            o, l = ops.flash_decode(
+                q, ck[:, r * per:(r + 1) * per].contiguous(),
+                cv[:, r * per:(r + 1) * per].contiguous(), n,
+                return_lse=True, **kw)
+            outs.append(o)
+            lses.append(l)
+        got = attn_lib.combine_partials(torch.stack(outs), torch.stack(lses),
+                                        lambda t: t.amax(0),
+                                        lambda t: t.sum(0))
+        sync()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_decode over {parts} key ranges: "
+                                 f"non-finite merged output")
+        res["ranges"][parts] = check(
+            f"flash_decode over {parts} key ranges of {per}, merged by "
+            f"combine_partials, vs one whole-cache call",
+            float((got - whole.float()).abs().max()), torch.bfloat16)
+    return res
 
 
 def route_counts(gen, tokens, k=6, experts=64):
@@ -1894,6 +1996,13 @@ def compare(label, kern, plain, vocab):
     return out["logits_gap"]
 
 
+# new tokens of a profiled mix, not the mix's 64: the profiler's
+# processing grows with the events traced (at 64, 270-415 s for Zamba2's
+# (h) and 83 s for DeepSeek's (f) on the H100 hosts), and the run aims to
+# end within half its 1200 s limit
+PROFILE_NEW = 16
+
+
 def profile_mix(engine, prompts, max_new, label) -> dict:
     """Device busy share and the heaviest kernels of one run of a mix,
     under torch.profiler (whose own host cost lowers the share a little).
@@ -1960,8 +2069,9 @@ def phase_serve() -> dict:
                logits_err_b=compare("(b)", lk, lp, cfg.vocab_size),
                long_tokens=tokens(lk))
     out["stop_flag_b"] = stop_flag_cost(engine, longs, tokens(lk), "(b)")
-    out["profile_b"] = profile_mix(engine, longs, 64,
-                                   "(b) SmolLM2 slot cache kernels")
+    out["profile_b"] = profile_mix(engine, longs, PROFILE_NEW,
+                                   f"(b) SmolLM2 slot cache kernels, "
+                                   f"{PROFILE_NEW} new tokens")
     free(plain, engine)
 
     # (c): mix (b) through the paged pool
@@ -2155,6 +2265,11 @@ def phase_pcm_paged(eng, fewshot, fewshot_tokens, longs, paged_tokens,
 RUNTIME_KW = dict(slots=16, cache_len=256, prefill_buckets=(32, 128),
                   megastep=8, cache_dtype=torch.bfloat16)
 RUNTIME_BATCH = 16
+# phases 5b-5d at a third of SmolLM2's depth: they move its checkpoint and
+# contexts through the disk, the host and a socket, at a rate set by the
+# host (the checkpoint written at 0.22 GB/s, the context sent by PEER at
+# 0.34 GB/s, on one H100 host), and took 164 s at full depth
+RUNTIME_DEPTH = 8
 
 
 def runtime_batches():
@@ -2175,7 +2290,8 @@ def phase_runtime() -> dict:
     equal a bare engine's on the same weights and prompts, the replacement
     must bootstrap from the pool or a peer, and the builder may run only
     for the workers that built cold."""
-    cfg = dataclasses.replace(get_config("smollm2-1.7b"), use_kernels=True)
+    cfg = dataclasses.replace(get_config("smollm2-1.7b"), use_kernels=True,
+                              n_layers=RUNTIME_DEPTH)
     tmp = tempfile.TemporaryDirectory(prefix="runtime_smoke_")
     ckdir, spill = Path(tmp.name) / "ckpt", Path(tmp.name) / "pool"
     model = build_model(cfg, device="cuda", seed=0)
@@ -2183,7 +2299,8 @@ def phase_runtime() -> dict:
     CheckpointManager(str(ckdir)).save(0, dict(model.state_dict()))
     ckpt_s = time.monotonic() - t0
     ckpt_bytes = sum(f.stat().st_size for f in ckdir.rglob("*"))
-    log(f"[runtime] seeded weights written with CheckpointManager: "
+    log(f"[runtime] seeded weights of smollm2-1.7b at full width and "
+        f"{cfg.n_layers} layers written with CheckpointManager: "
         f"{ckpt_bytes / 1e9:.3f} GB in {ckpt_s:.3f} s")
 
     # the bare engine: the same batches, one generate each, as a task runs
@@ -3049,6 +3166,9 @@ TRAIN_OUTLIER_SHARE = 2e-3
 # exactly, so the two runs differ only where the card's reductions are not
 # deterministic
 RESUME_LOSS_TOL = 1e-3
+# the resume's depth: its three runs write 2.35 GB checkpoints at depth 2,
+# which took 64 s on the H100 hosts (the embedding is most of the bytes)
+RESUME_DEPTH = 1
 
 
 def fact_data(cfg, **overrides):
@@ -3184,13 +3304,13 @@ def train_card_vs_cpu() -> dict:
 
 
 def train_resume(cfg) -> dict:
-    """Step 3: full width at depth 2, four steps with checkpoint_every 3,
-    which saves at 3 and 4, then train(total_steps=6) in the same
-    directory, which must resume at step 5 and give an uninterrupted
-    6-step run's losses. The resumed run saves every 4 steps, so only its
-    final save (6) writes: at 3 it would save 6 twice (the reference's
-    double save), 13 s more."""
-    dcfg = dataclasses.replace(cfg, n_layers=2)
+    """Step 3: full width at RESUME_DEPTH, four steps with
+    checkpoint_every 3, which saves at 3 and 4, then train(total_steps=6)
+    in the same directory, which must resume at step 5 and give an
+    uninterrupted 6-step run's losses. The resumed run saves every 4
+    steps, so only its final save (6) writes: at 3 it would save 6 twice
+    (the reference's double save), 13 s more at depth 2."""
+    dcfg = dataclasses.replace(cfg, n_layers=RESUME_DEPTH)
     ocfg = OptimizerConfig(**TRAIN_OPT)
     with tempfile.TemporaryDirectory(prefix="train_resume_") as d:
         def run(total, ckdir, every, logs=None):
@@ -3220,7 +3340,8 @@ def train_resume(cfg) -> dict:
         resumed=got,
         uninterrupted=want, loss_gap=gap, first_run_s=save_s,
         resumed_run_s=resume_s)
-    log(f"[train] (3) resume at full width, depth 2: {json.dumps(res)} "
+    log(f"[train] (3) resume at full width, depth {RESUME_DEPTH}: "
+        f"{json.dumps(res)} "
         f"(losses within {RESUME_LOSS_TOL})")
     if saved != [3, 4] or logs != ["[loop] resumed from step 4"] or \
             [s for s, _ in got] != [5, 6] or gap > RESUME_LOSS_TOL:
@@ -3294,7 +3415,7 @@ def phase_train() -> dict:
     """The port's training path on the card (``repro_torch.train``): (1)
     full-width SmolLM2-1.7B trained on the fact task; (2) the reduced
     model's f32 steps on the card against the CPU's; (3) a checkpointed
-    run at full width and depth 2 resumed in its directory against an
+    run at full width and RESUME_DEPTH resumed in its directory against an
     uninterrupted one; (4) step 1's verifier served through the kernels
     against the plain path, with the launch counts set to 0 and checked,
     and a kernel call on a grad-requiring input refused."""
@@ -3420,12 +3541,23 @@ def compare_routed(label, kern, plain, log_k, log_p, cfg, slots):
     return out
 
 
+def full_depth_params(arch, want) -> int:
+    """``arch``'s parameter count at full width and depth, built on the
+    meta device, which must be ``want``."""
+    n = sum(p.numel() for p in abstract_model(get_config(arch)).parameters())
+    if n != want:
+        raise AssertionError(f"{arch}: {n} parameters at full depth, "
+                             f"expected {want}")
+    return n
+
+
 def phase_deepseek() -> dict:
     """Full-width DeepSeek-V2-Lite-16B on the paged pool: (e) and (f) with
     the kernels, each path's launches checked, against a use_kernels=False
     engine over the same weights."""
     cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
-                              use_kernels=True)
+                              use_kernels=True, n_layers=DS_DEPTH)
+    full_params = full_depth_params("deepseek-v2-lite-16b", DS_PARAMS)
     sync()
     t0 = time.monotonic()
     model = build_model(cfg, device="cuda", seed=0)
@@ -3438,17 +3570,19 @@ def phase_deepseek() -> dict:
                               device="cuda", params=dict(model.state_dict()))
     eng = InferenceEngine(model, device="cuda", **PAGED_KW)
     log(f"[deepseek] deepseek-v2-lite-16b full width: {cfg.n_layers} layers "
+        f"of {get_config('deepseek-v2-lite-16b').n_layers} "
         f"({cfg.moe.first_dense_layers} dense, d_ff {cfg.moe.dense_d_ff}), "
         f"d_model {cfg.d_model}, {cfg.n_heads} heads, MLA latent "
         f"{cfg.mla.kv_lora_rank} + rope {cfg.mla.qk_rope_head_dim}, "
         f"{cfg.moe.n_experts} experts top-{cfg.moe.experts_per_token} of "
         f"d_ff {cfg.moe.d_ff} + {cfg.moe.n_shared_experts} shared; "
-        f"{n_params} params, {weight_bytes / 1e9:.3f} GB bf16, drawn on the "
-        f"card in {init_s:.2f} s; pool "
-        f"{eng.snapshot()['capacity_bytes'] / 1e9:.3f} GB; engine {PAGED_KW}")
-    if n_params != DS_PARAMS:
-        raise AssertionError(f"deepseek: {n_params} parameters, expected "
-                             f"{DS_PARAMS}")
+        f"{n_params} params ({full_params} at full depth), "
+        f"{weight_bytes / 1e9:.3f} GB bf16, drawn on the card in "
+        f"{init_s:.2f} s; pool {eng.snapshot()['capacity_bytes'] / 1e9:.3f} "
+        f"GB; engine {PAGED_KW}")
+    if n_params != sum(p.numel() for p in abstract_model(cfg).parameters()):
+        raise AssertionError(f"deepseek: {n_params} parameters on the card, "
+                             f"not the config's")
     log(f"[deepseek] prefix_fallback: {eng.prefix_fallback}")
     if eng.prefix_fallback is None or "MoE" not in eng.prefix_fallback \
             or "MLA" not in eng.prefix_fallback:
@@ -3457,9 +3591,9 @@ def phase_deepseek() -> dict:
     facts = fact_prompts(cfg.vocab_size)
     longs = long_prompts(cfg.vocab_size)
     eng.generate([[2, 5]], max_new_tokens=2)
-    out = {"params": n_params, "weight_bytes": weight_bytes,
-           "init_s": init_s, "prefix_fallback": eng.prefix_fallback,
-           "launches": {}}
+    out = {"params": n_params, "full_depth_params": full_params,
+           "weight_bytes": weight_bytes, "init_s": init_s,
+           "prefix_fallback": eng.prefix_fallback, "launches": {}}
 
     with RouteLog() as rk_e:
         (ek, rates_e), out["launches"]["e"] = run_path(
@@ -3488,8 +3622,9 @@ def phase_deepseek() -> dict:
             raise AssertionError(f"deepseek ({mix}) kernels vs plain: "
                                  f"{out[f'compare_{mix}']['failures']}")
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    out["profile_f"] = profile_mix(eng, longs, 64,
-                                   "(f) DeepSeek long prompts, kernel engine")
+    out["profile_f"] = profile_mix(eng, longs, PROFILE_NEW,
+                                   f"(f) DeepSeek long prompts, kernel "
+                                   f"engine, {PROFILE_NEW} new tokens")
     free(eng)
     return out
 
@@ -3527,7 +3662,9 @@ def phase_zamba2() -> dict:
     use_kernels=False engine over the same weights, and the two engines
     again in f32 at 7 layers (``zamba2_f32_check``); torch.profiler over
     (h)'s prompts at 16 new tokens."""
-    cfg = dataclasses.replace(get_config("zamba2-7b"), use_kernels=True)
+    cfg = dataclasses.replace(get_config("zamba2-7b"), use_kernels=True,
+                              n_layers=ZAMBA_DEPTH)
+    full_params = full_depth_params("zamba2-7b", ZAMBA_PARAMS)
     torch.cuda.reset_peak_memory_stats()
     sync()
     t0 = time.monotonic()
@@ -3542,17 +3679,18 @@ def phase_zamba2() -> dict:
     eng = InferenceEngine(model, device="cuda", paged=True, **ENGINE_KW)
     cache = {n: (tuple(t.shape), str(t.dtype)[6:], t.numel()
                  * t.element_size()) for n, t in eng.cache.items()}
-    log(f"[zamba2] zamba2-7b full width: {cfg.n_layers} Mamba2 layers (d_in "
+    log(f"[zamba2] zamba2-7b full width: {cfg.n_layers} Mamba2 layers of "
+        f"{get_config('zamba2-7b').n_layers} (d_in "
         f"{cfg.ssm.expand * cfg.d_model}, {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} "
         f"heads of {cfg.ssm.head_dim}, state {cfg.ssm.state_dim}, "
         f"{cfg.ssm.n_groups} groups), the shared block {eng.model.n_groups} "
         f"times ({cfg.n_heads} heads of {cfg.resolved_head_dim}, d_ff "
-        f"{cfg.d_ff}); {n_params} params, {weight_bytes / 1e9:.3f} GB bf16, "
-        f"drawn on the card in {init_s:.2f} s; cache {json.dumps(cache)}; "
-        f"engine {ENGINE_KW}")
-    if n_params != ZAMBA_PARAMS:
-        raise AssertionError(f"zamba2: {n_params} parameters, expected "
-                             f"{ZAMBA_PARAMS}")
+        f"{cfg.d_ff}); {n_params} params ({full_params} at full depth), "
+        f"{weight_bytes / 1e9:.3f} GB bf16, drawn on the card in "
+        f"{init_s:.2f} s; cache {json.dumps(cache)}; engine {ENGINE_KW}")
+    if n_params != sum(p.numel() for p in abstract_model(cfg).parameters()):
+        raise AssertionError(f"zamba2: {n_params} parameters on the card, "
+                             f"not the config's")
     log(f"[zamba2] paged=True resolves to the slot cache: "
         f"{eng.paged_fallback}; prefix_fallback: {eng.prefix_fallback}")
     if eng.stats.decode_path != "full" or eng.paged_fallback is None \
@@ -3562,8 +3700,8 @@ def phase_zamba2() -> dict:
     facts = fact_prompts(cfg.vocab_size)
     longs = long_prompts(cfg.vocab_size)
     eng.generate([[2, 5]], max_new_tokens=2)
-    out = {"params": n_params, "weight_bytes": weight_bytes,
-           "init_s": init_s, "cache": cache,
+    out = {"params": n_params, "full_depth_params": full_params,
+           "weight_bytes": weight_bytes, "init_s": init_s, "cache": cache,
            "paged_fallback": eng.paged_fallback, "launches": {}}
     (gk, rates_g), out["launches"]["g"] = run_path(
         eng, "(g) Zamba2 fact verification",
@@ -3603,11 +3741,9 @@ def phase_zamba2() -> dict:
         if out[f"compare_{mix}"]["failures"]:
             raise AssertionError(f"zamba2 ({mix}) kernels vs plain: "
                                  f"{out[f'compare_{mix}']['failures']}")
-    # 16 new tokens, not (h)'s 64: at 64 the pass took 270-415 s of trace
-    # processing on the H100 hosts, and the run aims to end within half its
-    # 1200 s limit
-    out["profile_h"] = profile_mix(eng, longs, 16,
-                                   "(h) Zamba2 kernels, 16 new tokens")
+    out["profile_h"] = profile_mix(eng, longs, PROFILE_NEW,
+                                   f"(h) Zamba2 kernels, {PROFILE_NEW} new "
+                                   f"tokens")
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[zamba2] peak device memory {out['peak_memory_bytes'] / 1e9:.2f} "
         f"GB")
@@ -4145,7 +4281,7 @@ def sharded_serve(mesh) -> dict:
         out["prefill_gap"] = gap
         t_ref = t_got = want.argmax(-1)
         launched = dict.fromkeys(ops.LAUNCHES, 0)
-        same, steps_s = True, []
+        same, steps_s, dgap = True, [], 0.0
         for _ in range(SHARDED_DECODE_STEPS):
             ops.reset_launches()            # the cell's launches only
             sync()
@@ -4154,20 +4290,25 @@ def sharded_serve(mesh) -> dict:
             sync()
             steps_s.append(time.monotonic() - t)
             launched = {k: launched[k] + v for k, v in ops.LAUNCHES.items()}
-            t_got = lg.full_tensor().argmax(-1)
-            t_ref = model.decode_step(t_ref[:, None], lens, rcache).argmax(-1)
+            lg = lg.full_tensor()
+            t_got = lg.argmax(-1)
+            want = model.decode_step(t_ref[:, None], lens, rcache)
+            dgap = max(dgap, float((lg.float() - want.float()).abs().max()))
+            t_ref = want.argmax(-1)
             same &= bool(torch.equal(t_ref, t_got))
             lens = lens + 1
         out["launches"]["decode"] = launched
         log(f"[sharded] (3) decode cell, rules {rules_d}: "
             f"{SHARDED_DECODE_STEPS} greedy steps over a cache of {C}, "
-            f"tokens equal to the unsharded decode's: {same}; launches "
-            f"{launched}; median step {1e3 * float(np.median(steps_s)):.1f} "
-            f"ms (host clock)")
-        if not same or launched["flash_decode"] <= 0:
+            f"tokens equal to the unsharded decode's: {same}, largest "
+            f"logits gap {dgap:.3e} (one rank: the unsharded path's bits, "
+            f"0); launches {launched}; median step "
+            f"{1e3 * float(np.median(steps_s)):.1f} ms (host clock)")
+        if not same or dgap != 0.0 or launched["flash_decode"] <= 0:
             raise AssertionError(f"sharded decode: tokens equal {same}, "
-                                 f"launches {launched}")
-    out.update(decode_tokens_equal=same, decode_step_s=steps_s)
+                                 f"logits gap {dgap}, launches {launched}")
+    out.update(decode_tokens_equal=same, decode_logits_gap=dgap,
+               decode_step_s=steps_s)
     del params, model, cache, rcache
     return out
 
@@ -4440,8 +4581,9 @@ def phase_sharded() -> dict:
 
 # ----------------------------------------------------------- 11. dryrun ----
 # the dry-run's cells as users run them (python -m repro_torch.launch.dryrun
-# on the card), one subprocess each, all started together; dropped from
-# the end of this list when the phase outgrows its budget
+# on the card), one subprocess each, all started together once the kernels
+# are built (dryrun_start); dropped from the end of this list when the
+# phase outgrows its budget
 DRYRUN_CELLS = (
     ("deepseek-v2-lite-16b", "prefill_32k", ()),
     ("granite-3-2b", "decode_32k", ()),
@@ -4451,7 +4593,8 @@ DRYRUN_CELLS = (
     ("whisper-small", "train_4k", ("--gate-only",)),
 )
 DRYRUN_PERF = ("granite-3-2b", "decode_32k", "kv_update=mask")
-DRYRUN_TIMEOUT = 400        # s, one subprocess
+DRYRUN_TIMEOUT = 400        # s, the wait in phase 11
+DRYRUN_NICE = 10
 # the fake run's peak bytes against max_memory_allocated's rise over the
 # same cell on the card, as predicted before the first run (PERF.md): within
 # 10 % of the rise plus 64 MiB (the allocator's 512-byte rounding and
@@ -4459,6 +4602,12 @@ DRYRUN_TIMEOUT = 400        # s, one subprocess
 DRYRUN_MEM_REL = 0.10
 DRYRUN_MEM_ABS = 64 * 2 ** 20
 ONE_CARD_ITERS = 5
+# Granite decode_32k on 16x16 with the cache left on its ranks, as
+# predicted before the first card run (PERF.md): only the query and
+# the new K/V row are gathered (~1.3 MB a rank), so under 0.1 GB, and the
+# collective term under 10 ms (429.6 ms when the cache was gathered)
+SEQ_GATHER_MAX = 0.1e9
+SEQ_COLL_MS_MAX = 10.0
 
 
 def dryrun_cmd(module, *flags):
@@ -4466,39 +4615,85 @@ def dryrun_cmd(module, *flags):
             "--device", "cuda", *flags]
 
 
-def dryrun_cells(tmp, meanwhile) -> tuple:
-    """(1) The dry-run cells of DRYRUN_CELLS, each a subprocess on the
-    card, all started together; ``meanwhile()`` runs in this process
-    while they do (work that times nothing); perf.py over DRYRUN_PERF
-    against the decode artifact as soon as that cell is done; then the
-    roofline table of the artifacts -> (readings, meanwhile's result)."""
+def dryrun_proc(state, name, cmd, then=None) -> None:
+    """Start one dry-run subprocess at DRYRUN_NICE, its output to a file;
+    a thread notes when it ends and then calls ``then`` if it exited 0."""
+    tmp = state["tmp"].name
+    outf = open(os.path.join(tmp, f"{len(state['procs'])}.log"), "w+")
+    proc = subprocess.Popen(
+        cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=outf, stderr=subprocess.STDOUT,
+        preexec_fn=lambda: os.nice(DRYRUN_NICE))
+    state["procs"][name] = (proc, outf, time.monotonic())
+
+    def wait():
+        proc.wait()
+        state["ends"][name] = time.monotonic()
+        if then is not None and proc.returncode == 0:
+            then()
+    threading.Thread(target=wait, daemon=True).start()
+
+
+def dryrun_stop(state) -> None:
+    """Kill whatever dry-run subprocess still runs; close their files."""
+    for proc, outf, _ in list(state["procs"].values()):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        outf.close()
+
+
+def dryrun_start() -> dict:
+    """(1)'s subprocesses: every cell of DRYRUN_CELLS, all started
+    together, and perf.py over DRYRUN_PERF against the decode artifact as
+    soon as that cell is done -> the state ``dryrun_cells`` collects. They
+    trace fake tensors on the host and time nothing, so they run from the
+    end of phase 2 beside phases 3-10, below the main process's CPU
+    priority; an exit handler kills any still running."""
+    state = dict(tmp=tempfile.TemporaryDirectory(prefix="dryrun_smoke_"),
+                 procs={}, ends={})
+    tmp = state["tmp"].name
     out_dir = os.path.join(tmp, "dryrun_torch")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     p_arch, p_shape, p_set = DRYRUN_PERF
+    perf = dryrun_cmd(
+        "perf", "--arch", p_arch, "--shape", p_shape, "--set", p_set,
+        "--tag", "mask_update", "--baseline", os.path.join(
+            out_dir, f"{p_arch}__{p_shape}__pod1.json"),
+        "--out", os.path.join(tmp, "perf_torch"))
+    atexit.register(dryrun_stop, state)
+    for arch, shape, flags in DRYRUN_CELLS:
+        then = (lambda: dryrun_proc(state, "perf", perf)) \
+            if (arch, shape) == (p_arch, p_shape) else None
+        dryrun_proc(state, f"{arch} {shape}", dryrun_cmd(
+            "dryrun", "--arch", arch, "--shape", shape, "--out", out_dir,
+            "--force", *flags), then)
+    return state
 
-    def start(name, cmd):
-        outf = open(os.path.join(tmp, f"{len(procs)}.log"), "w+")
-        procs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=outf,
-                                        stderr=subprocess.STDOUT),
-                       outf, time.monotonic())
 
-    procs, secs, lines = {}, {}, {}
+def dryrun_cells(state, meanwhile) -> tuple:
+    """(1) The dry-run cells started by ``dryrun_start``: ``meanwhile()``
+    runs in this process first (work that times nothing); then each
+    subprocess's end is read (all of them, the cells and perf.py, must
+    exit 0); then the roofline table of the artifacts -> (readings,
+    meanwhile's result)."""
+    tmp = state["tmp"].name
+    out_dir = os.path.join(tmp, "dryrun_torch")
+    p_arch, p_shape, _ = DRYRUN_PERF
+    want = [f"{arch} {shape}" for arch, shape, _ in DRYRUN_CELLS] + ["perf"]
+    secs, lines = {}, {}
     try:
-        for arch, shape, flags in DRYRUN_CELLS:
-            start(f"{arch} {shape}", dryrun_cmd(
-                "dryrun", "--arch", arch, "--shape", shape, "--out",
-                out_dir, "--force", *flags))
         during = meanwhile()
         deadline = time.monotonic() + DRYRUN_TIMEOUT
-        while len(secs) < len(procs):
+        while len(secs) < len(want):
             if time.monotonic() > deadline:
                 raise AssertionError(f"dryrun: still running after "
-                                     f"{DRYRUN_TIMEOUT} s: "
-                                     f"{sorted(set(procs) - set(secs))}")
-            for name, (proc, outf, t0) in list(procs.items()):
-                if name in secs or proc.poll() is None:
+                                     f"{DRYRUN_TIMEOUT} s more: "
+                                     f"{sorted(set(want) - set(secs))}")
+            for name in want:
+                if name in secs or name not in state["ends"]:
                     continue
-                secs[name] = time.monotonic() - t0
+                proc, outf, t0 = state["procs"][name]
+                secs[name] = state["ends"][name] - t0
                 outf.seek(0)
                 text = outf.read()
                 kept = [ln for ln in text.splitlines()
@@ -4510,20 +4705,9 @@ def dryrun_cells(tmp, meanwhile) -> tuple:
                     raise AssertionError(f"dryrun {name}: rc "
                                          f"{proc.returncode}\n"
                                          f"{text[-4000:]}")
-                if name == f"{p_arch} {p_shape}":
-                    start("perf", dryrun_cmd(
-                        "perf", "--arch", p_arch, "--shape", p_shape,
-                        "--set", p_set, "--tag", "mask_update",
-                        "--baseline", os.path.join(
-                            out_dir, f"{p_arch}__{p_shape}__pod1.json"),
-                        "--out", os.path.join(tmp, "perf_torch")))
             time.sleep(0.2)
     finally:
-        for proc, outf, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            outf.close()
+        dryrun_stop(state)
     arts = {p.name: json.loads(p.read_text())
             for p in sorted(Path(out_dir).glob("*.json"))}
     for name, art in arts.items():
@@ -4540,8 +4724,62 @@ def dryrun_cells(tmp, meanwhile) -> tuple:
     log("[dryrun] (1) the roofline of the cells on the H100 (PEAK "
         f"{roofline.PEAK_FLOPS:g} FLOP/s, HBM {roofline.HBM_BW:g} B/s, link "
         f"{roofline.ICI_BW:g} B/s):\n{table}")
+    mask = json.loads(Path(tmp, "perf_torch", f"{p_arch}__{p_shape}__"
+                                              f"mask_update.json").read_text())
+    seq = seq_decode_readings(arts, mask, arts[f"{p_arch}__{p_shape}__pod1"
+                                              ".json"])
     return dict(seconds=secs, artifacts=arts, table=table,
-                perf=lines.pop("perf")), during
+                perf=lines.pop("perf"), seq_decode=seq), during
+
+
+def seq_decode_readings(arts, mask, baseline) -> dict:
+    """The sequence-sharded decode's readings in the dry-run cells: each
+    decode cell's collective bytes a rank by kind and its collective term;
+    Granite decode_32k held to the prediction written before the first
+    run (PERF.md: all-gather under SEQ_GATHER_MAX a rank, against 21.476
+    GB when the cache was gathered, and a collective term under
+    SEQ_COLL_MS_MAX, against 429.6 ms); perf.py's kv_update=mask against
+    that cell: the collectives unchanged, the counted bytes changed (the
+    one-hot write reads and writes each rank's whole cache shard)."""
+    from repro_torch.launch import perf as perf_lib
+    out = {}
+    for name, art in arts.items():
+        if art.get("kind") != "decode" or "collectives" not in art:
+            continue
+        row = roofline.cell_roofline(art)
+        kinds = art["collectives"]["by_kind"]
+        out[name] = dict(by_kind=kinds, collective_ms=1e3 * row[
+            "collective_s"], memory_ms=1e3 * row["memory_s"],
+            compute_ms=1e3 * row["compute_s"], dominant=row["dominant"])
+        log(f"[dryrun] (1) {name}: collective bytes a rank "
+            + ", ".join(f"{k} {v / 1e9:.6f} GB" for k, v in kinds.items())
+            + f"; terms compute {out[name]['compute_ms']:.3f} ms, memory "
+            f"{out[name]['memory_ms']:.3f} ms, collective "
+            f"{out[name]['collective_ms']:.3f} ms ({row['dominant']})")
+    g = out["granite-3-2b__decode_32k__pod1.json"]
+    gather = g["by_kind"].get("all-gather", 0.0)
+    ok = gather < SEQ_GATHER_MAX and g["collective_ms"] < SEQ_COLL_MS_MAX
+    log(f"[dryrun] (1) granite-3-2b decode_32k: all-gather "
+        f"{gather / 1e9:.6f} GB a rank (predicted under "
+        f"{SEQ_GATHER_MAX / 1e9:g}), collective term "
+        f"{g['collective_ms']:.3f} ms (predicted under {SEQ_COLL_MS_MAX}): "
+        f"{'as predicted' if ok else 'NOT as predicted'}")
+    if not ok:
+        raise AssertionError(f"dryrun: granite decode_32k all-gather "
+                             f"{gather}, collective {g['collective_ms']} ms")
+    if not mask.get("ok"):
+        raise AssertionError(f"perf kv_update=mask: {mask.get('error')}")
+    d = perf_lib.deltas(mask, baseline)
+    same_coll = mask["collectives"]["by_kind"] == \
+        baseline["collectives"]["by_kind"]
+    log(f"[dryrun] (1) perf.py kv_update=mask vs scatter, granite-3-2b "
+        f"decode_32k: " + ", ".join(f"{k} {v:+.3f} %" for k, v in d.items())
+        + f"; collectives unchanged: {same_coll}")
+    if not same_coll or not d.get("bytes"):
+        raise AssertionError(f"perf kv_update=mask: deltas {d}, "
+                             f"collectives unchanged {same_coll}")
+    out["mask_deltas"] = d
+    return out
 
 
 def one_card_cells(mesh):
@@ -4658,16 +4896,15 @@ def one_card_counts(fake) -> dict:
     return res
 
 
-def phase_dryrun() -> dict:
+def phase_dryrun(state) -> dict:
     """Phase 11: the dry-run, the roofline and perf.py as users run them
-    (the one-card cells' fake runs meanwhile), then the one-card cells'
-    counts held against the card."""
+    (started by ``dryrun_start``; the one-card cells' fake runs here
+    first), then the one-card cells' counts held against the card."""
     t0 = time.monotonic()
-    tmp = tempfile.TemporaryDirectory()
     try:
-        out, fake = dryrun_cells(tmp.name, one_card_fake)
+        out, fake = dryrun_cells(state, one_card_fake)
     finally:
-        tmp.cleanup()
+        state["tmp"].cleanup()
     t1 = time.monotonic()
     out["one_card"] = one_card_counts(fake)
     out["one_card_seconds"] = time.monotonic() - t1
@@ -4675,6 +4912,168 @@ def phase_dryrun() -> dict:
     log(f"[dryrun] phase {out['seconds']:.1f} s ((2)'s real runs "
         f"{out['one_card_seconds']:.1f} s)")
     return out
+
+
+# ------------------------------------------- --seq-decode, four cards ----
+# the sequence-sharded decode on a (2, 2) NCCL mesh of four cards: Granite
+# (the flash_decode kernel with its log-sum-exp, under kv_update "scatter"
+# and "mask") and DeepSeek (mla_decode, the expert-parallel MoE on the
+# grouped GEMM), each at full width and SEQ_DECODE_DEPTH layers in f32, the
+# cache of 1024 split in two key ranges of 512, against the unsharded
+# kernel path on each card. DeepSeek's batch of 8 puts 4 tokens on a data
+# rank: each picks distinct experts, so no expert gets more than the EP
+# pass's 4 slots and nothing drops (the unsharded path drops nothing)
+SEQ_DECODE_LEN = 1024
+SEQ_DECODE_DEPTH = {"granite-3-2b": 8, "deepseek-v2-lite-16b": 4}
+SEQ_DECODE_CASES = (("granite", "granite-3-2b", {}, 16),
+                    ("granite_mask", "granite-3-2b", {"kv_update": "mask"},
+                     16),
+                    ("deepseek", "deepseek-v2-lite-16b", {}, 8))
+SEQ_DECODE_STEPS = 8
+SEQ_DECODE_TOL = 1e-3       # f32 logits, full width (sums in other orders)
+SEQ_DECODE_TIMEOUT = 600    # s, the four ranks
+
+
+def seq_decode_case(mesh, arch, over, batch, device="cuda",
+                    reduced=False):
+    """One case on this rank: the unsharded kernel path's prefill of
+    ``batch`` prompts of 64-1000 tokens (some rows inside the first key
+    range, some across both), its cache placed as the decode cell places
+    it (batch on data, keys on model), then SEQ_DECODE_STEPS greedy steps
+    of the decode cell against the unsharded decode_step, the cell's
+    launches counted alone."""
+    base = (get_reduced_config(arch) if reduced else get_config(arch))
+    cfg = dataclasses.replace(
+        base, n_layers=(base.n_layers if reduced else SEQ_DECODE_DEPTH[arch]),
+        use_kernels=not reduced, param_dtype="float32",
+        compute_dtype="float32", kv_cache_dtype="float32", **over)
+    suite = ShapeSuite("seq_decode", "decode", SEQ_DECODE_LEN, batch)
+    fn_d, args_d, rules = steps.build_cell(cfg, suite, mesh)
+    gen = torch.Generator(device).manual_seed(0)
+    params = steps.materialize(args_d, mesh, gen)[0]
+    model = build_model(cfg, device=device, params={
+        n: p.full_tensor() for n, p in params.items()})
+    B, C = suite.global_batch, suite.seq_len
+    rng = np.random.RandomState(4)
+    lens = rng.randint(64, 1001, size=B)
+    lens[:3] = (64, 500, 1000)    # inside the first range, at its end, across
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(B, 1000)),
+                           dtype=torch.int32, device=device)
+    lens = torch.as_tensor(lens, dtype=torch.int32, device=device)
+    rcache = model.init_cache(B, C, torch.float32)
+    out = {"kv_seq": rules.get("kv_seq"), "gap": 0.0, "tokens_equal": True,
+           "launches": dict.fromkeys(ops.LAUNCHES, 0)}
+    seen = []
+    with torch.no_grad():
+        t_ref = t_got = model.prefill(toks, lens, rcache).argmax(-1)
+        cache = {n: shp.distribute(c.clone(), mesh, args_d.specs[3][n])
+                 for n, c in rcache.items()}
+        for _ in range(SEQ_DECODE_STEPS):
+            ops.reset_launches()
+            lg, cache = fn_d(params, t_got[:, None], lens, cache)
+            if device == "cuda":
+                sync()
+            out["launches"] = {k: out["launches"][k] + v
+                               for k, v in ops.LAUNCHES.items()}
+            lg = lg.full_tensor()
+            seen.append(lg)
+            want = model.decode_step(t_ref[:, None], lens, rcache)
+            out["gap"] = max(out["gap"], float((lg - want).abs().max()))
+            t_ref, t_got = want.argmax(-1), lg.argmax(-1)
+            out["tokens_equal"] &= bool(torch.equal(t_ref, t_got))
+            lens = lens + 1
+    out["cache_gap"] = max(float((cache[n].full_tensor() - rcache[n])
+                                 .abs().max()) for n in rcache)
+    out["cache_placements"] = sorted({str(c.placements)
+                                      for c in cache.values()})
+    return out, torch.stack(seen), {n: c.full_tensor()
+                                    for n, c in cache.items()}
+
+
+def seq_decode_rank(rank, port, out_dir, device="cuda"):
+    """One of the four ranks of --seq-decode: every case, then whether
+    the mask and scatter writes gave the same bits; results to
+    rank<r>.json."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    reduced = device == "cpu"
+    if not reduced:
+        torch.cuda.set_device(rank)
+    dist.init_process_group("gloo" if reduced else "nccl",
+                            init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=4)
+    res, kept = {}, {}
+    try:
+        mesh = make_host_mesh(2, 2, device_type=device)
+        for name, arch, over, batch in SEQ_DECODE_CASES:
+            t = time.monotonic()
+            res[name], *kept[name] = seq_decode_case(mesh, arch, over, batch,
+                                                     device, reduced)
+            res[name]["seconds"] = time.monotonic() - t
+            log(f"[seq-decode] rank {rank} {name}: {res[name]}")
+        (lm, cm), (ls, cs) = kept["granite_mask"], kept["granite"]
+        res["mask_bits_equal"] = bool(torch.equal(lm, ls)) and all(
+            torch.equal(cm[n], cs[n]) for n in cs)
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def phase_seq_decode(device="cuda") -> dict:
+    """--seq-decode: four rank processes on four cards (NCCL over
+    tcp://localhost) -> the ranks' readings; each case's tokens must equal
+    the unsharded path's, its logits within SEQ_DECODE_TOL, its cache
+    stay on its ranks; Granite's cell must launch flash_decode; mask and
+    scatter must give the same bits."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.TemporaryDirectory()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as c; c.seq_decode_rank("
+         f"{r}, {port}, {tmp.name!r}, {device!r})"], cwd=ROOT, env=env)
+        for r in range(4)]
+    try:
+        for p in procs:
+            p.wait(timeout=SEQ_DECODE_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"--seq-decode: rank exit codes "
+                             f"{[p.returncode for p in procs]}")
+    ranks = [json.loads(Path(tmp.name, f"rank{r}.json").read_text())
+             for r in range(4)]
+    tmp.cleanup()
+    for r, res in enumerate(ranks):
+        for name, *_ in SEQ_DECODE_CASES:
+            c = res[name]
+            ok = (c["tokens_equal"] and c["gap"] < SEQ_DECODE_TOL
+                  and c["cache_gap"] < SEQ_DECODE_TOL
+                  and c["kv_seq"] == "model"
+                  and all("Shard(dim=2)" in pl
+                          for pl in c["cache_placements"])
+                  and (device == "cpu" or c["launches"][
+                      "flash_decode" if name.startswith("granite")
+                      else "grouped_gemm"] > 0))
+            log(f"[seq-decode] rank {r} {name}: tokens equal "
+                f"{c['tokens_equal']}, logits gap {c['gap']:.3e}, cache gap "
+                f"{c['cache_gap']:.3e} (tol {SEQ_DECODE_TOL}), placements "
+                f"{c['cache_placements']}, the cell's launches "
+                f"{ {k: v for k, v in c['launches'].items() if v} }, "
+                f"{c['seconds']:.1f} s: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"--seq-decode rank {r} {name}: {c}")
+        log(f"[seq-decode] rank {r}: kv_update mask and scatter give the "
+            f"same bits: {res['mask_bits_equal']}")
+        if not res["mask_bits_equal"]:
+            raise AssertionError("--seq-decode: mask and scatter differ")
+    return {"ranks": ranks}
 
 
 class PlantFault:
@@ -4740,7 +5139,7 @@ def phase_faults() -> dict:
     and ZAMBA_F32_LOGIT_TOL. Returns {fault: {mix: reading}}."""
     out = {"none": {}}
     cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
-                              use_kernels=True)
+                              use_kernels=True, n_layers=DS_DEPTH)
     model = build_model(cfg, device="cuda", seed=0)
     plain_model = build_model(dataclasses.replace(cfg, use_kernels=False),
                               device="cuda", params=dict(model.state_dict()))
@@ -4772,7 +5171,8 @@ def phase_faults() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg = dataclasses.replace(get_config("zamba2-7b"), use_kernels=True)
+    cfg = dataclasses.replace(get_config("zamba2-7b"), use_kernels=True,
+                              n_layers=ZAMBA_DEPTH)
     model = build_model(cfg, device="cuda", seed=0)
     plain_model = build_model(dataclasses.replace(cfg, use_kernels=False),
                               device="cuda", params=dict(model.state_dict()))
@@ -4814,6 +5214,11 @@ def main() -> int:
                          "of phases 6 and 7 with no fault and with each "
                          "planted fault (PlantFault); exits 0 when the "
                          "sound run passes and every fault is caught")
+    ap.add_argument("--seq-decode", action="store_true",
+                    help="instead of the smoke run: the sequence-sharded "
+                         "decode on a (2, 2) mesh of four cards against "
+                         "the unsharded path (phase_seq_decode); needs "
+                         "four cards, exits 0 when every case agrees")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4821,6 +5226,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
+    if args.seq_decode:
+        if torch.cuda.device_count() < 4:
+            print("chip_smoke --seq-decode: needs four cards, found "
+                  f"{torch.cuda.device_count()}", file=sys.stderr)
+            return 2
+        report = {"card": phase_card(), "build": {
+            k: v for k, v in phase_build().items() if k != "ptxas"}}
+        report["seq_decode"] = phase_seq_decode()
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(report, indent=1))
+        print(json.dumps({"seq_decode_ok": True, "seconds":
+                          time.monotonic() - t_start}), flush=True)
+        return 0
     if args.faults:
         report = {"card": phase_card(), "build": {
             k: v for k, v in phase_build().items() if k != "ptxas"}}
@@ -4843,6 +5262,7 @@ def main() -> int:
     report["build"] = {k: v for k, v in phase_build().items()
                        if k != "ptxas"}
     phase_done("build")
+    dryrun = dryrun_start()
     rows = phase_kernels()
     phase_done("kernels")
     serve_out = phase_serve()
@@ -4891,7 +5311,7 @@ def main() -> int:
     phase_done("sharded")
     gc.collect()
     torch.cuda.empty_cache()
-    report["dryrun"] = phase_dryrun()
+    report["dryrun"] = phase_dryrun(dryrun)
     phase_done("dryrun")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4921,6 +5341,7 @@ def main() -> int:
         "flash_attention", "flash_decode")}
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
+    report["log_times"] = LOG_TIMES
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -44,6 +44,12 @@
 //     order; decode_combine weighs a slot's live splits by exp(m_s - max m)
 //     in split order and divides by max(l, 1e-30). No atomics: the same
 //     inputs give the same bits.
+//   * On request (a non-null `lse`, the slot-cache entry point only)
+//     decode_combine also writes each (slot, head)'s log-sum-exp of the
+//     scaled scores, max m + log(sum l) in f32, -inf for a slot with no
+//     live key: what a caller needs to merge this output with those of
+//     other key ranges (a cache sharded on its sequence over ranks). The
+//     output's arithmetic is the same with or without it.
 #pragma once
 
 #include <cstdint>
@@ -328,14 +334,16 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
 
 // One thread per output value: out[b, h, d] = sum_s w_s acc_s[d] /
 // max(sum_s w_s l_s, 1e-30), w_s = exp(m_s - max m), over the slot's live
-// splits in order; a slot with no live key gets exact zeros.
+// splits in order; a slot with no live key gets exact zeros. With `lse`
+// the thread of d == 0 also writes lse[b, h] = max m + log(sum_s w_s l_s),
+// -inf for a slot with no live key.
 template <typename T, typename Rows>
 __global__ void __launch_bounds__(kCombineThreads)
 decode_combine(const float* __restrict__ part,
                const float* __restrict__ part_ml, Rows rows,
                const int* __restrict__ lengths,
                const unsigned char* __restrict__ active, T* __restrict__ out,
-               int B, int H, int D, int nsplit) {
+               float* __restrict__ lse, int B, int H, int D, int nsplit) {
   const long long i = (long long)blockIdx.x * kCombineThreads + threadIdx.x;
   if (i >= (long long)B * H * D) return;
   const long long bh = i / D;
@@ -354,13 +362,16 @@ decode_combine(const float* __restrict__ part,
     at = fmaf(w, p[(long long)s * D], at);
   }
   out[i] = from_float<T>(at / fmaxf(lt, 1e-30f));
+  if (lse != nullptr && dd == 0)
+    lse[bh] = ns > 0 ? mx + logf(lt) : -__int_as_float(0x7f800000);
 }
 
 template <typename T, int D, int kG, typename Rows>
 cudaError_t launch(const void* q, const void* k, const void* v, Rows rows,
                    const int* lengths, const unsigned char* active,
-                   float* part, float* part_ml, void* out, int B, int H,
-                   int Hkv, int nsplit, float scale, cudaStream_t stream) {
+                   float* part, float* part_ml, void* out, float* lse, int B,
+                   int H, int Hkv, int nsplit, float scale,
+                   cudaStream_t stream) {
   dim3 grid(nsplit, Hkv, B);
   decode_partial<T, D, kG, Rows><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -372,8 +383,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, Rows rows,
   const int blocks =
       static_cast<int>((total + kCombineThreads - 1) / kCombineThreads);
   decode_combine<T, Rows><<<blocks, kCombineThreads, 0, stream>>>(
-      part, part_ml, rows, lengths, active, static_cast<T*>(out), B, H, D,
-      nsplit);
+      part, part_ml, rows, lengths, active, static_cast<T*>(out), lse, B, H,
+      D, nsplit);
   return cudaGetLastError();
 }
 
@@ -381,32 +392,32 @@ template <typename T, int D, typename Rows>
 cudaError_t launch_g(int G, const void* q, const void* k, const void* v,
                      Rows rows, const int* lengths,
                      const unsigned char* active, float* part,
-                     float* part_ml, void* out, int B, int H, int Hkv,
-                     int nsplit, float scale, cudaStream_t stream) {
+                     float* part_ml, void* out, float* lse, int B, int H,
+                     int Hkv, int nsplit, float scale, cudaStream_t stream) {
   if (G == 1)
     return launch<T, D, 1, Rows>(q, k, v, rows, lengths, active, part,
-                                 part_ml, out, B, H, Hkv, nsplit, scale,
+                                 part_ml, out, lse, B, H, Hkv, nsplit, scale,
                                  stream);
   if (G <= 4)
     return launch<T, D, 4, Rows>(q, k, v, rows, lengths, active, part,
-                                 part_ml, out, B, H, Hkv, nsplit, scale,
+                                 part_ml, out, lse, B, H, Hkv, nsplit, scale,
                                  stream);
   return launch<T, D, kMaxG, Rows>(q, k, v, rows, lengths, active, part,
-                                   part_ml, out, B, H, Hkv, nsplit, scale,
-                                   stream);
+                                   part_ml, out, lse, B, H, Hkv, nsplit,
+                                   scale, stream);
 }
 
 // Checks the head counts and the scratch's split count, then dispatches on
 // dtype, head_dim (a template argument: 16, 32, 64, 80, 112, 128 or 160)
 // and group.
 // part is (B, H, nsplit, D) f32 and part_ml (B, H, nsplit, 2) f32, nsplit
-// = ceil(rows.limit() / kSplit). Returns the CUDA error code of the
-// launches.
+// = ceil(rows.limit() / kSplit); lse is (B, H) f32 or null (not written).
+// Returns the CUDA error code of the launches.
 template <typename Rows>
 int launch_any(const void* q, const void* k, const void* v, Rows rows,
                const int* lengths, const unsigned char* active, void* part,
-               void* part_ml, void* out, int B, int H, int Hkv, int D,
-               int nsplit, float scale, int dtype, void* stream) {
+               void* part_ml, void* out, void* lse, int B, int H, int Hkv,
+               int D, int nsplit, float scale, int dtype, void* stream) {
   if (B == 0 || H == 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxG || rows.limit() < 1 ||
       nsplit != (rows.limit() + kSplit - 1) / kSplit)
@@ -414,13 +425,14 @@ int launch_any(const void* q, const void* k, const void* v, Rows rows,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pa = static_cast<float*>(part);
   float* pm = static_cast<float*>(part_ml);
+  float* ls = static_cast<float*>(lse);
   const int G = H / Hkv;
 #define REPRO_DECODE_CASE(T, DD)                                           \
   case DD:                                                                 \
     return static_cast<int>(launch_g<T, DD, Rows>(G, q, k, v, rows,        \
                                                   lengths, active, pa, pm, \
-                                                  out, B, H, Hkv, nsplit,  \
-                                                  scale, st));
+                                                  out, ls, B, H, Hkv,      \
+                                                  nsplit, scale, st));
   if (dtype == REPRO_BF16) {
     switch (D) {
       REPRO_DECODE_CASE(__nv_bfloat16, 16)

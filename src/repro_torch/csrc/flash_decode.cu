@@ -17,16 +17,18 @@
 
 // q (B, H, D); cache_k, cache_v (B, Skv, Hkv, D); lengths (B,) int32;
 // active (B,) uint8 or null; part (B, H, nsplit, D) and part_ml (B, H,
-// nsplit, 2) f32 scratch, nsplit = ceil(Skv / 256); out (B, H, D). K and V
+// nsplit, 2) f32 scratch, nsplit = ceil(Skv / 256); out (B, H, D); lse
+// (B, H) f32, or null for none: each (slot, head)'s log-sum-exp of the
+// scaled scores over its live keys, -inf for a slot with none. K and V
 // 16-byte aligned. Returns the CUDA error code of the launches (0 =
 // success).
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 const int* lengths,
                                 const unsigned char* active, void* part,
-                                void* part_ml, void* out, int B, int H,
-                                int Hkv, int Skv, int D, int nsplit,
+                                void* part_ml, void* out, void* lse, int B,
+                                int H, int Hkv, int Skv, int D, int nsplit,
                                 float scale, int dtype, void* stream) {
   return repro::decode::launch_any(q, k, v, repro::decode::ContiguousRows{Skv},
-                                   lengths, active, part, part_ml, out, B, H,
-                                   Hkv, D, nsplit, scale, dtype, stream);
+                                   lengths, active, part, part_ml, out, lse,
+                                   B, H, Hkv, D, nsplit, scale, dtype, stream);
 }

@@ -42,6 +42,6 @@ extern "C" int paged_flash_decode_fwd(const void* q, const void* k_pages,
     return cudaErrorInvalidValue;
   repro::decode::PagedRows rows{page_table, pt_stride, npages, page_size};
   return repro::decode::launch_any(q, k_pages, v_pages, rows, lengths,
-                                   nullptr, part, part_ml, out, B, H, Hkv, D,
-                                   nsplit, scale, dtype, stream);
+                                   nullptr, part, part_ml, out, nullptr, B, H,
+                                   Hkv, D, nsplit, scale, dtype, stream);
 }

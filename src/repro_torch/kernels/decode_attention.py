@@ -8,7 +8,10 @@ and ``csrc/paged_flash_decode.cu`` (the same against the paged pool read
 through a per-slot page table); both run ``csrc/decode_kernel.cuh``:
 split-KV over fixed 256-key ranges (``decode_splits``), a partial pass
 whose blocks each take one (split, KV head, slot) and a combine pass that
-weighs a slot's splits in order. ``splitkv_decode_plain`` is the same
+weighs a slot's splits in order; on request the slot-cache kernel also
+gives each (slot, head)'s log-sum-exp, with which ``models.attention.
+combine_partials`` merges the outputs of disjoint key ranges (a cache
+sharded on its sequence). ``splitkv_decode_plain`` is the same
 split-and-combine arithmetic in plain torch, for the CPU tests.
 ``paged_mla_decode`` (the Pallas ``_paged_mla_kernel``) is
 ``csrc/paged_mla_decode.cu``: DeepSeek's absorbed MLA decode over the
@@ -30,7 +33,7 @@ MAX_GROUP = 16  # query heads per KV head one block handles (kMaxG)
 
 DECODE_SPLIT = 256    # keys a split of the GQA decode kernel (kSplit)
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _PAGED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
     ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
@@ -169,26 +172,31 @@ def _decode_scratch(B: int, H: int, D: int, nsplit: int,
 
 def flash_decode_cuda(q: torch.Tensor, cache_k: torch.Tensor,
                       cache_v: torch.Tensor, lengths: torch.Tensor, *,
-                      scale: float,
-                      active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      scale: float, active: Optional[torch.Tensor] = None,
+                      return_lse: bool = False):
     """q (B, H, D); cache (B, Skv, Hkv, D); lengths (B,) int32; active (B,)
-    bool or None -> (B, H, D) in q's dtype. Launches the kernel; raises on a
-    refused launch."""
+    bool or None -> (B, H, D) in q's dtype; with ``return_lse`` also the
+    (B, H) f32 log-sum-exp of the scaled scores over each slot's live keys
+    (-inf for a slot with none). Launches the kernel; raises on a refused
+    launch."""
     check_inputs(q, cache_k, cache_v, lengths, active)
     B, H, D = q.shape
     Skv, Hkv = cache_k.shape[1], cache_k.shape[2]
     nsplit = decode_splits(Skv)
     part, part_ml = _decode_scratch(B, H, D, nsplit, q.device)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _lib("flash_decode", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_decode_fwd(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
         lengths.data_ptr(), active.data_ptr() if active is not None else None,
-        part.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, Hkv, Skv,
-        D, nsplit, float(scale), _DTYPES[q.dtype], stream)
+        part.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None, B, H, Hkv, Skv, D, nsplit,
+        float(scale), _DTYPES[q.dtype], stream)
     build.check(lib, "flash_decode", code)
-    return out
+    return (out, lse) if return_lse else out
 
 
 def check_paged_inputs(q: torch.Tensor, k_pages: torch.Tensor,

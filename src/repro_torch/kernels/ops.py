@@ -105,14 +105,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_decode(q: torch.Tensor, cache_k: torch.Tensor,
                  cache_v: torch.Tensor, lengths: torch.Tensor, *,
-                 scale: float = 1.0,
-                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B, H, D); cache (B, Skv, Hkv, D); lengths (B,) -> (B, H, D)."""
+                 scale: float = 1.0, active: Optional[torch.Tensor] = None,
+                 return_lse: bool = False):
+    """q (B, H, D); cache (B, Skv, Hkv, D); lengths (B,) -> (B, H, D);
+    with ``return_lse``, (out, the (B, H) f32 log-sum-exp of the scaled
+    scores over each slot's valid keys, -inf for a slot with none), which
+    the kernel gives too: the plain version never stands in for it."""
     if _on_cpu("flash_decode", q, cache_k, cache_v):
         return ref.flash_decode_ref(q, cache_k, cache_v, lengths, scale=scale,
-                                    active=active)
+                                    active=active, return_lse=return_lse)
     out = flash_decode_cuda(q, cache_k, cache_v, lengths, scale=scale,
-                            active=active)
+                            active=active, return_lse=return_lse)
     _launched("flash_decode")
     return out
 

@@ -11,6 +11,7 @@ kernels: a row with no visible key comes out as zeros.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -19,14 +20,20 @@ NEG_INF = -1e30
 
 
 def _masked_softmax_av(s: torch.Tensor, mask: torch.Tensor,
-                       v: torch.Tensor, eq: str) -> torch.Tensor:
+                       v: torch.Tensor, eq: str, lse: bool = False):
     """exp-normalise f32 scores ``s`` over the last axis where ``mask``,
-    weights exactly 0 elsewhere, then contract with ``v`` by ``eq``."""
+    weights exactly 0 elsewhere, then contract with ``v`` by ``eq``. With
+    ``lse`` also the log-sum-exp of the masked scores over that axis, -inf
+    where no score is unmasked."""
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    return torch.einsum(eq, p / torch.clamp(l, min=1e-30), v)
+    out = torch.einsum(eq, p / torch.clamp(l, min=1e-30), v)
+    if not lse:
+        return out
+    return out, torch.where(l > 0, m + torch.log(l),
+                            torch.full_like(l, -math.inf))[..., 0]
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,11 +75,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_decode_ref(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, lengths: torch.Tensor, *,
                      scale: float = 1.0,
-                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     active: Optional[torch.Tensor] = None,
+                     return_lse: bool = False):
     """q (B, H, D); cache (B, Skv, Hkv, D); lengths (B,) -> (B, H, D).
 
     Keys at or past ``lengths[b]`` are masked; ``active`` (B,) bool forces
-    a slot's length to 0, and a slot with length 0 gets zeros."""
+    a slot's length to 0, and a slot with length 0 gets zeros. With
+    ``return_lse``: (out, the (B, H) f32 log-sum-exp of the scaled scores
+    over the slot's valid keys, -inf for a slot with none)."""
     B, H, D = q.shape
     Skv, Hkv = cache_k.shape[1], cache_k.shape[2]
     lengths = lengths.long()
@@ -84,6 +94,9 @@ def flash_decode_ref(q: torch.Tensor, cache_k: torch.Tensor,
     s = torch.einsum("bhd,bthd->bht", q.float(), kf) * scale
     pos = torch.arange(Skv, device=q.device)
     mask = (pos[None, :] < lengths[:, None])[:, None, :]
+    if return_lse:
+        out, lse = _masked_softmax_av(s, mask, vf, "bht,bthd->bhd", lse=True)
+        return out.to(q.dtype), lse
     out = _masked_softmax_av(s, mask, vf, "bht,bthd->bhd")
     return out.to(q.dtype)
 

@@ -84,21 +84,37 @@ def run(arch: str, shape: str, tag: str, overrides: dict,
     return result
 
 
+def _readings(art: dict) -> dict:
+    """An artifact's (a run's or a dry-run's) readings that the summary
+    compares: collective bytes a rank, FLOPs and pre-fusion bytes summed
+    over the ranks, rank 0's temporary bytes."""
+    return {"coll": art.get("collectives", {}).get(
+                "extrapolated_total_bytes", 0),
+            "flops": art.get("cost_unrolled", {}).get("flops", 0),
+            "bytes": art.get("cost_unrolled", {}).get("bytes_accessed", 0),
+            "temp": art.get("memory_analysis", {}).get(
+                "temp_size_in_bytes", 0)}
+
+
+def deltas(result: dict, baseline: dict) -> dict:
+    """Each reading's change against the baseline's, in percent (where
+    the baseline's is nonzero)."""
+    now, was = _readings(result), _readings(baseline)
+    return {k: 100 * (now[k] - was[k]) / was[k] for k in now if was[k]}
+
+
 def summarize(result: dict, baseline: dict = None):
     if not result.get("ok"):
         print("FAIL:", result.get("error"))
         return
-    coll = result["collectives"].get("extrapolated_total_bytes", 0)
-    flops = result.get("cost_unrolled", {}).get("flops", 0)
-    temp = result.get("memory_analysis", {}).get("temp_size_in_bytes", 0)
+    r = _readings(result)
     line = (f"{result['arch']} {result['shape']} [{result['tag']}]: "
-            f"coll={coll / 1e9:.2f}GB flops={flops:.3e} "
-            f"temp={temp / 1e9:.1f}GB")
+            f"coll={r['coll'] / 1e9:.2f}GB flops={r['flops']:.3e} "
+            f"bytes={r['bytes']:.3e} temp={r['temp'] / 1e9:.1f}GB")
     if baseline and baseline.get("ok"):
-        b_coll = baseline.get("collectives", {}).get(
-            "extrapolated_total_bytes", 0)
-        if b_coll:
-            line += f"  (coll {100 * (coll - b_coll) / b_coll:+.1f}%)"
+        d = deltas(result, baseline)
+        line += "  (" + ", ".join(f"{k} {v:+.1f}%"
+                                  for k, v in d.items()) + ")"
     print(line)
 
 

@@ -32,16 +32,26 @@ and query heads, as plain tensors: the kernel calls (``attend_prefill``,
 the slot cache's row writes (``write_cache_row``, an indexed write DTensor
 has no sharding strategy for). K/V come in with every head; each rank
 takes the heads its query heads read (``_local_heads``). A decode cache
-sharded on ``kv_seq`` is gathered to whole rows for the step and its
-rank's part written back (``shard``, then ``sharding.write_back``): an
-all-gather per layer and step, right but not fast. The paged pool is the
-engine's, and the engine never runs under a mesh.
+is taken as it lies, never copied: its writes are in place.
+
+A decode cache sharded on ``kv_seq`` over more than one rank (the decode
+cells' rules put it on the ``model`` axis, with the heads) stays on its
+ranks, as the reference's GSPMD partitions ``grouped_attention_narrow``:
+the query comes in whole on heads (a gather of B x H x D values), the
+rank that owns the new token's slot writes it, every rank attends over
+its own key range (a prefix of it: the valid keys are a prefix of the
+cache) and gives its output and log-sum-exp per (row, head), and
+``combine_partials`` merges them by two all-reduces over the ``kv_seq``
+mesh dims, a MAX of (B, H) and a SUM of (B, H, D + 1). Only the query,
+the new K/V row and those statistics cross ranks. ``mla_decode`` does the
+same over the latent cache. The paged pool is the engine's, and the
+engine never runs under a mesh.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -117,16 +127,108 @@ def _local_heads(kv: torch.Tensor, n_local: int, n_heads: int
 
 def write_cache_row(cache: torch.Tensor, new_row: torch.Tensor,
                     slot: torch.Tensor,
-                    active: Optional[torch.Tensor] = None) -> None:
+                    active: Optional[torch.Tensor] = None,
+                    mode: str = "scatter") -> None:
     """Write one token per sequence into a (B, S, ...) cache at ``slot``,
     in place. Rows where ``active`` is False keep their old value bit for
-    bit (a gather, select and scatter on the device: no host sync), which
-    is what leaves free slots untouched through a megastep."""
+    bit, which is what leaves free slots untouched through a megastep.
+    ``mode`` is the reference's ``cfg.kv_update``: "scatter" writes the
+    rows by index (a gather, select and scatter on the device: no host
+    sync); "mask" selects the new row by a one-hot mask over the whole
+    cache, reading and writing all of it. Both give the same bits."""
+    if mode == "mask":
+        B, S = cache.shape[:2]
+        hit = torch.arange(S, device=cache.device)[None, :] == slot[:, None]
+        if active is not None:
+            hit = hit & active[:, None]
+        hit = hit.reshape((B, S) + (1,) * (cache.dim() - 2))
+        cache.copy_(torch.where(hit, new_row.to(cache.dtype)[:, None],
+                                cache))
+        return
     rows = torch.arange(cache.shape[0], device=cache.device)
     new_row = new_row.to(cache.dtype)
     if active is not None:
         new_row = select_slots(cache[rows, slot], new_row, active)
     cache[rows, slot] = new_row
+
+
+# ---------------------------------------------- sequence-sharded decode ----
+def combine_partials(out: torch.Tensor, lse: torch.Tensor,
+                     reduce_max: Callable[[torch.Tensor], torch.Tensor],
+                     reduce_sum: Callable[[torch.Tensor], torch.Tensor]
+                     ) -> torch.Tensor:
+    """Merge attention over disjoint key ranges: ``out`` (..., D) a range's
+    normalised output and ``lse`` (...) the log-sum-exp of its scaled
+    scores (-inf for a range with no valid key). ``reduce_max`` and
+    ``reduce_sum`` reduce over the ranges: a dim of a stack, or a
+    collective over ranks (``sharding.all_reduce``). Returns, in f32,
+    ``sum_r e^(lse_r - M) out_r / sum_r e^(lse_r - M)`` with ``M = max_r
+    lse_r``: the softmax over the union of the ranges. An empty range
+    weighs exactly 0; where no range holds a key the result is 0, never
+    NaN."""
+    lse = lse.float()
+    m = reduce_max(lse)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)[..., None]
+    part = torch.where(w > 0, out.float() * w, torch.zeros_like(w))
+    tot = reduce_sum(torch.cat([part, w], dim=-1))
+    return tot[..., :-1] / torch.clamp(tot[..., -1:], min=1e-30)
+
+
+def _over_kv_seq():
+    """``combine_partials``'s reductions over the ranks of ``kv_seq``."""
+    return (lambda t: sharding.all_reduce(t, "max", "kv_seq"),
+            lambda t: sharding.all_reduce(t, "sum", "kv_seq"))
+
+
+def _decode_cache_axes(cache: torch.Tensor) -> Tuple[tuple, bool]:
+    """(the logical axes a decode's local region takes a (B, S, ...) cache
+    leaf in, whether they split its sequence over ranks). The cache is
+    taken as it lies, so that its in-place writes reach it: (batch, kv_seq,
+    -...) where the rules split ``kv_seq`` over more than one rank and the
+    leaf lies so, else (batch, -...). Any other placement is refused (as
+    ``transformer.shard_kv_cache`` refuses it): place the cache by
+    ``launch.sharding.cache_specs``."""
+    rest = (None,) * (cache.dim() - 2)
+    seq = ("batch", "kv_seq") + rest
+    if sharding.axis_size("kv_seq") > 1 and sharding.lies_as(cache, seq):
+        if cache.shape[1] % sharding.axis_size("kv_seq"):
+            raise ValueError(f"a decode cache of {cache.shape[1]} positions "
+                             f"does not split evenly over "
+                             f"{sharding.axis_size('kv_seq')} kv_seq ranks")
+        return seq, True
+    whole = ("batch", None) + rest
+    if sharding.lies_as(cache, whole):
+        return whole, False
+    raise ValueError(
+        f"a decode cache leaf placed {getattr(cache, 'placements', None)} "
+        f"where its step reads it (batch, kv_seq, ...) or (batch, ...): "
+        f"place the cache by launch.sharding.cache_specs; its writes are "
+        f"in place")
+
+
+def _seq_query_axes(axes: tuple) -> tuple:
+    """``axes`` (heads third) of a query of a sequence-sharded decode:
+    whole on heads where heads share a mesh axis with ``kv_seq`` (the
+    decode rules put both on ``model``), since each rank scores every head
+    over its own keys."""
+    if set(sharding.mesh_axes("heads")) & set(sharding.mesh_axes("kv_seq")):
+        return axes[:2] + (None,) + axes[3:]
+    return axes
+
+
+def _write_owned(cache: torch.Tensor, new_row: torch.Tensor,
+                 slot: torch.Tensor, offset: int,
+                 active: Optional[torch.Tensor], mode: str) -> None:
+    """``write_cache_row`` into this rank's key range [offset, offset + T)
+    of a sequence-sharded cache: only rows whose global ``slot`` lies in
+    it are written (their owner writes the others)."""
+    T = cache.shape[1]
+    local = slot - offset
+    own = (local >= 0) & (local < T)
+    if active is not None:
+        own = own & active
+    write_cache_row(cache, new_row, torch.clamp(local, 0, T - 1), own, mode)
 
 
 # ------------------------------------------------- blockwise prefill core --
@@ -288,11 +390,22 @@ def attend_prefill_shared(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------- decode ----
+def _lse(s: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The log-sum-exp of masked scores ``s`` over the last axis; -inf for
+    a row whose ``valid`` (B, T) holds no key (``s`` leads with B)."""
+    lse = torch.logsumexp(s, dim=-1)
+    none = ~valid.any(dim=-1)
+    return torch.where(none.reshape((-1,) + (1,) * (lse.dim() - 1)),
+                       torch.full_like(lse, -math.inf), lse)
+
+
 def grouped_attention_narrow(q: torch.Tensor, cache_k: torch.Tensor,
-                             cache_v: torch.Tensor,
-                             valid: torch.Tensor) -> torch.Tensor:
+                             cache_v: torch.Tensor, valid: torch.Tensor,
+                             return_lse: bool = False):
     """GQA scoring on the narrow cache, no head repeat. q (B,S,H,D)
-    pre-scaled; cache (B,T,Hkv,D); valid (B,T) bool -> (B,S,H,D) f32."""
+    pre-scaled; cache (B,T,Hkv,D); valid (B,T) bool -> (B,S,H,D) f32;
+    with ``return_lse`` also the (B,S,H) log-sum-exp of the scores over
+    the valid keys (-inf for a row with none), for ``combine_partials``."""
     B, S, H, D = q.shape
     hkv = cache_k.shape[2]
     qg = q.reshape(B, S, hkv, H // hkv, D)
@@ -301,7 +414,10 @@ def grouped_attention_narrow(q: torch.Tensor, cache_k: torch.Tensor,
                     torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", w, cache_v.float())
-    return out.reshape(B, S, H, D)
+    out = out.reshape(B, S, H, D)
+    if not return_lse:
+        return out
+    return out, _lse(s, valid).permute(0, 3, 1, 2).reshape(B, S, H)
 
 
 def attend_decode(p, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
@@ -309,14 +425,21 @@ def attend_decode(p, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
                   layer_window: int = 0,
                   active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token decode. x (B,1,d); cache (B,Scache,Hkv,D) updated in place
-    for active rows; lengths (B,). A full cache is written at
-    ``min(lengths, Scache-1)``; with ``layer_window`` the cache is a ring
-    buffer (Scache == min(cache_len, window)) written at ``lengths %
-    Scache``, whose first ``min(lengths+1, Scache)`` slots are valid. The
-    softmax does not care in which order the valid keys sit, so the ring
-    goes through the same decode kernel. Returns y (B,1,d). With kernels,
-    inactive rows do no attention work and their (discarded) output is
-    zero."""
+    for active rows (by ``cfg.kv_update``: ``write_cache_row``); lengths
+    (B,). A full cache is written at ``min(lengths, Scache-1)``; with
+    ``layer_window`` the cache is a ring buffer (Scache == min(cache_len,
+    window)) written at ``lengths % Scache``, whose first ``min(lengths+1,
+    Scache)`` slots are valid. The softmax does not care in which order
+    the valid keys sit, so the ring goes through the same decode kernel.
+    Returns y (B,1,d). With kernels, inactive rows do no attention work and
+    their (discarded) output is zero.
+
+    Under a mesh whose rules split ``kv_seq`` over more than one rank, a
+    cache that lies so stays on its ranks (the module's docstring): the
+    query comes in whole on heads, the rank holding the global slot
+    writes the new row, each rank attends over its valid keys (the
+    kernel's ``return_lse``, or the plain ``grouped_attention_narrow``'s),
+    and ``combine_partials`` merges the ranks' outputs by all-reduces."""
     c = cdt(cfg)
     q = _proj(x, p.wq, c)
     k_new = _proj(x, p.wk, c)
@@ -329,13 +452,19 @@ def attend_decode(p, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
     k_new = apply_rope(k_new, cos, sin)
 
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    mode = cfg.kv_update
+    ca, seq_split = (_decode_cache_axes(cache_k) if sharding.active()
+                     else (KA, False))
+    if seq_split:
+        return _attend_decode_seq(p, cfg, q, k_new, v_new, cache_k, cache_v,
+                                  lengths, layer_window, active, ca, scale)
 
     def core(q, k_new, v_new, cache_k, cache_v, lengths, active):
         s_cache = cache_k.shape[1]
         slot = (lengths.long() % s_cache if layer_window
                 else torch.clamp(lengths.long(), max=s_cache - 1))
-        write_cache_row(cache_k, k_new[:, 0], slot, active)
-        write_cache_row(cache_v, v_new[:, 0], slot, active)
+        write_cache_row(cache_k, k_new[:, 0], slot, active, mode)
+        write_cache_row(cache_v, v_new[:, 0], slot, active, mode)
         ck = _local_heads(cache_k, q.shape[2], cfg.n_heads)
         cv = _local_heads(cache_v, q.shape[2], cfg.n_heads)
         n_valid = torch.clamp(lengths + 1, max=s_cache)
@@ -350,14 +479,49 @@ def attend_decode(p, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
             valid = pos[None, :] <= lengths.long()[:, None]
         return grouped_attention_narrow(q * scale, ck, cv, valid)[:, :1]
 
-    # the kernel reads whole rows: a kv_seq-sharded cache is gathered for
-    # the step, written in the gathered copy and its shards written back
-    ck, cv = shard(cache_k, *KA), shard(cache_v, *KA)
-    out = sharding.local(core, (QA, KA, KA, KA, KA, ROW, ROW), (QA,))(
-        shard(q, *QA), k_new, v_new, ck, cv, lengths, active)
-    sharding.write_back(cache_k, ck)
-    sharding.write_back(cache_v, cv)
+    out = sharding.local(core, (QA, KA, KA, ca, ca, ROW, ROW), (QA,))(
+        shard(q, *QA), k_new, v_new, cache_k, cache_v, lengths, active)
     return _out_proj(shard(out, *QA), p.wo, c)
+
+
+def _attend_decode_seq(p, cfg, q, k_new, v_new, cache_k, cache_v, lengths,
+                       layer_window, active, ca, scale) -> torch.Tensor:
+    """``attend_decode``'s step over a cache split on ``kv_seq``: each rank
+    writes the rows it owns and attends over its own key range; the
+    ranks' partials are merged by ``combine_partials``."""
+    s_cache = cache_k.shape[1]                       # the global length
+    per = s_cache // sharding.axis_size("kv_seq")
+    qa = _seq_query_axes(QA)
+    mode = cfg.kv_update
+
+    def core(q, k_new, v_new, cache_k, cache_v, lengths, active):
+        offset = sharding.axis_index("kv_seq") * per
+        n = lengths.long()
+        slot = n % s_cache if layer_window else torch.clamp(
+            n, max=s_cache - 1)
+        _write_owned(cache_k, k_new[:, 0], slot, offset, active, mode)
+        _write_owned(cache_v, v_new[:, 0], slot, offset, active, mode)
+        ck = _local_heads(cache_k, q.shape[2], cfg.n_heads)
+        cv = _local_heads(cache_v, q.shape[2], cfg.n_heads)
+        # the valid keys are a prefix of the cache, so of each range too
+        n_local = torch.clamp(torch.clamp(n + 1, max=s_cache) - offset,
+                              0, per)
+        if cfg.use_kernels:
+            o, lse = kops.flash_decode(q[:, 0].contiguous(), ck, cv,
+                                       n_local.to(torch.int32), scale=scale,
+                                       active=active, return_lse=True)
+        else:
+            valid = torch.arange(per, device=ck.device)[None, :] \
+                < n_local[:, None]
+            o, lse = grouped_attention_narrow(q * scale, ck, cv, valid,
+                                              return_lse=True)
+            o, lse = o[:, 0], lse[:, 0]
+        return combine_partials(o, lse, *_over_kv_seq()).to(
+            o.dtype)[:, None]
+
+    out = sharding.local(core, (qa, KA, KA, ca, ca, ROW, ROW), (qa,))(
+        q, k_new, v_new, cache_k, cache_v, lengths, active)
+    return _out_proj(shard(out, *QA), p.wo, cdt(cfg))
 
 
 # ---------------------------------------------------- cross-attention ----
@@ -623,16 +787,22 @@ def mla_prefill(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
 
 def _mla_attend_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
                        ckv: torch.Tensor, kr: torch.Tensor,
-                       valid: torch.Tensor, scale: float) -> torch.Tensor:
+                       valid: torch.Tensor, scale: float,
+                       return_lse: bool = False):
     """Absorbed scores in latent space over a contiguous latent cache:
     q_lat (B,1,H,R), q_rope (B,1,H,dr), ckv (B,T,R), kr (B,T,dr), valid
-    (B,T) -> latent output (B,1,H,R) f32 (the reference's einsums)."""
+    (B,T) -> latent output (B,1,H,R) f32 (the reference's einsums); with
+    ``return_lse`` also the (B,1,H) log-sum-exp of the scores over the
+    valid keys (-inf for a row with none), for ``combine_partials``."""
     s = torch.einsum("bshr,btr->bhst", q_lat.float() * scale, ckv.float())
     s = s + torch.einsum("bshd,btd->bhst", q_rope.float() * scale, kr.float())
     s = torch.where(valid[:, None, None, :], s,
                     torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
     w = torch.softmax(s, dim=-1)
-    return torch.einsum("bhst,btr->bshr", w, ckv.float())
+    out = torch.einsum("bhst,btr->bshr", w, ckv.float())
+    if not return_lse:
+        return out
+    return out, _lse(s, valid).transpose(1, 2)
 
 
 def _mla_out(p, out_lat: torch.Tensor, cfg) -> torch.Tensor:
@@ -658,30 +828,46 @@ def mla_decode(p, x: torch.Tensor, cfg, *, cache_ckv: torch.Tensor,
     """Absorbed-matrix MLA decode over the slot cache: attention runs in
     latent space, never decompressing keys or values. x (B,1,d); cache_ckv
     (B,Sc,R) and cache_krope (B,Sc,dr) written in place at ``min(lengths,
-    Sc-1)`` for active rows. Plain torch on every device: the reference has
-    no kernel for it either. Returns y (B,1,d)."""
+    Sc-1)`` for active rows (by ``cfg.kv_update``). Plain torch on every
+    device: the reference has no kernel for it either. A latent cache
+    split on ``kv_seq`` stays on its ranks, as ``attend_decode``'s does.
+    Returns y (B,1,d)."""
     q_lat, q_rope, ckv_new, kr_new = _mla_decode_q(p, x, cfg, lengths)
+    scale = _mla_scale(cfg)
+    mode = cfg.kv_update
+    s_cache = cache_ckv.shape[1]                     # the global length
+    lat, row = ("batch", None, "heads", None), ("batch", None)
+    cache, seq_split = (_decode_cache_axes(cache_ckv) if sharding.active()
+                        else (("batch", None, None), False))
+    per = s_cache // sharding.axis_size("kv_seq") if seq_split else s_cache
+    lq = _seq_query_axes(lat) if seq_split else lat
 
     def core(q_lat, q_rope, ckv_new, kr_new, cache_ckv, cache_krope,
              lengths, active):
-        s_cache = cache_ckv.shape[1]
-        slot = torch.clamp(lengths.long(), max=s_cache - 1)
-        write_cache_row(cache_ckv, ckv_new, slot, active)
-        write_cache_row(cache_krope, kr_new, slot, active)
-        pos = torch.arange(s_cache, device=q_lat.device)
-        valid = pos[None, :] <= lengths.long()[:, None]
-        return _mla_attend_latent(q_lat, q_rope, cache_ckv, cache_krope,
-                                  valid, _mla_scale(cfg))
-    lat, row, cache = ("batch", None, "heads", None), ("batch", None), \
-        ("batch", None, None)
-    ckv, kr = (shard(cache_ckv, *cache),
-               shard(cache_krope, *cache))
+        n = lengths.long()
+        slot = torch.clamp(n, max=s_cache - 1)
+        if not seq_split:
+            write_cache_row(cache_ckv, ckv_new, slot, active, mode)
+            write_cache_row(cache_krope, kr_new, slot, active, mode)
+            pos = torch.arange(s_cache, device=q_lat.device)
+            valid = pos[None, :] <= n[:, None]
+            return _mla_attend_latent(q_lat, q_rope, cache_ckv, cache_krope,
+                                      valid, scale)
+        offset = sharding.axis_index("kv_seq") * per
+        _write_owned(cache_ckv, ckv_new, slot, offset, active, mode)
+        _write_owned(cache_krope, kr_new, slot, offset, active, mode)
+        n_local = torch.clamp(torch.clamp(n + 1, max=s_cache) - offset,
+                              0, per)
+        valid = torch.arange(per, device=q_lat.device)[None, :] \
+            < n_local[:, None]
+        o, lse = _mla_attend_latent(q_lat, q_rope, cache_ckv, cache_krope,
+                                    valid, scale, return_lse=True)
+        return combine_partials(o, lse, *_over_kv_seq())
     out_lat = sharding.local(
-        core, (lat, lat, row, row, cache, cache, ROW, ROW), (lat,))(
-        q_lat, q_rope, ckv_new, kr_new, ckv, kr, lengths, active)
-    sharding.write_back(cache_ckv, ckv)
-    sharding.write_back(cache_krope, kr)
-    return _mla_out(p, out_lat, cfg)
+        core, (lq, lq, row, row, cache, cache, ROW, ROW), (lq,))(
+        q_lat, q_rope, ckv_new, kr_new, cache_ckv, cache_krope, lengths,
+        active)
+    return _mla_out(p, shard(out_lat, *lat), cfg)
 
 
 def paged_mla_decode(p, x: torch.Tensor, cfg, *, ckv_pages: torch.Tensor,

@@ -224,6 +224,36 @@ def axis_index(logical: str) -> int:
     return idx
 
 
+def lies_as(x: torch.Tensor, logical_axes: Sequence[Optional[str]]) -> bool:
+    """x is a DTensor laid out as the current rules place these logical
+    names (``same_layout``): a ``local`` region taking it so hands ``fn``
+    its own shards, and an in-place write reaches it."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor) and same_layout(
+        x.placements, axis_placements(logical_axes), x.device_mesh)
+
+
+def mesh_axes(logical: Optional[str]) -> Tuple[str, ...]:
+    """The mesh axes the current rules map a logical axis to (none when
+    unmapped)."""
+    return _flat(_get()[1].get(logical)) if logical else ()
+
+
+def all_reduce(t: torch.Tensor, op: str, logical: str) -> torch.Tensor:
+    """Inside a ``local`` region: this rank's ``t`` reduced by ``op``
+    ("sum", "max") over the mesh dims of more than one rank that
+    ``logical`` maps to, one dim after another, by functional collectives
+    (``launch.hlo``'s counter sees them); ``t`` itself where there are
+    none."""
+    import torch.distributed._functional_collectives as funcol
+    mesh = current_mesh()
+    names = set(mesh_axes(logical))
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if name in names and mesh.size(i) > 1:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, i)))
+    return t
+
+
 def _partial_on(pl: tuple, logical: Optional[str], mesh) -> tuple:
     """``pl`` with ``Partial()`` on the mesh dims of more than one rank
     that ``logical`` maps to (a sum of the ranks' shares there)."""

@@ -103,6 +103,47 @@ def test_cuda_flash_decode_matches_plain(cuda, B, H, Hkv, D, Skv, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,D,Skv", [(3, 8, 2, 64, 600),
+                                           (2, 12, 2, 80, 300),
+                                           (2, 8, 8, 112, 260)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_decode_lse_and_key_ranges(cuda, B, H, Hkv, D, Skv,
+                                              dtype):
+    """``return_lse``: the output's bits are the same as without it, the
+    log-sum-exp matches the plain version's (-inf at the same slots: a
+    length-0 slot and an inactive one), and the cache cut into 3 key
+    ranges, one kernel call each over its own valid keys (some empty),
+    merged by ``combine_partials`` matches one whole-cache call."""
+    from repro_torch.models.attention import combine_partials
+    q = _rand(0, (B, H, D), cuda, dtype)
+    k = _rand(1, (B, Skv, Hkv, D), cuda, dtype)
+    v = _rand(2, (B, Skv, Hkv, D), cuda, dtype)
+    lengths = torch.tensor([0, Skv, 7][:B], dtype=torch.int32, device=cuda)
+    active = torch.tensor([True, True, False][:B], device=cuda)
+    kw = dict(scale=D ** -0.5, active=active)
+    whole = ops.flash_decode(q, k, v, lengths, **kw)
+    out, lse = ops.flash_decode(q, k, v, lengths, return_lse=True, **kw)
+    _, want = ref.flash_decode_ref(q, k, v, lengths, return_lse=True, **kw)
+    assert torch.equal(out, whole)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(want))
+    live = torch.isfinite(want)
+    assert float((lse[live] - want[live]).abs().max()) < 2e-4
+    cuts = [0, Skv // 3, 2 * Skv // 3, Skv]
+    outs, lses = [], []
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        n = torch.clamp(lengths - lo, 0, hi - lo).to(torch.int32)
+        o, l = ops.flash_decode(q, k[:, lo:hi].contiguous(),
+                                v[:, lo:hi].contiguous(), n,
+                                return_lse=True, **kw)
+        outs.append(o)
+        lses.append(l)
+    got = combine_partials(torch.stack(outs), torch.stack(lses),
+                           lambda t: t.amax(0), lambda t: t.sum(0))
+    assert bool(torch.isfinite(got).all())
+    assert float((got - whole.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.cuda
 def test_cuda_engine_kernels_match_plain_and_restore(cuda):
     """Reduced smollm2 in f32: greedy output with the kernels equals the
     plain path's; a demoted and restored context continues identically

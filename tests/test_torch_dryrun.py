@@ -267,6 +267,55 @@ def test_small_mesh_run_cell(name, tmp_path):
             coll["probe_total_bytes"]
 
 
+def _decode_counts(cfg, lengths, mesh_shape=(2, 4)):
+    """A reduced decode cell (batch 8) over fake tensors on a fake world,
+    at each cache length -> {length: counter}."""
+    out = {}
+    with fake_world(mesh_shape[0] * mesh_shape[1], "cpu"):
+        mesh = make_host_mesh(*mesh_shape, device_type="cpu")
+        for n in lengths:
+            suite = ShapeSuite("d", "decode", n, 8)
+            rules = make_rules(cfg, mesh, suite)
+            assert rules["kv_seq"] == "model"
+            out[n] = dryrun.count_cell(cfg, suite, mesh, rules)[0]
+    return out
+
+
+@pytest.mark.parametrize("arch,over", [("granite-3-2b", GRANITE),
+                                       ("h2o-danube-1.8b",
+                                        dict(sliding_window=256))])
+def test_sequence_sharded_decode_gathers_no_cache(arch, over):
+    """A decode cell on the 2 x 4 fake world, its cache split on kv_seq
+    over the 4 model ranks, at cache lengths 64 and 128: the all-gather
+    bytes are the same at both (only the query and the new K/V row are
+    gathered, never the cache) and the all-reduce bytes do not grow with
+    the length (the softmax statistics and outputs are per row and
+    head). The gather they replace moved each layer's whole cache, twice
+    as much at 128 as at 64."""
+    cfg = get_reduced_config(arch, **over)
+    c = _decode_counts(cfg, (64, 128))
+    g = {n: hlo.collective_bytes(c[n]) for n in c}
+    assert g[64]["all-gather"] == g[128]["all-gather"] > 0, g
+    assert g[64]["all-reduce"] == g[128]["all-reduce"] > 0, g
+
+
+def test_kv_update_mask_costs_bytes_and_no_collective():
+    """``kv_update="mask"`` (the reference's one-hot write) against
+    "scatter" in the same cell: the same collectives, more bytes
+    accessed (it reads and writes each rank's whole shard of every
+    layer's cache, where the scatter touches one row)."""
+    cfg = get_reduced_config("granite-3-2b", **GRANITE)
+    scatter = _decode_counts(cfg, (128,))[128]
+    mask = _decode_counts(dataclasses.replace(cfg, kv_update="mask"),
+                          (128,))[128]
+    assert hlo.collective_bytes(mask) == hlo.collective_bytes(scatter)
+    # two leaves a layer, each (4, 32, Hkv, hd) bf16 a rank, touched
+    # whole at least once more
+    shard = 4 * 32 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    assert mask.bytes_accessed - scatter.bytes_accessed >= \
+        2 * shard * cfg.n_layers
+
+
 def test_gate_only_and_a_recorded_failure(tmp_path, monkeypatch):
     _, r = _run("granite_train", tmp_path / "gate", gate_only=True)
     assert r["ok"] and "cost_unrolled" not in r and "collectives" not in r
