@@ -272,6 +272,29 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 peak bytes within DRYRUN_MEM_* of max_memory_allocated's
                 rise, the device time (median of 5) beside the
                 roofline's step_seconds_bound.
+ 12. apps     - the repo's entry points (repro_torch.examples and
+                launch/serve.py): (i) opportunistic_serving's live elastic
+                sweep over one full-width SmolLM2-1.7B that every worker's
+                engine wraps (seeded bf16 weights, kernels; 4 slots, cache
+                64, bucket 32, megastep 4), APPS_TASKS tasks of 8 claims
+                under its rq4 trace, then its rq3 trace, as the example
+                has them: at least 3 joins under rq4 and 2 preemptions
+                under rq3, every task completed (those a preemption
+                requeued included) with a bare engine's verdicts, one
+                builder call a worker at most and no kernel build, the
+                prefill kernel launched 24 x 2 waves x the invocations;
+                (ii) quickstart's run_workload on a 2-worker live client
+                and its paged and shared-prefix sections at full width
+                with the kernels, launches held to the engines' waves and
+                steps, each engine against itself with the kernels off
+                (phase 4's comparison), the paged tokens equal to a slot
+                cache's, the shared run against a cold pool's; (iii)
+                launch/serve.py in each of agnostic, partial and full at
+                its reduced defaults: the reference's cold invocations
+                and builder calls, the same verdicts; (iv) each example's
+                main as a user runs it (reduced, plain path), one after
+                another in subprocesses from the end of phase 3: exit 0
+                and its summary line.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -313,6 +336,8 @@ from repro_torch.core import (ContextMode, PCMClient, PCMManager,  # noqa
 from repro_torch.data import (HashTokenizer, PipelineConfig,  # noqa: E402
                               batches, fever)
 from repro_torch.data.tokenizer import BOS, LABEL_TOKENS  # noqa: E402
+from repro_torch.examples import opportunistic_serving as live_example  # noqa
+from repro_torch.examples import quickstart as qs_example  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import gemm_shape  # noqa: E402
 from repro_torch.launch import hlo, roofline  # noqa: E402
@@ -4914,6 +4939,366 @@ def phase_dryrun(state) -> dict:
     return out
 
 
+# -------------------------------------------------------------- 12. apps ---
+# the repo's entry points on the card. (i) opportunistic_serving's live
+# elastic sweep at full width under its traces as the example has them
+# (rq4: joins at 0, 3, 6 and 9 s; rq3: four joins at 0, preemptions at 3,
+# 5.5 and 8 s), each trace's task count sized so that its sweep spans at
+# least APPS_EVENTS of them
+APPS_TASKS = {"rq4": 100, "rq3": 64}
+APPS_EVENTS = {"rq4": ("joins", 3), "rq3": ("preemptions", 2)}
+# (iii) launch/serve.py at its reduced defaults in each mode, the
+# reference's counts on the same flags: (cold invocations, builder calls)
+SERVE_FLAGS = ("--claims", "16", "--batch-size", "8")
+SERVE_MODES = {"agnostic": (2, 2), "partial": (2, 2), "full": (1, 1)}
+# (iv) each example's main as a user runs it on the card (reduced, plain
+# path), one after another beside phases 3-10 at DRYRUN_NICE, and the
+# line its run must print
+APPS_MAINS = (
+    ("fact_verification", (), "[serve] best prompt: #"),
+    ("opportunistic_serving", (), "  context acquisitions: "),
+    ("quickstart", (), "modeled 800 inferences on 8xA10 in 35 simulated "
+     "seconds (16 warm / 0 cold starts, 0 P2P bootstraps)"),
+    ("train_smollm", ("--checkpoint-dir", "{tmp}/ckpt"), "[example] loss "),
+)
+APPS_MAIN_TIMEOUT = 300     # s, the wait in phase 12 for the last main
+
+
+def apps_start() -> dict:
+    """(iv)'s subprocesses: ``python -m repro_torch.examples.<name>`` for
+    each of APPS_MAINS, the next started when one exits 0, from the end of
+    phase 2 -> the state ``phase_apps`` reads."""
+    state = dict(tmp=tempfile.TemporaryDirectory(prefix="apps_smoke_"),
+                 procs={}, ends={})
+    atexit.register(dryrun_stop, state)
+
+    def start(i):
+        if i < len(APPS_MAINS):
+            name, flags, _ = APPS_MAINS[i]
+            cmd = [sys.executable, "-m", f"repro_torch.examples.{name}",
+                   *(f.format(tmp=state["tmp"].name) for f in flags)]
+            dryrun_proc(state, name, cmd, then=lambda: start(i + 1))
+    start(0)
+    return state
+
+
+def apps_mains(state) -> dict:
+    """(iv): every main must exit 0 and print its line -> each one's
+    seconds and that line."""
+    out = {}
+    deadline = time.monotonic() + APPS_MAIN_TIMEOUT
+    try:
+        for name, _, want in APPS_MAINS:
+            while name not in state["ends"]:
+                failed = [n for n, (p, _, _) in state["procs"].items()
+                          if p.poll() not in (None, 0)]
+                if failed or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+            if name not in state["ends"]:
+                raise AssertionError(f"apps (iv): {name} did not run to "
+                                     f"its end")
+            proc, outf, t0 = state["procs"][name]
+            outf.seek(0)
+            text = outf.read()
+            line = next((ln for ln in text.splitlines()
+                         if ln.startswith(want)), None)
+            out[name] = dict(seconds=state["ends"][name] - t0,
+                             rc=proc.returncode, line=line)
+            log(f"[apps] (iv) python -m repro_torch.examples.{name}: rc "
+                f"{proc.returncode}, {out[name]['seconds']:.1f} s: {line}")
+            if proc.returncode != 0 or line is None:
+                raise AssertionError(f"apps (iv) {name}: rc "
+                                     f"{proc.returncode}\n{text[-4000:]}")
+    finally:
+        dryrun_stop(state)
+        state["tmp"].cleanup()
+    return out
+
+
+def apps_tokens(model, n_tasks) -> tuple:
+    """A bare engine with the live example's knobs over ``model``: each
+    task's first tokens, and the prefill waves a task takes."""
+    eng = InferenceEngine(model, device="cuda", **live_example.ENGINE_KW)
+    eng.generate([[2, 5]], max_new_tokens=1)
+    tok = HashTokenizer(model.cfg.vocab_size)
+    waves0 = eng.stats.prefill_batches
+    want = []
+    for idx in live_example.task_claims(n_tasks):
+        cl = fever.claim_batch(idx)
+        gen = eng.generate([tok.encode(fever.render_prompt(c)) for c in cl],
+                           max_new_tokens=1)
+        want.append([o[0] for o in gen])
+    waves = (eng.stats.prefill_batches - waves0) / n_tasks
+    free(eng)
+    return want, waves
+
+
+def apps_live(cfg) -> dict:
+    """(i) opportunistic_serving's live sweep, under rq4 then rq3, over
+    one full-width model every engine wraps: the first tokens a bare
+    engine's (the seeded model's verdicts are all 0: the tokens are what
+    tells a wrong engine), every task completed once (those a preemption
+    requeued included), one builder call a worker at most and no kernel
+    build, the trace's events spanned, the prefill kernel launched
+    n_layers x 2 waves x the task invocations and nothing else."""
+    model = live_example.build_verifier(cfg, "cuda")
+    t0 = time.monotonic()
+    want, waves = apps_tokens(model, max(APPS_TASKS.values()))
+    bare_s = time.monotonic() - t0
+    distinct = len({t for ts in want for t in ts})
+    log(f"[apps] (i) bare engine {live_example.ENGINE_KW}: "
+        f"{8 * len(want)} claims in {bare_s:.3f} s = "
+        f"{8 * len(want) / bare_s:.1f} claims/s; {waves} waves a task; "
+        f"{distinct} distinct first tokens")
+    if waves != 2:
+        raise AssertionError(f"apps (i): a task took {waves} waves, not 2")
+    if distinct < 2:
+        raise AssertionError("apps (i): one first token for every claim: "
+                             "the comparison would tell nothing")
+    out = {"bare_s": bare_s, "launches": {}}
+    for trace in ("rq4", "rq3"):
+        n = APPS_TASKS[trace]
+        ops.reset_launches()
+        r = live_example.live_elastic(trace, n, device="cuda", model=model)
+        launches = dict(ops.LAUNCHES)
+        expect = dict.fromkeys(launches, 0)
+        expect["flash_attention"] = cfg.n_layers * 2 * r["invocations"]
+        threads = [b["thread"] for b in r["builds"]]
+        event, least = APPS_EVENTS[trace]
+        res = {k: r[k] for k in (
+            "claims", "correct", "wall_s", "claims_per_s", "joins",
+            "preemptions", "builder_calls", "peer_installs",
+            "context_restores", "sources", "builds", "invocations",
+            "requeued", "failed", "completed")}
+        res.update(tokens_equal=r["tokens"] == want[:n],
+                   launches=launches, expected=expect)
+        log(f"[apps] (i) {trace}: {json.dumps(res)}")
+        out[trace] = res
+        out["launches"][trace] = launches
+        if not res["tokens_equal"]:
+            raise AssertionError(f"apps (i) {trace}: first tokens differ "
+                                 f"from the bare engine's")
+        if r["completed"] != n or r["failed"] or r[event] < least:
+            raise AssertionError(f"apps (i) {trace}: {r['completed']} of "
+                                 f"{n} tasks, {r['failed']} failed, "
+                                 f"{r[event]} {event} (want {least})")
+        if r["builder_calls"] != len(threads) or \
+                len(set(threads)) != len(threads) or \
+                any(b["compiles"] for b in r["builds"]):
+            raise AssertionError(f"apps (i) {trace}: builder calls "
+                                 f"{r['builder_calls']} by {threads}")
+        if launches != expect:
+            raise AssertionError(f"apps (i) {trace}: launches {launches}, "
+                                 f"expected {expect}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def apps_replay(model, kw, batches, max_new) -> list:
+    """An engine of ``kw`` over ``model`` on ``batches`` (lists of
+    prompts, each run to completion in turn, ``max_new`` new tokens),
+    first-token logits kept -> its requests."""
+    eng = InferenceEngine(model, device="cuda", **kw)
+    reqs = []
+    for prompts in batches:
+        reqs += [eng.submit(Request(prompt=list(p), max_new_tokens=max_new,
+                                    keep_logits=True)) for p in prompts]
+        eng.run_to_completion()
+    free(eng)
+    return reqs
+
+
+def apps_hold(label, model, plain_model, kw, batches, max_new, want,
+              vocab) -> tuple:
+    """The example's kernel engine of ``kw`` replayed on its batches,
+    logits kept: its tokens must be ``want`` (what the example's engine
+    gave); the same engine over ``plain_model`` held to it by phase 4's
+    comparison -> (the replay's requests, the comparison)."""
+    kern = apps_replay(model, kw, batches, max_new)
+    if tokens(kern) != want:
+        raise AssertionError(f"apps (ii) {label}: the replay's tokens "
+                             f"differ from the example's engine's")
+    out = compare_dense(label, kern,
+                        apps_replay(plain_model, kw, batches, max_new),
+                        vocab, LOGIT_TOL, phase="apps")
+    if out["failures"]:
+        raise AssertionError(f"apps (ii) {label}: {out['failures']}")
+    return kern, out
+
+
+def gemm_rows_witness(w, rows=(128, 512)) -> dict:
+    """Whether a GEMM's rows come out the same bits at two row counts on
+    this card: the first ``rows[0]`` rows of seeded X through ``w`` alone
+    and among ``rows[1]`` (quickstart's shared-prefix tail wave is 8 x 16
+    rows, a cold wave 8 x 64). ``apps_quickstart`` lets shared-prefix
+    tokens differ from a cold pool's only where it is not."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn((rows[1], w.shape[0]), generator=gen, device="cuda",
+                    dtype=torch.float32).to(w.dtype)
+    few, many = x[:rows[0]] @ w, (x @ w)[:rows[0]]
+    return dict(rows=list(rows), shape=list(w.shape),
+                bitwise=bool(torch.equal(few, many)),
+                max_diff=float((few.float() - many.float()).abs().max()))
+
+
+def apps_quickstart(cfg) -> dict:
+    """(ii) quickstart's run_workload on a 2-worker live client and its
+    paged and shared-prefix sections, at full width with the kernels:
+    launches held to the engines' waves and steps (megastep 8:
+    flash_decode on the slot cache, paged_flash_decode on the pool), each
+    engine against itself with the kernels off (phase 4's comparison),
+    the paged tokens equal to a slot cache's, the shared-prefix tokens
+    equal to a cold pool's, or, where the MLP's bf16 GEMMs give a row
+    other bits at the tail wave's row count than at a cold wave's
+    (``gemm_rows_witness``), the shared-prefix run held to the cold one
+    by phase 4's comparison."""
+    out = {"launches": {}}
+    claims = [f"claim number {i} about the capital of somewhere"
+              for i in range(12)]
+    tok = HashTokenizer(cfg.vocab_size)
+    client = PCMClient(mode=ContextMode.FULL, n_workers=2)
+    try:
+        ops.reset_launches()
+        t0 = time.monotonic()
+        results, tiers = qs_example.run_workload(client, claims,
+                                                 device="cuda", cfg=cfg)
+        wall = time.monotonic() - t0
+        launches = dict(ops.LAUNCHES)
+        key = qs_example.context(client, "cuda", cfg).key
+        engines = [client.backend.workers[w].library.context(key)
+                   .value["engine"] for w in client.workers]
+        waves = sum(e.stats.prefill_batches for e in engines)
+        steps = sum(e.stats.decode_steps for e in engines)
+        model = engines[0].model
+    finally:
+        client.shutdown()
+    st = client.stats()
+    del client, engines
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attention=cfg.n_layers * waves,
+                  flash_decode=cfg.n_layers * steps)
+    out["run_workload"] = dict(
+        wall_s=wall, tiers=tiers, waves=waves, steps=steps,
+        launches=launches, expected=expect,
+        builder_calls=st["builder_calls"], peer_installs=st["peer_installs"])
+    log(f"[apps] (ii) run_workload: {json.dumps(out['run_workload'])}")
+    out["launches"]["run_workload"] = launches
+    if launches != expect or not steps:
+        raise AssertionError("apps (ii) run_workload: launches do not "
+                             "match the waves and steps")
+    plain_model = build_model(dataclasses.replace(cfg, use_kernels=False),
+                              device="cuda", params=dict(model.state_dict()))
+    batches = [[tok.encode(c) for c in claims[i:i + 4]]
+               for i in range(0, len(claims), 4)]
+    _, out["run_workload"]["compare"] = apps_hold(
+        "run_workload", model, plain_model, qs_example.engine_kw(cfg),
+        batches, 4, [t for r in results for t in r], cfg.vocab_size)
+    pkw = qs_example.paged_kw(cfg)
+    for name, section in (("paged", qs_example.paged_kv),
+                          ("prefix", qs_example.prefix_sharing)):
+        ops.reset_launches()
+        r = section(model, tok, "cuda")
+        launches = dict(ops.LAUNCHES)
+        eng = r.pop("engine")
+        expect = dict.fromkeys(launches, 0)
+        expect.update(flash_attention=cfg.n_layers * eng.stats.prefill_batches,
+                      paged_flash_decode=cfg.n_layers *
+                      eng.stats.decode_steps)
+        free(eng)
+        res = {k: v for k, v in r.items() if k not in ("prompts", "tokens")}
+        res.update(launches=launches, expected=expect)
+        out[name] = res
+        out["launches"][name] = launches
+        kern, res["compare"] = apps_hold(name, model, plain_model, pkw,
+                                         [r["prompts"]], 8, r["tokens"],
+                                         cfg.vocab_size)
+        if name == "paged":
+            slot = InferenceEngine(model, device="cuda", **{
+                k: v for k, v in pkw.items()
+                if k not in ("paged", "page_size", "num_pages")})
+            res["slot_tokens_equal"] = slot.generate(
+                r["prompts"], max_new_tokens=8) == r["tokens"]
+            free(slot)
+            ok = res["slot_tokens_equal"]
+        else:
+            cold = apps_replay(model, dict(pkw, prefix_sharing=False),
+                               [r["prompts"]], 8)
+            res["vs_cold"] = compare_dense(
+                "prefix (the shared-prefix run as 'kernels', a cold pool "
+                "as 'plain')", kern, cold, cfg.vocab_size, LOGIT_TOL,
+                phase="apps")
+            res["cold_tokens_equal"] = tokens(kern) == tokens(cold)
+            res["witness"] = {n: gemm_rows_witness(w) for n, w in (
+                ("up", model.blocks[0].mlp.up),
+                ("down", model.blocks[0].mlp.down))}
+            log(f"[apps] (ii) the MLP's GEMMs, rows at 128 and among 512: "
+                f"{json.dumps(res['witness'])}")
+            rows_differ = not all(w["bitwise"]
+                                  for w in res["witness"].values())
+            ok = r["prefix_hits"] > 0 and not res["vs_cold"]["failures"] \
+                and (res["cold_tokens_equal"] or rows_differ)
+        log(f"[apps] (ii) {name}: {json.dumps(res)}")
+        if launches != expect or not ok:
+            other = "slot cache" if name == "paged" else "cold pool"
+            raise AssertionError(f"apps (ii) {name}: launches, or the "
+                                 f"{other}'s tokens")
+    del model, plain_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def apps_serve() -> dict:
+    """(iii) launch/serve.py in each mode at its reduced defaults: the
+    reference's cold invocations and builder calls, the same generated
+    tokens (more than one distinct first token among them)."""
+    out = {}
+    for mode, (cold, calls) in SERVE_MODES.items():
+        t0 = time.monotonic()
+        r = serve_cli.main([*SERVE_FLAGS, "--mode", mode])
+        st = r["stats"]
+        out[mode] = dict(seconds=time.monotonic() - t0,
+                         cold=st["cold_invocations"],
+                         warm=st["warm_invocations"],
+                         builder_calls=st["builder_calls"],
+                         correct=r["correct"], tokens=r["tokens"])
+        log(f"[apps] (iii) serve --mode {mode}: cold {out[mode]['cold']}, "
+            f"builder calls {out[mode]['builder_calls']} (the reference's "
+            f"{cold}, {calls}), correct {r['correct']}, first tokens "
+            f"{[o[0] for b in r['tokens'] for o in b]}")
+        if (out[mode]["cold"], out[mode]["builder_calls"]) != (cold, calls):
+            raise AssertionError(f"apps (iii) {mode}: counts differ from "
+                                 f"the reference's")
+    if len({json.dumps(m["tokens"]) for m in out.values()}) != 1:
+        raise AssertionError("apps (iii): the modes' tokens differ")
+    first = {o[0] for b in out["full"]["tokens"] for o in b}
+    if len(first) < 2:
+        raise AssertionError("apps (iii): one first token for every claim: "
+                             "the comparison would tell nothing")
+    return out
+
+
+def phase_apps(state) -> dict:
+    """12. The repo's entry points on the card: (i) the live elastic
+    sweep and (ii) quickstart's engines at full width with the kernels,
+    (iii) the serve CLI's three modes, (iv) each example's main."""
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config("smollm2-1.7b"), use_kernels=True)
+    out = {"live": apps_live(cfg)}
+    out["quickstart"] = apps_quickstart(cfg)
+    out["serve"] = apps_serve()
+    out["mains"] = apps_mains(state)
+    out["launches"] = {**{f"live_{k}": v for k, v in
+                          out["live"].pop("launches").items()},
+                       **out["quickstart"].pop("launches")}
+    out["seconds"] = time.monotonic() - t0
+    log(f"[apps] phase {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------- --seq-decode, four cards ----
 # the sequence-sharded decode on a (2, 2) NCCL mesh of four cards: Granite
 # (the flash_decode kernel with its log-sum-exp, under kv_update "scatter"
@@ -5265,6 +5650,9 @@ def main() -> int:
     dryrun = dryrun_start()
     rows = phase_kernels()
     phase_done("kernels")
+    # after phase 3: the examples' mains do real work on the card, which
+    # would perturb the kernels' times
+    apps = apps_start()
     serve_out = phase_serve()
     phase_done("serve")
     sharing = serve_out.pop("sharing_engine")
@@ -5313,6 +5701,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["dryrun"] = phase_dryrun(dryrun)
     phase_done("dryrun")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["apps"] = phase_apps(apps)
+    phase_done("apps")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's launches on the main paths, summed over its entry points
@@ -5322,7 +5714,8 @@ def main() -> int:
                               report["multihost"], report["frontdoor"],
                               report["train"], report["deepseek"],
                               report["zamba2"], report["dense"],
-                              report["families"], report["sharded"])
+                              report["families"], report["sharded"],
+                              report["apps"])
             for run in phase["launches"].values()]
     kernels = []
     for name, row in rows.items():

@@ -98,7 +98,10 @@ def verify_claims(indices: Sequence[int], template: str,
     return outs, [int(p == g) for p, g in zip(preds, golds)]
 
 
-def main(argv: Optional[Sequence[str]] = None):
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """The CLI; returns each batch's generated tokens and verdicts, the
+    claims correct, the sweep's seconds and the manager's stats (what it
+    prints)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm2-1.7b")
     ap.add_argument("--claims", type=int, default=64)
@@ -131,7 +134,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
     @context_app(recipe=recipe, manager=mgr, n_items=args.batch_size)
     def verify_batch(indices):
-        return verify_claims(indices, template)[1]
+        return verify_claims(indices, template)
 
     try:
         t0 = time.monotonic()
@@ -147,7 +150,8 @@ def main(argv: Optional[Sequence[str]] = None):
                 mgr.preempt_worker(victim)
                 mgr.add_worker()
 
-        correct = sum(sum(f.result()) for f in futs)
+        tokens, verdicts = zip(*(f.result() for f in futs))
+        correct = sum(sum(v) for v in verdicts)
         dt = time.monotonic() - t0
         st = mgr.stats()
         print(f"[serve] mode={args.mode} claims={args.claims} "
@@ -159,6 +163,8 @@ def main(argv: Optional[Sequence[str]] = None):
               f"builder_calls={st['builder_calls']}")
     finally:
         mgr.shutdown()
+    return {"tokens": list(tokens), "verdicts": list(verdicts),
+            "correct": correct, "wall_s": dt, "stats": st}
 
 
 if __name__ == "__main__":

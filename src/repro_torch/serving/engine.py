@@ -78,7 +78,20 @@ into (pinned) host tensors and frees the device memory; a paged engine
 ships only its live pages, each once, with their refcounts.
 ``restore_device_state()`` copies them back. A restored engine decodes
 bit-identically to one that never left the device, and rebuilds nothing:
-the restore costs the transfer only. ``export_template`` (or its two halves,
+the restore costs the transfer only. A model module may be shared by
+several engines (a context builder that closes over one model builds
+every worker's engine over it). A demote never changes a tensor another
+resident engine reads: the last resident engine over a model releases its
+parameters in place; any other copies them to the host as well, then
+moves onto a model shell of its own (``models.registry.build_shell``) and
+leaves the shared tensors to their other readers, as dropping one
+reference to an immutable JAX array does in the reference. Restored, such
+an engine fills its own shell: a second copy on the device. An engine
+cannot be built over a model whose parameters a demote released: a
+context builder that closes over one model raises ``ValueError`` once
+every engine over that model is demoted, until one of them is restored
+(the reference's builder goes on working, since its closure keeps the
+arrays). ``export_template`` (or its two halves,
 ``export_template_device`` and ``export_template_host``, for a streamed
 export) and ``clone_offloaded`` bootstrap a twin engine from the weights
 alone. ``warm_executables`` loads every kernel library the model launches
@@ -105,8 +118,10 @@ import hashlib
 import json
 import pickle
 import sys
+import threading
 import time
 import traceback
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -123,6 +138,23 @@ NO_TOKEN = -1  # stop-table padding: never matches a real (>= 0) token id
 
 _STATE_FIELDS = ("lengths", "last_tokens", "temps", "active_mask",
                  "gen_counts", "max_news", "stop_table")
+
+
+# guards the resident engines of every model module (``_holders``): a
+# build or a restore joins them, a demote leaves them and decides, from
+# whether any remain, what to do with the module's tensors
+_HOLDERS_LOCK = threading.Lock()
+
+
+def _holders(model) -> "weakref.WeakSet[InferenceEngine]":
+    """The resident engines over ``model``: built over it or restored into
+    it, and not demoted since. Kept on the module, weakly (a dropped
+    engine leaves by itself; one that a reference cycle keeps counts
+    until the cycle is collected). Call under ``_HOLDERS_LOCK``."""
+    held = model.__dict__.get("_engine_holders")
+    if held is None:
+        held = model._engine_holders = weakref.WeakSet()
+    return held
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -157,6 +189,13 @@ class InferenceEngine:
         if model.device.type != dev.type:
             raise ValueError(f"model lives on {model.device}, engine asked "
                              f"for {dev}")
+        with _HOLDERS_LOCK:
+            if model.__dict__.get("_released_by_demote"):
+                raise ValueError(
+                    "the model's parameters were released by the demote of "
+                    "the last engine over it: restore that engine, or "
+                    "build the model anew")
+            _holders(model).add(self)
         self.device = model.device
         self.model = model
         self.cfg = model.cfg
@@ -374,12 +413,23 @@ class InferenceEngine:
             # leaves along it, so every chunk boundary is a page boundary
             host["_paged_page_axes"] = {n: np.int32(1) for n in cache}
         self._sync()
-        for p in params.values():
-            p.data = torch.empty((0,), dtype=p.dtype, device=self.device)
-        self.cache = None
-        self.extra = None
-        for name in self._state_fields:
-            setattr(self, name, None)
+        with _HOLDERS_LOCK:
+            held = _holders(self.model)
+            held.discard(self)
+            if held:
+                # another resident engine reads these tensors: leave them
+                # and move onto a shell of this engine's own
+                from repro_torch.models.registry import build_shell
+                self.model = build_shell(self.cfg, device=self.device)
+            else:
+                for p in params.values():
+                    p.data = torch.empty((0,), dtype=p.dtype,
+                                         device=self.device)
+                self.model._released_by_demote = True
+            self.cache = None
+            self.extra = None
+            for name in self._state_fields:
+                setattr(self, name, None)
         return host
 
     def restore_device_state(self, host_state: Dict) -> None:
@@ -433,6 +483,12 @@ class InferenceEngine:
         if self._extra_host is not None:
             self.extra = {n: put(t) for n, t in host_state["extra"].items()}
         self._gen.set_state(host_state["_rng"])
+        # the model is this engine's own shell, or the one it released in
+        # place as the last engine over it (no engine can be built over
+        # that one since): nobody else reads it
+        with _HOLDERS_LOCK:
+            self.model.__dict__.pop("_released_by_demote", None)
+            _holders(self.model).add(self)
         self._sync()
         if self._aot_shared:
             # a wire shell's kernels load with its state

@@ -1373,3 +1373,37 @@ def test_cuda_one_rank_mesh_prefill_matches_unsharded_kernels(cuda,
         assert torch.equal(got.full_tensor(), want)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_live_elastic_sweep_shares_one_model(cuda):
+    """The live example (``repro_torch.examples.opportunistic_serving``)
+    on the card, reduced bf16 config with the kernels, its rq3 trace ten
+    times faster than the wall clock: workers whose engines share the one
+    model are preempted while the others serve, every task completes with
+    the first tokens of a bare engine over the same model, and the kernels
+    ran."""
+    from repro_torch.data import fever
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.examples import opportunistic_serving as live
+    cfg = get_reduced_config("smollm2-1.7b", param_dtype="bfloat16",
+                             compute_dtype="bfloat16", use_kernels=True)
+    model = live.build_verifier(cfg, device="cuda")
+    n_tasks = 120
+    bare = InferenceEngine(model, device="cuda", **live.ENGINE_KW)
+    tok = HashTokenizer(cfg.vocab_size)
+    want = []
+    for idx in live.task_claims(n_tasks):
+        cl = fever.claim_batch(idx)
+        gen = bare.generate([tok.encode(fever.render_prompt(c)) for c in cl],
+                            max_new_tokens=1)
+        want.append([o[0] for o in gen])
+    del bare
+    assert len({t for ts in want for t in ts}) > 1, "vacuous: one token"
+    ops.reset_launches()
+    got = live.live_elastic("rq3", n_tasks, device="cuda", model=model,
+                            time_scale=10)
+    assert got["tokens"] == want
+    assert got["preemptions"] >= 1 and got["failed"] == 0
+    assert got["completed"] == n_tasks
+    assert ops.LAUNCHES["flash_attention"] > 0

@@ -52,7 +52,8 @@ def test_port_file_list_is_complete():
             "nemotron_4_15b.py", "xlstm.py", "encdec.py", "vision.py",
             "xlstm_350m.py", "whisper_small.py",
             "llama32_vision_11b.py", "dryrun.py", "hlo.py", "roofline.py",
-            "perf.py"} <= names
+            "perf.py", "fact_verification.py", "opportunistic_serving.py",
+            "quickstart.py", "train_smollm.py"} <= names
 
 
 def test_every_kernel_has_its_source():
