@@ -2,7 +2,9 @@
 
 Port of ``repro.kernels.ref`` for the port's kernels, in the kernels'
 public layout (``ssd_scan_ref`` in the reference's (BH, S, .) one), plus ``grouped_gemm_segments_ref``, the plain
-version of the grouped GEMM's entry point over rows sorted by expert. Each
+version of the grouped GEMM's entry point over rows sorted by expert, and
+``prefill_linear_ref``, the plain version of the port's own row-invariant
+prefill linear (no reference kernel: the reference leaves it to XLA). Each
 is what ``repro_torch.kernels.ops`` runs for a tensor on the CPU, and what
 ``chip_smoke.py`` holds the CUDA kernel against on the card. Masked scores use the reference's ``-1e30`` sentinel and get a
 weight of exactly 0, and the normaliser is ``max(l, 1e-30)``, as in the
@@ -147,6 +149,15 @@ def grouped_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Per-expert matmul (E, C, d) x (E, d, f) -> (E, C, f), f32
     accumulation, output in x's dtype."""
     return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def prefill_linear_ref(x: torch.Tensor, w: torch.Tensor,
+                       w_kmajor: bool = False) -> torch.Tensor:
+    """x (..., K) x w (K, N), or x w^T for w (N, K) with ``w_kmajor`` ->
+    (..., N): ``torch.matmul`` in the inputs' (compute) dtype, what the
+    model's projections, MLP and unembedding computed before the prefill
+    linear existed, bit for bit."""
+    return torch.matmul(x, w.t() if w_kmajor else w)
 
 
 def grouped_gemm_segments_ref(x: torch.Tensor, counts: torch.Tensor,

@@ -57,8 +57,8 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import sharding
-from repro_torch.models.layers import (apply_rope, cdt, rms_norm_heads,
-                                       rope_cos_sin)
+from repro_torch.models.layers import (apply_rope, cdt, linear,
+                                       rms_norm_heads, rope_cos_sin)
 from repro_torch.models.sharding import shard
 from repro_torch.serving.kvcache import select_slots
 
@@ -66,17 +66,18 @@ NEG_INF = -1e30
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, c: torch.dtype) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matmul: x (B,S,d), w (d,H,k)."""
+    """einsum("bsd,dhk->bshk") as one matmul (``layers.linear``): x
+    (B,S,d), w (d,H,k)."""
     d, H, k = w.shape
-    return torch.matmul(x.to(c), w.to(c).reshape(d, H * k)).unflatten(
-        -1, (H, k))
+    return linear(x.to(c), w.to(c).reshape(d, H * k)).unflatten(-1, (H, k))
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor,
               c: torch.dtype) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd"): o (B,S,H,k), wo (H,k,d)."""
+    """einsum("bshk,hkd->bsd") (``layers.linear``): o (B,S,H,k), wo
+    (H,k,d)."""
     H, k, d = wo.shape
-    return torch.matmul(o.to(c).flatten(-2), wo.to(c).reshape(H * k, d))
+    return linear(o.to(c).flatten(-2), wo.to(c).reshape(H * k, d))
 
 
 def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):

@@ -12,15 +12,29 @@ The reference's ``shard`` sites are kept (``models.sharding``): embedded
 tokens (batch, seq, -), logits (batch, seq, vocab) and the MLP's hidden
 (batch, seq, d_ff) and output (batch, seq, -). Without a mesh they
 return their input.
+
+The projections, the MLP's GEMMs and the unembedding go through
+``linear``: ``torch.matmul``, except inside ``row_invariant_linears(True)``
+on this thread (the engine's prefill with ``cfg.use_kernels``:
+``Transformer.prefill`` and ``prefill_shared``), where plain tensors go to
+``kernels.ops.prefill_linear``, whose rows' bits do not depend on how many
+rows share a call. cuBLAS picks its algorithm by shape (a split-K at 128
+rows, none at 512), so a shared-prefix tail wave would give other bits
+than a cold wave on the card, where the reference's are equal. Decode
+(a fixed row count), ``forward`` and training, DTensors and fake tensors
+keep ``torch.matmul``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models.sharding import shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -78,6 +92,43 @@ def rms_norm_heads(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
+# -------------------------------------------------------------- linears ----
+_ROUTE = threading.local()
+
+
+@contextlib.contextmanager
+def row_invariant_linears(on: bool):
+    """Within this scope, on this thread, ``linear`` sends plain CPU and
+    CUDA tensors to ``kernels.ops.prefill_linear`` when ``on``, and to
+    ``torch.matmul`` when not. The outermost scope decides: an inner one
+    (``Transformer.prefill`` opens one from ``cfg.use_kernels``) leaves
+    the choice as it found it, so a caller can run a kernel model's
+    prefill on ``torch.matmul`` under ``row_invariant_linears(False)``.
+    Thread-local: the PCM runtime's worker threads prefill and decode at
+    once."""
+    prev = getattr(_ROUTE, "on", None)
+    if prev is None:
+        _ROUTE.on = bool(on)
+    try:
+        yield
+    finally:
+        _ROUTE.on = prev
+
+
+def linear(x: torch.Tensor, w: torch.Tensor,
+           w_kmajor: bool = False) -> torch.Tensor:
+    """x (..., K) x w (K, N), or x w^T for w (N, K) with ``w_kmajor``
+    (the tied unembedding reads ``tok`` (V, d) in place) -> (..., N), in
+    the inputs' dtype: the prefill linear inside
+    ``row_invariant_linears(True)`` for plain tensors on the CPU or the
+    card (a DTensor or a fake tensor is a subclass), else ``torch.matmul``
+    (the same bits on the CPU)."""
+    if getattr(_ROUTE, "on", None) and type(x) is torch.Tensor \
+            and x.device.type in ("cpu", "cuda"):
+        return kops.prefill_linear(x, w, w_kmajor=w_kmajor)
+    return torch.matmul(x, w.t() if w_kmajor else w)
+
+
 # ----------------------------------------------------------- embeddings ----
 def embed(tok: torch.Tensor, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """tok (V_pad, d); tokens (B, S) int -> (B, S, d) in the compute
@@ -96,8 +147,11 @@ def unembed(tok: torch.Tensor, x: torch.Tensor, cfg,
     Logits over the padded vocab, computed in the compute dtype and cast to
     ``cfg.logit_dtype``."""
     c = cdt(cfg)
-    w = tok.t() if w_unembed is None else w_unembed
-    logits = torch.matmul(x.to(c), w.to(c)).to(dt(cfg.logit_dtype))
+    if w_unembed is None:
+        logits = linear(x.to(c), tok.to(c), w_kmajor=True)
+    else:
+        logits = linear(x.to(c), w_unembed.to(c))
+    logits = logits.to(dt(cfg.logit_dtype))
     return shard(logits, "batch", *(["seq"] * (logits.dim() - 2)), "vocab")
 
 
@@ -130,9 +184,9 @@ def apply_mlp(x: torch.Tensor, up: torch.Tensor, down: torch.Tensor, cfg,
     act = activation or cfg.activation
     c = cdt(cfg)
     xc = x.to(c)
-    h_up = torch.matmul(xc, up.to(c))
+    h_up = linear(xc, up.to(c))
     if act == "swiglu":
-        h = F.silu(torch.matmul(xc, gate.to(c))) * h_up
+        h = F.silu(linear(xc, gate.to(c))) * h_up
     elif act == "squared_relu":
         r = F.relu(h_up)
         h = r * r
@@ -140,7 +194,7 @@ def apply_mlp(x: torch.Tensor, up: torch.Tensor, down: torch.Tensor, cfg,
         h = F.gelu(h_up, approximate="tanh")
     if h.dim() == 3:
         h = shard(h, "batch", "seq", "d_ff")
-    y = torch.matmul(h, down.to(c))
+    y = linear(h, down.to(c))
     return shard(y, "batch", "seq", None) if y.dim() == 3 else y
 
 

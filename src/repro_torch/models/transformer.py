@@ -59,7 +59,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import sharding
 from repro_torch.models.sharding import remat, shard
 from repro_torch.models.layers import (apply_mlp, apply_norm, cdt, embed,
-                                       pdt, unembed)
+                                       pdt, row_invariant_linears, unembed)
 from repro_torch.serving.kvcache import merge_slots
 
 Cache = Dict[str, torch.Tensor]
@@ -468,21 +468,24 @@ class Transformer(LanguageModel):
         expects position p at p % Scache. So a prompt or wave longer than
         the window decodes over another key set than ``forward`` attends,
         in both packages. Returns the logits at position ``lengths - 1``,
-        (B, V_pad)."""
+        (B, V_pad). With ``cfg.use_kernels`` its linears run in
+        ``row_invariant_linears``: a row's bits do not depend on its
+        wave's size."""
         S = tokens.shape[1]
-        x = embed(self.embed.tok, tokens, self.cfg)
-        positions = torch.arange(S, device=tokens.device)
-        for i, blk in enumerate(self.blocks):
-            x, kv, _ = blk.prefill(x, positions=positions, kv_len=lengths,
-                                   capacity_factor=2.0)
-            for dst, src in zip(self._kv(cache, i), kv):
-                if page_table is None:
-                    if self.window and S > dst.shape[1]:
-                        src = src[:, S - dst.shape[1]:]
-                    write_prefill(dst, src, slots)
-                else:
-                    attn._paged_write_span(dst, src, page_table)
-        return self._last_logits(x, lengths)
+        with row_invariant_linears(self.cfg.use_kernels):
+            x = embed(self.embed.tok, tokens, self.cfg)
+            positions = torch.arange(S, device=tokens.device)
+            for i, blk in enumerate(self.blocks):
+                x, kv, _ = blk.prefill(x, positions=positions,
+                                       kv_len=lengths, capacity_factor=2.0)
+                for dst, src in zip(self._kv(cache, i), kv):
+                    if page_table is None:
+                        if self.window and S > dst.shape[1]:
+                            src = src[:, S - dst.shape[1]:]
+                        write_prefill(dst, src, slots)
+                    else:
+                        attn._paged_write_span(dst, src, page_table)
+            return self._last_logits(x, lengths)
 
     def prefill_shared(self, tokens: torch.Tensor, lengths: torch.Tensor,
                        starts: torch.Tensor, cache: Cache,
@@ -494,20 +497,22 @@ class Transformer(LanguageModel):
         beforehand). Each layer gathers the rows' views, attends the tail
         over them and writes the tail's K/V into the pages at positions
         [starts, starts + Tb), in place. Logits come from logical position
-        ``lengths - 1``, which is tail index ``lengths - starts - 1``."""
+        ``lengths - 1``, which is tail index ``lengths - starts - 1``. Its
+        linears run as ``prefill``'s do, so a tail row gets the bits the
+        same row gets in a cold wave."""
         Tb = tokens.shape[1]
-        x = embed(self.embed.tok, tokens, self.cfg)
-        positions = starts.long()[:, None] + torch.arange(
-            Tb, device=tokens.device)[None, :]
-        for i, blk in enumerate(self.blocks):
-            x, (k, v) = blk.prefill_shared(
-                x, positions=positions, starts=starts, kv_len=lengths,
-                view_k=attn._paged_gather(cache["k"][i], page_table),
-                view_v=attn._paged_gather(cache["v"][i], page_table))
-            attn._paged_write_span(cache["k"][i], k, page_table, starts)
-            attn._paged_write_span(cache["v"][i], v, page_table, starts)
-        return self._last_logits(
-            x, lengths.long() - starts.long())
+        with row_invariant_linears(self.cfg.use_kernels):
+            x = embed(self.embed.tok, tokens, self.cfg)
+            positions = starts.long()[:, None] + torch.arange(
+                Tb, device=tokens.device)[None, :]
+            for i, blk in enumerate(self.blocks):
+                x, (k, v) = blk.prefill_shared(
+                    x, positions=positions, starts=starts, kv_len=lengths,
+                    view_k=attn._paged_gather(cache["k"][i], page_table),
+                    view_v=attn._paged_gather(cache["v"][i], page_table))
+                attn._paged_write_span(cache["k"][i], k, page_table, starts)
+                attn._paged_write_span(cache["v"][i], v, page_table, starts)
+            return self._last_logits(x, lengths.long() - starts.long())
 
     def decode_step(self, tokens: torch.Tensor, lengths: torch.Tensor,
                     cache: Cache,

@@ -67,8 +67,10 @@ the wire recipe carries them (base64 pickle) and ``aot_fingerprint`` a
 digest of them.
 
 **Kernels.** With ``cfg.use_kernels`` on a CUDA device, prefill and decode
-attention (and the MoE GEMMs and Mamba2 scans of models that have them)
-run in the hand-written kernels of ``repro_torch/csrc``; the
+attention (and the MoE GEMMs and Mamba2 scans of models that have them,
+and a ``Transformer``'s prefill linears, whose rows' bits do not depend
+on a wave's size) run in the hand-written kernels of
+``repro_torch/csrc``; the
 engine builds them at construction when they are not on disk yet, and
 ``stats.compiles`` counts those builds (0 for a warm context).
 
@@ -86,12 +88,20 @@ parameters in place; any other copies them to the host as well, then
 moves onto a model shell of its own (``models.registry.build_shell``) and
 leaves the shared tensors to their other readers, as dropping one
 reference to an immutable JAX array does in the reference. Restored, such
-an engine fills its own shell: a second copy on the device. An engine
-cannot be built over a model whose parameters a demote released: a
-context builder that closes over one model raises ``ValueError`` once
-every engine over that model is demoted, until one of them is restored
-(the reference's builder goes on working, since its closure keeps the
-arrays). ``export_template`` (or its two halves,
+an engine fills its own shell: a second copy on the device. A released
+model keeps the snapshot's host copies of its parameters (the same
+tensors as the snapshot's ``params``, no second host copy), so a context
+builder that closes over one model goes on working once every engine over
+it is demoted, as the reference's does (its closure keeps the arrays): an
+engine built over a released model copies them back onto the device (one
+host-to-device copy) and joins the model. A demoted engine restored
+while another engine is resident over its model fills a shell of its
+own. The price: while that snapshot is spilled to disk, or after it is
+restored elsewhere, the model still pins the parameters in host RAM
+(3.4 GB for SmolLM2-1.7B in bf16), where the reference keeps its arrays
+on the device; ``core.store.SnapshotPool``'s host budget counts only the
+snapshots it holds at HOST_RAM, so it does not see them. Dropping the
+model frees them. ``export_template`` (or its two halves,
 ``export_template_device`` and ``export_template_host``, for a streamed
 export) and ``clone_offloaded`` bootstrap a twin engine from the weights
 alone. ``warm_executables`` loads every kernel library the model launches
@@ -190,11 +200,14 @@ class InferenceEngine:
             raise ValueError(f"model lives on {model.device}, engine asked "
                              f"for {dev}")
         with _HOLDERS_LOCK:
-            if model.__dict__.get("_released_by_demote"):
-                raise ValueError(
-                    "the model's parameters were released by the demote of "
-                    "the last engine over it: restore that engine, or "
-                    "build the model anew")
+            released = model.__dict__.pop("_released_params", None)
+            if released is not None:
+                # the demote of the last engine over it released the
+                # parameters in place: bring back the snapshot's host
+                # copies, which the model kept
+                for n, p in model.named_parameters():
+                    p.data = released[n].to(
+                        dev, non_blocking=released[n].is_pinned(), copy=True)
             _holders(model).add(self)
         self.device = model.device
         self.model = model
@@ -425,7 +438,9 @@ class InferenceEngine:
                 for p in params.values():
                     p.data = torch.empty((0,), dtype=p.dtype,
                                          device=self.device)
-                self.model._released_by_demote = True
+                # a later build over the model restores these (the
+                # snapshot's own tensors, not a second host copy)
+                self.model._released_params = host["params"]
             self.cache = None
             self.extra = None
             for name in self._state_fields:
@@ -455,10 +470,6 @@ class InferenceEngine:
         def put(t):
             return t.to(d, non_blocking=t.is_pinned())
 
-        params = dict(self.model.named_parameters())
-        if set(params) != set(host_state["params"]):
-            raise ValueError("snapshot weights do not match the model's "
-                             "parameters")
         if self._paged:
             live = np.asarray(host_state["_paged_live_ids"], np.int64)
             refs = host_state.get("_paged_refcounts")
@@ -466,8 +477,24 @@ class InferenceEngine:
                 raise ValueError(
                     f"paged snapshot refcount vector ({len(refs)}) does not "
                     f"match its live-page index ({live.size})")
-        for n, p in params.items():
-            p.data = put(host_state["params"][n])
+        with _HOLDERS_LOCK:
+            model = self.model
+            if any(e is not self for e in _holders(model)):
+                # an engine built over the released model since the demote
+                # reads it: fill a shell of this engine's own
+                from repro_torch.models.registry import build_shell
+                model = build_shell(self.cfg, device=self.device)
+            params = dict(model.named_parameters())
+            if set(params) != set(host_state["params"]):
+                raise ValueError("snapshot weights do not match the "
+                                 "model's parameters")
+            # the model is this engine's own shell, or the one it released
+            # in place as the last engine over it, which no engine reads
+            model.__dict__.pop("_released_params", None)
+            for n, p in params.items():
+                p.data = put(host_state["params"][n])
+            self.model = model
+            _holders(model).add(self)
         if self._paged:
             self.cache = self.model.init_cache(self.num_pages + 1,
                                                self.page_size,
@@ -483,12 +510,6 @@ class InferenceEngine:
         if self._extra_host is not None:
             self.extra = {n: put(t) for n, t in host_state["extra"].items()}
         self._gen.set_state(host_state["_rng"])
-        # the model is this engine's own shell, or the one it released in
-        # place as the last engine over it (no engine can be built over
-        # that one since): nobody else reads it
-        with _HOLDERS_LOCK:
-            self.model.__dict__.pop("_released_by_demote", None)
-            _holders(self.model).add(self)
         self._sync()
         if self._aot_shared:
             # a wire shell's kernels load with its state
@@ -596,7 +617,8 @@ class InferenceEngine:
         dense attention (and the audio and vision models' cross-attention
         on the same two); the paged MLA decode for MLA on the paged pool
         (its prefill and slot-cache decode are torch); the grouped GEMM for
-        MoE; the SSD scan for Mamba2."""
+        MoE, and for every ``Transformer`` (dense or MoE) its prefill
+        linear, which is the same library; the SSD scan for Mamba2."""
         cfg = self.cfg
         if not (cfg.use_kernels and self.device.type == "cuda"):
             return ()
@@ -607,7 +629,7 @@ class InferenceEngine:
         elif cfg.family != "ssm":
             names += ["flash_attention", "paged_flash_decode" if self._paged
                       else "flash_decode"]
-        if cfg.moe.enabled:
+        if cfg.family in ("dense", "moe"):
             names.append("grouped_gemm")
         if cfg.family == "hybrid":
             names.append("ssd_scan")

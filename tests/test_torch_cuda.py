@@ -1008,7 +1008,9 @@ def test_cuda_two_node_wire_round_trip(cuda):
         res = [f.result(timeout=300) for f in futs]
         assert all(r[0] == want for r in res)
         on_b = [r[2] for r in res if r[1] == procs["B"].pid]
-        assert on_b and all(s["compiles"] == 0 and s["aot_cache_hits"] == 2
+        # flash_attention, flash_decode and grouped_gemm (the prefill
+        # linear)
+        assert on_b and all(s["compiles"] == 0 and s["aot_cache_hits"] == 3
                             for s in on_b)
         assert [(d.worker_id, d.source) for d in mgr.fetch_history(rec)] \
             == [("B", FetchSource.PEER)]
@@ -1094,6 +1096,8 @@ def _grad_calls(dev):
             t(2, 8, 64), t(2, 64, 32, grad=True)),
         "grouped_gemm_segments": lambda: ops.grouped_gemm_segments(
             t(8, 64, grad=True), t(2, **i32), t(2, 64, 32)),
+        "prefill_linear": lambda: ops.prefill_linear(
+            t(8, 64), t(64, 32, grad=True)),
         "ssm_scan": lambda: ops.ssm_scan(
             t(1, 16, 2, 16, dtype=torch.float32),
             t(1, 16, 2, 16, dtype=torch.float32),
@@ -1106,7 +1110,7 @@ def _grad_calls(dev):
 @pytest.mark.parametrize("name", ["flash_attention", "flash_decode",
                                   "paged_flash_decode", "paged_mla_decode",
                                   "grouped_gemm", "grouped_gemm_segments",
-                                  "ssm_scan"])
+                                  "prefill_linear", "ssm_scan"])
 def test_cuda_kernels_refuse_inputs_that_require_grad(cuda, name):
     """The kernels are forward-only: a call that autograd would carry
     through raises, names the kernel and launches nothing."""
@@ -1407,3 +1411,186 @@ def test_cuda_live_elastic_sweep_shares_one_model(cuda):
     assert got["preemptions"] >= 1 and got["failed"] == 0
     assert got["completed"] == n_tasks
     assert ops.LAUNCHES["flash_attention"] > 0
+
+
+# ------------------------------------------------ the prefill linear ------
+# SmolLM2-1.7B's prefill linears: (K, N, w K-major)
+LINEAR_SHAPES = {"qkvo": (2048, 2048, False), "up_gate": (2048, 8192, False),
+                 "down": (8192, 2048, False), "unembed": (2048, 49152, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,w_kmajor", [
+    (37, 64, 96, False), (37, 64, 96, True), (1, 2048, 2048, False),
+    (200, 2048, 256, True), (300, 104, 40, False), (512, 8192, 2048, False),
+    (16, 2048, 49152, True), (129, 2048, 8192, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_prefill_linear_matches_plain(cuda, M, K, N, w_kmajor, dtype):
+    """The prefill linear against its plain version (``torch.matmul`` in
+    the compute dtype), both weight layouts, ragged row and column counts
+    and SmolLM2's shapes, within the grouped GEMM's tolerance."""
+    x = _rand(0, (M, K), cuda, dtype)
+    w = _rand(1, (N, K) if w_kmajor else (K, N), cuda, dtype) * K ** -0.5
+    before = ops.LAUNCHES["prefill_linear"]
+    out = ops.prefill_linear(x, w, w_kmajor=w_kmajor)
+    assert ops.LAUNCHES["prefill_linear"] == before + 1
+    exp = ref.prefill_linear_ref(x, w, w_kmajor)
+    assert out.shape == (M, N) and out.dtype == x.dtype
+    err = float((out.float() - exp.float()).abs().max())
+    assert err <= _gemm_tol(dtype, K, exp)
+    x3 = _rand(2, (2, 3, 2 * K), cuda, dtype)[:, :, K:]  # not contiguous
+    out3 = ops.prefill_linear(x3, w, w_kmajor=w_kmajor)
+    assert torch.equal(out3, ops.prefill_linear(
+        x3.reshape(6, K).contiguous(), w, w_kmajor=w_kmajor).reshape(
+            2, 3, N))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", sorted(LINEAR_SHAPES))
+def test_cuda_prefill_linear_row_bits_do_not_depend_on_row_count(
+        cuda, shape, dtype):
+    """One row's output bits, bitwise, whatever the call's row count (1,
+    8, 100, 128, 129, 512, 2048, 8192) and wherever the row sits in it
+    (first, middle, last), at each of SmolLM2's prefill shapes: the
+    property a shared-prefix prefill needs to give a cold prefill's bits
+    (cuBLAS's down projection does not have it)."""
+    K, N, kmaj = LINEAR_SHAPES[shape]
+    w = _rand(1, (N, K) if kmaj else (K, N), cuda, dtype) * K ** -0.5
+    gen = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn((8192, K), generator=gen, device=cuda).to(TDT[dtype])
+    probe = torch.randn((1, K), generator=gen, device=cuda).to(TDT[dtype])
+    want = ops.prefill_linear(probe, w, w_kmajor=kmaj)[0]
+    differ = []
+    for M in (1, 8, 100, 128, 129, 512, 2048, 8192):
+        for at in sorted({0, M // 2, M - 1}):
+            xm = x[:M].clone()
+            xm[at] = probe[0]
+            got = ops.prefill_linear(xm, w, w_kmajor=kmaj)[at]
+            if not torch.equal(got, want):
+                differ.append((M, at))
+    assert not differ, f"{shape}: the row's bits differ at (M, row) {differ}"
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_gemm_wide_and_narrow_tiles_one_row(cuda):
+    """A reading, not a check: one row of an expert's segment through the
+    grouped GEMM's wide tiles and through its narrow (swap-AB) tiles, at
+    DeepSeek's gate/up and down shapes. Printed; the MoE keeps whichever
+    ``gemm_shape`` picks (ROADMAP.md records the answer)."""
+    from repro_torch.kernels.moe_gemm import grouped_gemm_segments_cuda
+    counts = [1, 0, 3, 17, 0, 2] + [1] * 58
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    readings = {}
+    for d, f in ((2048, 1408), (1408, 2048)):
+        x = _rand(0, (sum(counts), d), cuda, "bfloat16")
+        w = _rand(1, (len(counts), d, f), cuda, "bfloat16") * d ** -0.5
+        wide = grouped_gemm_segments_cuda(x, cnt, w, shape="wide")
+        narrow = grouped_gemm_segments_cuda(x, cnt, w, shape="narrow")
+        readings[f"{d}->{f}"] = dict(
+            bitwise=bool(torch.equal(wide, narrow)),
+            rows_differ=int((wide != narrow).any(dim=1).sum()),
+            max_diff=float((wide.float() - narrow.float()).abs().max()))
+        exp = ref.grouped_gemm_segments_ref(x, cnt, w)
+        for out in (wide, narrow):
+            assert float((out.float() - exp.float()).abs().max()) <= \
+                _gemm_tol("bfloat16", d, exp)
+    print(f"\ngrouped_gemm wide vs narrow tiles: {readings}")
+
+
+def _smol_full_width(cuda, n_layers):
+    """Full-width SmolLM2-1.7B (its prefill shapes, where cuBLAS's split-K
+    showed) at ``n_layers`` layers, bf16, the kernels on, seeded."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("smollm2-1.7b"), use_kernels=True,
+                              n_layers=n_layers)
+    return build_model(cfg, device=cuda, seed=0)
+
+
+def _shared_vs_cold(model, prompts, kw, first, max_new=8):
+    """``prompts[:first]`` then the rest through a sharing pool and a
+    cold one: (prefix hits, each pool's requests)."""
+    runs = {}
+    for on in (True, False):
+        eng = InferenceEngine(model, **dict(kw, prefix_sharing=on))
+        reqs = []
+        for batch in (prompts[:first], prompts[first:]):
+            reqs += [eng.submit(Request(prompt=list(p),
+                                        max_new_tokens=max_new,
+                                        keep_logits=True)) for p in batch]
+            eng.run_to_completion()
+        runs[on] = (eng.stats.prefix_hits, reqs)
+    return runs[True][0], runs[True][1], runs[False][1]
+
+
+@pytest.mark.cuda
+def test_cuda_quickstart_shared_prefix_matches_cold(cuda):
+    """Quickstart's shared-prefix section (8 sessions over its 23-token
+    template, pages of 8) at full width with the kernels: its tokens, and
+    a replay's first-token logits, bit for bit a cold pool's (a tail wave
+    of 8 x 16 rows against cold waves of 8 x 64)."""
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.examples import quickstart as qs
+    model = _smol_full_width(cuda, 4)
+    tok = HashTokenizer(model.cfg.vocab_size)
+    r = qs.prefix_sharing(model, tok, "cuda")
+    assert r["prefix_hits"] > 0
+    kw = dict(qs.paged_kw(model.cfg), device=cuda)
+    cold = InferenceEngine(model, **dict(kw, prefix_sharing=False))
+    assert cold.generate(r["prompts"], max_new_tokens=8) == r["tokens"]
+    hits, shared, cold_reqs = _shared_vs_cold(model, r["prompts"], kw,
+                                              first=1)
+    assert hits > 0
+    assert [q.generated for q in shared] == [q.generated for q in cold_reqs]
+    for a, b in zip(shared, cold_reqs):
+        assert torch.equal(a.first_logits, b.first_logits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size,prefix_len", [
+    (8, 21), (8, 37), (64, 77), (64, 130), (64, 200)])
+def test_cuda_shared_prefix_prefill_bitwise_cold(cuda, page_size,
+                                                 prefix_len):
+    """Tail waves over a shared prefix whose length is no multiple of the
+    page (8, 64) or of the prefill kernel's 64-query tile, at full width
+    with the kernels: every session's tokens and first-token logits are
+    the cold pool's bit for bit (the prefill linear and the attention's
+    tail rows at ``q_offset`` both give a row its cold bits)."""
+    model = _smol_full_width(cuda, 2)
+    rng = np.random.RandomState(prefix_len)
+    prefix = list(rng.randint(8, model.cfg.vocab_size, size=prefix_len))
+    ps = [prefix + list(rng.randint(8, model.cfg.vocab_size,
+                                    size=2 + 5 * i)) for i in range(9)]
+    kw = dict(device=cuda, slots=8, cache_len=512, prefill_buckets=(32, 256),
+              megastep=4, paged=True, page_size=page_size,
+              cache_dtype=torch.bfloat16)
+    hits, shared, cold = _shared_vs_cold(model, ps, kw, first=1, max_new=4)
+    assert hits >= 8
+    assert [q.generated for q in shared] == [q.generated for q in cold]
+    for a, b in zip(shared, cold):
+        assert torch.equal(a.first_logits, b.first_logits)
+
+
+@pytest.mark.cuda
+def test_cuda_last_demote_frees_the_parameters(cuda):
+    """The last engine's demote still frees at least the parameters'
+    device bytes; a builder over the released model brings them back and
+    decodes as before; the demoted engine restored beside it fills a
+    shell of its own and continues the same."""
+    model = _smol_full_width(cuda, 2)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    kw = dict(device=cuda, slots=4, cache_len=64, prefill_buckets=(16,),
+              megastep=4, cache_dtype=torch.bfloat16)
+    ps = [[5, 9, 14, 200, 7], [11, 3, 60, 61, 62, 63, 64]]
+    a = InferenceEngine(model, **kw)
+    want = a.generate(ps, max_new_tokens=6)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    host = a.offload_device_state()
+    torch.cuda.synchronize()
+    assert before - torch.cuda.memory_allocated() >= nbytes
+    b = InferenceEngine(model, **kw)
+    assert b.generate(ps, max_new_tokens=6) == want
+    a.restore_device_state(host)
+    assert a.model is not model
+    assert a.generate(ps, max_new_tokens=6) == want

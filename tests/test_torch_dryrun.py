@@ -367,6 +367,7 @@ ENTRY_POINTS = {
     "paged_mla_decode": lambda t: ops.paged_mla_decode(t, t, t, t, t, t),
     "grouped_gemm": lambda t: ops.grouped_gemm(t, t),
     "grouped_gemm_segments": lambda t: ops.grouped_gemm_segments(t, t, t),
+    "prefill_linear": lambda t: ops.prefill_linear(t, t),
     "ssm_scan": lambda t: ops.ssm_scan(t, t, t, t),
 }
 

@@ -7,10 +7,13 @@ resident engine over a model releases them in place when it is demoted;
 any other copies them to the host and moves onto a model shell of its
 own, so the engines still serving keep decoding as the JAX engines do on
 the same bridged weights (reduced smollm2-1.7b, f32, CPU), and the
-demoted engine continues bit for bit once restored."""
+demoted engine continues bit for bit once restored. A released model
+keeps the snapshot's host copies, so the builder goes on working once
+every engine over it is demoted, as the reference's does."""
 
 import sys
 import threading
+import time
 
 import pytest
 
@@ -23,6 +26,8 @@ from repro.configs import get_reduced_config as jax_config  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro.serving import InferenceEngine as JaxEngine  # noqa: E402
 from repro_torch.configs import get_reduced_config  # noqa: E402
+from repro_torch.core import (ContextMode, PCMManager,  # noqa: E402
+                              load_context, make_recipe)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import InferenceEngine, Request  # noqa: E402
 from repro_torch.weights import from_jax_params  # noqa: E402
@@ -105,23 +110,100 @@ def test_demote_leaves_the_other_engine_serving(bridged, jax_tokens, kind):
 
 def test_a_lone_engine_still_releases_its_parameters(bridged, jax_tokens):
     """The last resident engine over a model releases the parameters in
-    place; no engine can be built over the released model; the restore
-    fills the same module again."""
+    place; an engine built over the released model brings them back from
+    the snapshot's host copies (which the model kept, not a copy of
+    them) and serves the JAX engine's tokens; the demoted engine, restored
+    while that one is resident, fills a shell of its own and continues
+    bit for bit."""
     model = fresh_model(bridged)
+    want = {n: p.clone() for n, p in model.named_parameters()}
     a = engine(model, SLOT)
     ps = prompts(7, seed=11)
     reqs = in_flight(a, ps)
     host = a.offload_device_state()
     assert a.model is model
     assert all(p.numel() == 0 for p in model.parameters())
-    with pytest.raises(ValueError, match="released"):
-        engine(model, SLOT)
+    kept = model._released_params
+    assert all(kept[n] is host["params"][n] for n in want)
+    b = engine(model, SLOT)
+    assert "_released_params" not in model.__dict__
+    for n, p in model.named_parameters():
+        assert torch.equal(p, want[n]) and p.data_ptr() != \
+            host["params"][n].data_ptr()
+    assert b.generate(ps, max_new_tokens=NEW) == jax_tokens["slot"]
     a.restore_device_state(host)
-    assert a.model is model
+    assert a.model is not model and b.model is model
     a.run_to_completion()
     assert [r.generated for r in reqs] == jax_tokens["slot"]
-    assert engine(model, SLOT).generate(ps, max_new_tokens=NEW) == \
-        jax_tokens["slot"]
+    for n, p in model.named_parameters():
+        assert torch.equal(p, want[n])
+    assert b.generate(ps, max_new_tokens=NEW) == jax_tokens["slot"]
+
+
+def test_a_restore_with_no_engine_resident_fills_the_model(bridged,
+                                                           jax_tokens):
+    """An engine built over the released model and then demoted itself
+    releases the model again; the first engine's restore then fills the
+    model in place (no one reads it), and so does the second's into a
+    shell: both continue bit for bit."""
+    model = fresh_model(bridged)
+    a = engine(model, SLOT)
+    ps = prompts(7, seed=11)
+    ra = in_flight(a, ps)
+    ha = a.offload_device_state()
+    b = engine(model, SLOT)
+    rb = in_flight(b, ps)
+    hb = b.offload_device_state()
+    assert b.model is model and all(p.numel() == 0
+                                    for p in model.parameters())
+    a.restore_device_state(ha)
+    assert a.model is model and "_released_params" not in model.__dict__
+    b.restore_device_state(hb)
+    assert b.model is not model
+    a.run_to_completion()
+    b.run_to_completion()
+    assert [r.generated for r in ra] == jax_tokens["slot"]
+    assert [r.generated for r in rb] == jax_tokens["slot"]
+
+
+def test_builder_over_a_demoted_model_builds_in_the_runtime(bridged):
+    """A live PCM manager whose context builder closes over one model:
+    its only worker's engine is preempted into the snapshot pool (the last
+    engine over the model, so the demote releases the parameters), the
+    pool's copy is evicted, and a fresh worker's task is served by a
+    builder call over the released model, which builds and gives a bare
+    engine's first tokens."""
+    model = fresh_model(bridged)
+    ps = prompts(6, seed=21)
+    bare = engine(fresh_model(bridged), SLOT).generate(ps, max_new_tokens=1)
+    calls = []
+
+    def build():
+        calls.append(1)
+        return {"engine": InferenceEngine(model, device="cpu", **SLOT)}
+
+    def task():
+        return load_context("engine").generate(ps, max_new_tokens=1)
+
+    rec = make_recipe("released", build, host_bytes=0)
+    mgr = PCMManager(mode=ContextMode.FULL, n_workers=1)
+    try:
+        assert mgr.submit(task, recipe=rec).result(timeout=120) == bare
+        mgr.preempt_worker(next(iter(mgr.workers)))
+        deadline = time.monotonic() + 60
+        while rec.key() not in mgr.snapshots.keys():
+            assert time.monotonic() < deadline, "the preempted context " \
+                "never reached the snapshot pool"
+            time.sleep(0.01)
+        assert all(p.numel() == 0 for p in model.parameters())
+        mgr.snapshots.discard(rec.key())
+        mgr.add_worker()
+        assert mgr.submit(task, recipe=rec).result(timeout=120) == bare
+        assert calls == [1, 1]
+        assert mgr.stats()["context_restores"] == 0
+        assert all(p.numel() > 0 for p in model.parameters())
+    finally:
+        mgr.shutdown()
 
 
 @pytest.mark.parametrize("kind", ["slot", "paged"])
