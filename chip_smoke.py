@@ -19,6 +19,12 @@ steps of the decode cell against the unsharded kernel path on each card
 (phase_seq_decode). It exits 0 when every case agrees, and prints no ok
 line.
 
+With --dense-gemm-probe it runs phases 1-2 and then times every plan and
+route the prefill linear's kernel can take at phase 3's prefill shapes
+beside the one kernels/dense_gemm.py picks (phase_dense_gemm_probe): a
+reading of what another plan would gain. It exits 0 when every plan's
+output agrees with torch.matmul, and prints no ok line.
+
 Phases (any failure exits non-zero; no phase swallows an exception):
   1. card     - the card's name and power limit, torch and CUDA versions;
   2. build    - nvcc builds the hand-written kernels from csrc/;
@@ -56,10 +62,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 same function where there is one (every kernel and its
                 library call timed as device time, replayed from a CUDA
                 graph, and also as eager launches); the prefill linear (the
-                port's own kernel, the grouped GEMM's wide route at one
-                group: every linear of a Transformer's prefill) at
-                SmolLM2-1.7B's prefill shapes against torch.matmul, its
-                rows' bits at 128 rows equal among 512 and 8192;
+                port's own dense GEMM, csrc/dense_gemm.cu: every linear of
+                a dense Transformer's prefill) at SmolLM2-1.7B's prefill
+                shapes against its former route, torch.matmul and the bound,
+                host microseconds a call beside torch.matmul's, and one
+                row's bits equal at 1-8192 rows and either side of each
+                switch of its route, in bf16 and f32;
   4. serve    - full-width SmolLM2-1.7B (seeded random weights, bf16)
                 with the kernels: (a) fact verification, 4 prompt templates
                 x 64 claims, one token each, and (b) 16 long prompts of
@@ -347,8 +355,9 @@ from repro_torch.data import (HashTokenizer, PipelineConfig,  # noqa: E402
 from repro_torch.data.tokenizer import BOS, LABEL_TOKENS  # noqa: E402
 from repro_torch.examples import opportunistic_serving as live_example  # noqa
 from repro_torch.examples import quickstart as qs_example  # noqa: E402
-from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.kernels.moe_gemm import gemm_shape  # noqa: E402
+from repro_torch.kernels import build, dense_gemm, ops, ref  # noqa: E402
+from repro_torch.kernels.moe_gemm import (  # noqa: E402
+    gemm_shape, grouped_gemm_segments_cuda)
 from repro_torch.launch import hlo, roofline  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import sharding as shp  # noqa: E402
@@ -1129,6 +1138,13 @@ LINEAR_SHAPES = (("q/k/v/o 2048->2048", 2048, 2048, False),
                  ("down 8192->2048", 8192, 2048, False))
 LINEAR_ROWS = (128, 512, 8192)
 LINEAR_UNEMBED = ("unembed 2048->49152 (tok, K-major)", 2048, 49152, True, 16)
+# the row-bits sweep: SmolLM2's four shapes and a dense decoder's (h2o-
+# danube-1.8b's down projection, 128-column accumulators in 5 chunks) at
+# LINEAR_SWEEP_ROWS and either side of each switch of the kernel's route
+LINEAR_SWEEP = LINEAR_SHAPES + (LINEAR_UNEMBED[:4],
+                                ("danube down 6912->2560", 6912, 2560,
+                                 False))
+LINEAR_SWEEP_ROWS = (1, 16, 127, 128, 129, 512, 2048, 8192)
 
 
 def linear_bound(M, K, N, elt=2):
@@ -1137,13 +1153,189 @@ def linear_bound(M, K, N, elt=2):
     return (M * K + K * N + M * N) * elt, 2.0 * M * K * N
 
 
+def host_us(fn, iters: int = 100, repeats: int = 5) -> float:
+    """The host's microseconds a call of ``fn`` takes to issue: ``iters``
+    eager calls with no synchronisation in between (the queue does not
+    fill at these sizes), the card synchronised before and after, the
+    least of ``repeats`` such runs: the host's cores are shared, with the
+    dry-run's subprocesses among others, and the least is the run they
+    disturbed least."""
+    for _ in range(10):
+        fn()
+    runs = []
+    for _ in range(repeats):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        runs.append((time.perf_counter() - t0) / iters * 1e6)
+    sync()
+    return min(runs)
+
+
+def grouped_linear(x, w, kmaj):
+    """The route the prefill linear took before csrc/dense_gemm.cu: the
+    grouped GEMM's wide tiles at one group of all x's rows (the removed
+    ``dense_gemm_fwd`` ran the same body with the counts taken as M). It
+    read a K-major w in place; this reading takes w transposed once, before
+    any timing. Timed here only; nothing on the path calls it."""
+    counts = torch.full((1,), x.shape[0], dtype=torch.int32, device="cuda")
+    w3 = (w.t().contiguous() if kmaj else w)[None]
+    return lambda: grouped_gemm_segments_cuda(x, counts, w3, shape="wide")
+
+
+def clusters_at_once() -> dict:
+    """The clusters of S of the kernel's blocks that this card holds at
+    once (cudaOccupancyMaxActiveClusters), S = 1 .. 16, beside the H100
+    table the plan is sized by (``dense_gemm.CLUSTERS_AT_ONCE``)."""
+    import ctypes
+    lib = dense_gemm._lib()
+    lib.dense_gemm_clusters_at_once.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    got = {}
+    for S in range(1, dense_gemm.MAX_SPLIT + 1):
+        n = ctypes.c_int(0)
+        build.check(lib, "dense_gemm occupancy",
+                    lib.dense_gemm_clusters_at_once(S, ctypes.byref(n)))
+        got[S] = n.value
+    table = dict(enumerate(dense_gemm.CLUSTERS_AT_ONCE))
+    same = all(got[S] == table[S] for S in got)
+    log(f"[kernels] prefill_linear clusters of S blocks at once on this "
+        f"card {got}: {'equal to' if same else 'NOT the'} plan's H100 table")
+    return dict(measured=got, equal_to_plan_table=same)
+
+
+def linear_row_sweep(gen, label, K, N, kmaj, dtype) -> dict:
+    """One row's bits through the prefill linear, bitwise, or the phase
+    fails: a probe row alone (M = 1) against the same row placed first,
+    in the middle and last among M rows, at LINEAR_SWEEP_ROWS and either
+    side of the kernel's two switches (the most rows summed across blocks
+    and one more; the fewest rows whose blocks take 128 columns and
+    one row tile fewer). Three positions share one call: a row's bits
+    depend on that row alone. In bf16 torch.matmul's reading beside it
+    (its first 128 rows alone and among 512 and 8192)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = dense_gemm.dense_gemm_plan(K, N)
+    sw = dense_gemm.switch_rows(K, N, sms)
+    two = dense_gemm.wide_block_rows(K, N, sms)
+    counts = sorted(set(LINEAR_SWEEP_ROWS) | ({sw, sw + 1} if sw else set())
+                    | {M for M in (two - 128, two) if 0 < M <= 8192})
+    x = randn(gen, (max(counts), K), dtype)
+    w = randn(gen, (N, K) if kmaj else (K, N), dtype) * K ** -0.5
+    probe = randn(gen, (1, K), dtype)
+    want = ops.prefill_linear(probe, w, w_kmajor=kmaj)[0]
+    differ = []
+    for M in counts:
+        at = sorted({0, M // 2, M - 1})
+        xm = x[:M].clone()
+        xm[at] = probe[0]
+        got = ops.prefill_linear(xm, w, w_kmajor=kmaj)[at]
+        differ += [(M, a) for a, row in zip(at, got)
+                   if not torch.equal(row, want)]
+        del xm, got
+    out = dict(dtype=str(dtype).split(".")[-1], split=plan.split,
+               chunk=plan.chunk, tile_cols=plan.tile_cols, switch_rows=sw,
+               wide_blocks_from=two, rows=counts, differ=differ)
+    reading = ""
+    if dtype == torch.bfloat16 and not kmaj:
+        out["matmul"] = {M: bool(torch.equal(
+            x[:128] @ w, (x[:M] @ w)[:128])) for M in (512, 8192)}
+        reading = f" (torch.matmul, rows 0-127 among 512 / 8192: " \
+                  f"{out['matmul']})"
+    log(f"[kernels] prefill_linear {label} {out['dtype']} (plan: "
+        f"{plan.split} chunks of {plan.chunk} on {plan.tile_cols}-column "
+        f"accumulators; across blocks up to {sw} rows, 128-column blocks "
+        f"from {two or 'never'}): one row first, middle and last "
+        f"among {counts} rows {'bitwise equal' if not differ else differ}"
+        f"{reading}")
+    if differ:
+        raise AssertionError(f"prefill_linear {label} {dtype}: a row's bits "
+                             f"depend on the row count: {differ}")
+    del x, w
+    return out
+
+
+def dense_plans(M, K, N, sms):
+    """Every (split, chunk in k-slices, block columns, across) that the
+    prefill linear's kernel takes for M rows of (K, N): each split of K
+    into whole 64-deep k-slices (``dense_gemm.splits``), blocks of 64 and
+    128 columns, inside one block, and across a cluster of blocks where
+    ``dense_gemm.across`` would allow it."""
+    nk = -(-K // dense_gemm.SLICE)
+    plans = []
+    for split, chunk in dense_gemm.splits(nk):
+        for cols in (64, 128):
+            p = dense_gemm.Plan(K, dense_gemm.TILE_ROWS, cols,
+                                chunk * dense_gemm.SLICE, split)
+            plans.append((split, chunk, cols, 0))
+            if dense_gemm.across(p, M, N, sms):
+                plans.append((split, chunk, cols, 1))
+    return plans
+
+
+def phase_dense_gemm_probe() -> dict:
+    """For --dense-gemm-probe: the prefill linear's kernel at phase 3's
+    shapes (LINEAR_SHAPES at LINEAR_ROWS, the unembedding) on every plan
+    of ``dense_plans``, launched through the library with the plan's
+    integers (``dense_gemm_fwd``, as ``dense_gemm.dense_gemm_cuda`` does
+    with ``launch_plan``'s), each output held to torch.matmul within
+    gemm_tol, and each timed as device time replayed from a CUDA graph:
+    the plan the wrapper picks beside the fastest of the others. These
+    launches are not the path's and are not counted."""
+    lib = dense_gemm._lib()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = np.random.RandomState(5)
+    out = {}
+    for label, K, N, kmaj, M in (
+            [(n, K, N, km, M) for n, K, N, km in LINEAR_SHAPES
+             for M in LINEAR_ROWS] + [LINEAR_UNEMBED]):
+        x = randn(gen, (M, K), torch.bfloat16)
+        w = randn(gen, (N, K) if kmaj else (K, N), torch.bfloat16) * K ** -0.5
+        exp = torch.matmul(x, w.t() if kmaj else w)
+        tol = gemm_tol(torch.bfloat16, K, exp)
+        y = torch.empty_like(exp)
+
+        def run(plan):
+            build.check(lib, "dense_gemm probe", lib.dense_gemm_fwd(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, N, 1,
+                int(kmaj), *plan, sms,
+                torch.cuda.current_stream().cuda_stream))
+        times = {}
+        for plan in dense_plans(M, K, N, sms):
+            run(plan)
+            err = float((y.float() - exp.float()).abs().max())
+            if not err <= tol:
+                raise AssertionError(f"dense_gemm probe {label} at {M} rows, "
+                                     f"plan {plan}: error {err} > {tol}")
+            times[plan] = device_ms(lambda: run(plan),
+                                    iters=50 if M <= 512 else 10)
+        picked = dense_gemm.launch_plan(M, K, N, sms)
+        ranked = sorted(times, key=times.get)
+        faster = [p for p in ranked if times[p] < times[picked]]
+        out[f"{label} M {M}"] = dict(
+            picked=list(picked), picked_ms=times[picked],
+            fastest=list(ranked[0]), fastest_ms=times[ranked[0]],
+            faster=len(faster), plans=len(times),
+            top=[[list(p), times[p]] for p in ranked[:6]])
+        log(f"[probe] prefill_linear {label} at {M} rows: picked (split, "
+            f"chunk, cols, across) {picked} {times[picked]:.4f} ms; "
+            f"{len(faster)} of {len(times)} plans faster; the fastest "
+            f"{ranked[0]} {times[ranked[0]]:.4f} ms; top six "
+            f"{[(p, round(times[p], 4)) for p in ranked[:6]]}")
+        del x, w, exp, y
+    return out
+
+
 def phase_kernels_linear(gen) -> dict:
-    """The prefill linear (``ops.prefill_linear``, the grouped GEMM's wide
-    route at one group) against its plain version (``torch.matmul`` in
-    bf16) at SmolLM2-1.7B's prefill shapes, timed beside ``torch.matmul``
-    and the bound; its rows' bits at 128 rows alone and among 512 and 8192
-    (bitwise, or the phase fails); f32 and K-major checks at small
-    shapes."""
+    """The prefill linear (``ops.prefill_linear``, the port's own dense
+    GEMM, csrc/dense_gemm.cu) against its plain version (``torch.matmul``
+    in bf16) at SmolLM2-1.7B's prefill shapes, timed beside its former
+    route ("was", the grouped GEMM's wide tiles at one group),
+    ``torch.matmul`` and the bound, with each call's host microseconds
+    beside ``torch.matmul``'s; one row's bits at every row count of the
+    sweep, in bf16 and f32 (bitwise, or the phase fails); f32 and K-major
+    checks at small shapes; the card's cluster occupancy beside the plan's
+    table."""
     cases = {}
     for label, K, N, kmaj, rows in (
             [(n, K, N, km, M) for n, K, N, km in LINEAR_SHAPES
@@ -1158,43 +1350,38 @@ def phase_kernels_linear(gen) -> dict:
         name = f"prefill_linear {label} at {rows} rows bf16"
         check(name, err, torch.bfloat16, tol=gemm_tol(torch.bfloat16, K, exp))
         iters = 50 if rows <= 512 else 10
-        ms = device_ms(lambda: ops.prefill_linear(x, w, w_kmajor=kmaj),
-                       iters=iters)
-        eager = time_ms(lambda: ops.prefill_linear(x, w, w_kmajor=kmaj),
-                        iters=iters)
+        def kernel():
+            return ops.prefill_linear(x, w, w_kmajor=kmaj)
+        old = grouped_linear(x, w, kmaj)
+        was_err = float((old().float() - exp.float()).abs().max())
+        ms = device_ms(kernel, iters=iters)
+        was = device_ms(old, iters=iters)
+        eager = time_ms(kernel, iters=iters)
         plain = time_ms(lambda: ref.prefill_linear_ref(x, w, kmaj),
                         iters=iters)
         lib = device_ms(lambda: torch.matmul(x, wt), iters=iters)
+        host = host_us(kernel)
+        lib_host = host_us(lambda: torch.matmul(x, wt))
         nbytes, flops = linear_bound(rows, K, N)
         bms, by = bound_ms(nbytes, flops)
         log(f"[kernels] {name}: kernel {ms:.4f} ms "
             f"({rate(nbytes, flops, ms, by)}; eager launches {eager:.4f} "
-            f"ms), torch.matmul {lib:.4f} ms ({lib / ms:.2f}x the kernel's "
-            f"speed), plain eager {plain:.4f} ms, bound {bms:.4f} ms ({by}: "
+            f"ms; host {host:.1f} us a call), was {was:.4f} ms "
+            f"({was / ms:.2f}x; its max_abs_err {was_err:.3e}), "
+            f"torch.matmul {lib:.4f} ms "
+            f"({lib / ms:.2f}x the kernel's speed; host {lib_host:.1f} us), "
+            f"plain eager {plain:.4f} ms, bound {bms:.4f} ms ({by}: "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
         cases[f"{label} M {rows}"] = dict(
             rows=rows, K=K, N=N, w_kmajor=kmaj, max_abs_err=err, ms=ms,
-            eager_ms=eager, plain_ms=plain, library_ms=lib, bound_ms=bms,
+            was_ms=was, eager_ms=eager, host_us=host, plain_ms=plain,
+            library_ms=lib, library_host_us=lib_host, bound_ms=bms,
             bound_by=by, achieved=rate(nbytes, flops, ms, by))
-        del x, w, wt, out, exp
-    # a row's bits: the first 128 rows alone, and among 512 and 8192 (the
-    # shapes where cuBLAS's down projection gave other bits)
-    parity = {}
-    for label, K, N, _ in LINEAR_SHAPES:
-        x = randn(gen, (8192, K), torch.bfloat16)
-        w = randn(gen, (K, N), torch.bfloat16) * K ** -0.5
-        alone = ops.prefill_linear(x[:128], w)
-        parity[label] = {M: bool(torch.equal(
-            alone, ops.prefill_linear(x[:M], w)[:128])) for M in (512, 8192)}
-        cublas = {M: bool(torch.equal(x[:128] @ w, (x[:M] @ w)[:128]))
-                  for M in (512, 8192)}
-        log(f"[kernels] prefill_linear {label}: rows 0-127 alone vs among "
-            f"512 / 8192 rows bitwise {parity[label]} (torch.matmul: "
-            f"{cublas})")
-        if not all(parity[label].values()):
-            raise AssertionError(f"prefill_linear {label}: a row's bits "
-                                 f"depend on the row count")
-        del x, w
+        del x, w, wt, out, exp, old
+    sweep = {f"{label} {str(dt).split('.')[-1]}":
+             linear_row_sweep(gen, label, K, N, kmaj, dt)
+             for label, K, N, kmaj in LINEAR_SWEEP
+             for dt in (torch.bfloat16, torch.float32)}
     for K, N, kmaj, M in ((64, 96, False, 37), (64, 96, True, 37),
                           (2048, 256, True, 200)):
         x = randn(gen, (M, K), torch.float32)
@@ -1208,11 +1395,11 @@ def phase_kernels_linear(gen) -> dict:
     main = cases["down 8192->2048 M 512"]
     return {"prefill_linear": dict(
         name="prefill_linear", route="cuda",
-        source="src/repro_torch/csrc/grouped_gemm.cu",
+        source="src/repro_torch/csrc/dense_gemm.cu",
         replaces="src/repro/models/layers.py:150",
         **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
-        cases=cases, row_parity=parity)}
+        cases=cases, row_sweep=sweep, clusters=clusters_at_once())}
 
 
 def phase_kernels_mla_moe() -> dict:
@@ -1922,10 +2109,10 @@ def expected_launches(engine, waves, steps):
     step. DeepSeek (paged):
     each layer the MLA decode kernel once per step (its prefill is torch,
     as the reference's is XLA), each MoE layer the grouped GEMM three
-    times (gate, up, down) per wave and per step. The decoders of
-    ``Transformer`` (dense and MoE) launch the prefill linear
-    (``prefill_linears``) for each of a wave's projections, MLP GEMMs and
-    its unembedding. Nothing else launches.
+    times (gate, up, down) per wave and per step. The dense decoders of
+    ``Transformer`` launch the prefill linear (``prefill_linears``) for
+    each of a wave's projections, MLP GEMMs and its unembedding; the MoE
+    decoders' prefill linears are cuBLAS's. Nothing else launches.
     Returns (expected counts, the kernels that must have run)."""
     cfg = engine.cfg
     expect = {name: 0 for name in ops.LAUNCHES}
@@ -1971,19 +2158,14 @@ def expected_launches(engine, waves, steps):
 
 def prefill_linears(cfg) -> int:
     """The prefill linears (``ops.prefill_linear``) one prefill wave of a
-    ``Transformer`` with the kernels launches: each layer's attention
-    projections (q, k, v and out; MLA's q and out, its latent down
-    projection and decompression being torch), its MLP's GEMMs (up, gate
-    where SwiGLU, down) or, in a MoE layer, its shared experts' MLP, and
-    the unembedding once. The other families' prefills keep
+    dense ``Transformer`` with the kernels launches: each layer's
+    attention projections (q, k, v and out) and MLP GEMMs (up, gate where
+    SwiGLU, down), and the unembedding once. The other families' prefills
+    (MoE decoders' included: ``Transformer._row_invariant``) keep
     ``torch.matmul``."""
-    if not cfg.use_kernels or cfg.family not in ("dense", "moe"):
+    if not cfg.use_kernels or cfg.family != "dense":
         return 0
-    ffn = 3 if cfg.activation == "swiglu" else 2
-    n_dense = cfg.moe.first_dense_layers if cfg.moe.enabled else cfg.n_layers
-    shared = ffn if cfg.moe.enabled and cfg.moe.n_shared_experts else 0
-    return (1 + cfg.n_layers * (2 if cfg.attention == "mla" else 4)
-            + n_dense * ffn + (cfg.n_layers - n_dense) * shared)
+    return 1 + cfg.n_layers * (4 + (3 if cfg.activation == "swiglu" else 2))
 
 
 def run_path(engine, label, fn):
@@ -2653,7 +2835,7 @@ def phase_runtime() -> dict:
 
 
 # -------------------------------------------------------- 5c. multihost ----
-# flash_attention, flash_decode and grouped_gemm (the prefill linear)
+# flash_attention, flash_decode and dense_gemm (the prefill linear)
 MULTIHOST_LIBRARIES = 3
 
 
@@ -5747,6 +5929,11 @@ def main() -> int:
                          "of phases 6 and 7 with no fault and with each "
                          "planted fault (PlantFault); exits 0 when the "
                          "sound run passes and every fault is caught")
+    ap.add_argument("--dense-gemm-probe", action="store_true",
+                    help="instead of the smoke run: time every plan the "
+                         "prefill linear's kernel takes at phase 3's "
+                         "shapes beside the one it picks "
+                         "(phase_dense_gemm_probe)")
     ap.add_argument("--seq-decode", action="store_true",
                     help="instead of the smoke run: the sequence-sharded "
                          "decode on a (2, 2) mesh of four cards against "
@@ -5771,6 +5958,16 @@ def main() -> int:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(report, indent=1))
         print(json.dumps({"seq_decode_ok": True, "seconds":
+                          time.monotonic() - t_start}), flush=True)
+        return 0
+    if args.dense_gemm_probe:
+        report = {"card": phase_card(), "build": {
+            k: v for k, v in phase_build().items() if k != "ptxas"}}
+        report["dense_gemm_probe"] = phase_dense_gemm_probe()
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(report, indent=1))
+        print(json.dumps({"dense_gemm_probe_ok": True, "seconds":
                           time.monotonic() - t_start}), flush=True)
         return 0
     if args.faults:
@@ -5874,8 +6071,8 @@ def main() -> int:
     report["flash_attention_q_offset"] = rows["flash_attention"]["q_offset"]
     report["grouped_gemm_cases"] = rows["grouped_gemm"]["cases"]
     report["prefill_linear_cases"] = rows["prefill_linear"]["cases"]
-    report["prefill_linear_row_parity"] = rows["prefill_linear"][
-        "row_parity"]
+    report["prefill_linear_row_sweep"] = rows["prefill_linear"]["row_sweep"]
+    report["prefill_linear_clusters"] = rows["prefill_linear"]["clusters"]
     report["ssd_scan_cases"] = rows["ssd_scan"]["cases"]
     report["d112"] = {k: rows[k]["d112"]
                       for k in ("flash_attention", "flash_decode")}

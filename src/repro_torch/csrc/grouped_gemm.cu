@@ -11,14 +11,9 @@
 //     three times per layer (gate, up, down).
 //   * the reference's (E, C, d) x (E, d, f) -> (E, C, f): uniform segments
 //     of C rows.
-// and, through `dense_gemm_fwd`, the port's own prefill linear (it replaces
-// no TPU kernel: the reference leaves its projections to XLA): x (M, K) x
-// w (K, N), or w (N, K) read K-major for the tied unembedding, as one group
-// of M rows on the wide tiles whatever M and N, so a row's bits depend on
-// that row and the weights alone (the MLP's down projection through cuBLAS
-// gave a row other bits at 128 rows than at 512: split-K).
 // Rows past sum(counts) are not written. d and f are multiples of 8
-// (DeepSeek's 2048 and 1408), x, w and out 16-byte aligned.
+// (DeepSeek's 2048 and 1408), x, w and out 16-byte aligned. (The port's
+// dense prefill linear has a kernel of its own, csrc/dense_gemm.cu.)
 //
 // The TPU kernel's grid was (E, C / bc, f / bf, d / bd) over a padded
 // (E, C, d) layout with the contraction as its sequential axis. Here the
@@ -80,17 +75,6 @@
 // cluster of blocks, which cut those bytes, are the next step.
 // f32 runs on the CUDA cores on 64 x 64 tiles (4 x 8 outputs a thread),
 // one block per (row tile + E spare, column strip), as before.
-//
-// The prefill linear (one group, `counts` null: M rows): the bf16 route on
-// the wide tiles for every N (gemm_shape would pick the narrow ones for a
-// small M), with the w tile either MN-major as above or, for w (N, K) with
-// K contiguous, one 128-row x 64-deep TMA box laid out as the x tile is,
-// which wgmma takes as B without its transpose bit (SmolLM2's 201 MB
-// embedding is read in place, never transposed). It is bound by the tensor
-// cores' rate at a wave's M (16 x 512 rows: 2 x 8192 x 2048 x 8192 FLOPs,
-// 0.28 ms) and by the weight bytes at a few rows (the unembedding at 16
-// rows: 201 MB, 0.06 ms); the wide tile pads rows to 128, which costs
-// tensor work and no bytes.
 
 #include <cstdint>
 
@@ -103,80 +87,18 @@ namespace gemm {
 using namespace repro::hopper;
 
 // ------------------------------------------------------------- f32 ----
-constexpr int kF32BM = 64, kF32BN = 64, kF32Threads = 128;
-
-// f32 tile: out[r, n0 + c] for r < rows, c < 64, on the CUDA cores; w
-// (d, f), or (f, d) with kKMajor.
-template <bool kKMajor>
-__device__ void tile_f32(const float* __restrict__ xb,
-                         const float* __restrict__ wb, float* __restrict__ ob,
-                         int rows, int d, int f, int n0) {
-  constexpr int BM = kF32BM, BN = kF32BN, kThreads = kF32Threads;
-  constexpr int BK = 16;
-  __shared__ float As[BK][BM + 4];  // depth-major: a column per row
-  __shared__ float Bs[BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int ty = tid / 8;  // rows ty * 4 .. + 3
-  const int tx = tid % 8;  // columns tx * 8 .. + 7
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += kThreads) {
-      const int r = i / BK, k = i % BK;
-      As[k][r] = (r < rows && k0 + k < d) ? xb[(long long)r * d + k0 + k]
-                                          : 0.f;
-    }
-    for (int i = tid; i < BK * BN; i += kThreads) {
-      // neighbouring threads on neighbouring addresses of w
-      const int k = kKMajor ? i % BK : i / BN;
-      const int c = kKMajor ? i / BK : i % BN;
-      Bs[k][c] = (k0 + k < d && n0 + c < f)
-                     ? wb[kKMajor ? (long long)(n0 + c) * d + k0 + k
-                                  : (long long)(k0 + k) * f + n0 + c]
-                     : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[4], bv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = Bs[k][tx * 8 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + tx * 8 + j;
-      if (r < rows && c < f) ob[(long long)r * f + c] = acc[i][j];
-    }
-  }
-}
+// f32 runs on common.cuh's tile_f32, 64 x 64 tiles on the CUDA cores.
 
 // Warp 0's inclusive scans of tiles and rows per expert, 32 experts at a
 // time: tile_lo[e] = tiles before expert e, row_lo[e] = rows before it,
-// tile_lo[E] and row_lo[E] the totals. Negative counts count as 0; null
-// counts are one group of all N rows (the prefill linear, E = 1).
-__device__ void scan_counts(const int* __restrict__ counts, int E, int N,
-                            int bm, int* tile_lo, int* row_lo) {
+// tile_lo[E] and row_lo[E] the totals. Negative counts count as 0.
+__device__ void scan_counts(const int* __restrict__ counts, int E, int bm,
+                            int* tile_lo, int* row_lo) {
   const int lane = threadIdx.x % 32;
   int tiles_base = 0, rows_base = 0;
   for (int e0 = 0; e0 < E; e0 += 32) {
     const int e = e0 + lane;
-    const int c =
-        e < E ? (counts != nullptr ? max(0, __ldg(counts + e)) : N) : 0;
+    const int c = e < E ? max(0, __ldg(counts + e)) : 0;
     const int nt = (c + bm - 1) / bm;
     int st = nt, sr = c;
 #pragma unroll
@@ -222,7 +144,6 @@ __device__ __forceinline__ int find_tile(const int* tile_lo,
   return min(rows, N - row0);
 }
 
-template <bool kKMajor>
 __global__ void __launch_bounds__(kF32Threads)
 grouped_gemm_f32(const float* __restrict__ x, const int* __restrict__ counts,
                  const float* __restrict__ w, float* __restrict__ out, int N,
@@ -230,15 +151,15 @@ grouped_gemm_f32(const float* __restrict__ x, const int* __restrict__ counts,
   extern __shared__ int s_scan[];  // tile_lo[E + 1], row_lo[E + 1]
   int* tile_lo = s_scan;
   int* row_lo = s_scan + E + 1;
-  if (threadIdx.x < 32) scan_counts(counts, E, N, kF32BM, tile_lo, row_lo);
+  if (threadIdx.x < 32) scan_counts(counts, E, kF32BM, tile_lo, row_lo);
   __syncthreads();
   const int t = blockIdx.x;
   if (t >= tile_lo[E]) return;  // a spare tile of the grid
   int e, row0;
   const int rows = find_tile(tile_lo, row_lo, E, kF32BM, N, t, e, row0);
   if (rows <= 0) return;  // counts past N are cut at N
-  tile_f32<kKMajor>(x + (long long)row0 * d, w + (long long)e * d * f,
-           out + (long long)row0 * f, rows, d, f, blockIdx.y * kF32BN);
+  tile_f32<false>(x + (long long)row0 * d, w + (long long)e * d * f,
+                  out + (long long)row0 * f, rows, d, f, blockIdx.y * kF32BN);
 }
 
 // ------------------------------------------------------------ bf16 ----
@@ -249,7 +170,6 @@ constexpr int kBK = 64;             // k-slice: 64 bf16 = 128 bytes
 // m64n128k16 over 64 of the rows: A = the x tile (K-major), B = the w tile
 // (MN-major, two 64-column TMA boxes side by side).
 struct Wide {
-  static constexpr bool kKMajorW = false;
   static constexpr int kRows = 128, kCols = 128, kConsumers = 2;
   static constexpr int kStages = 5;
   static constexpr int kXBytes = kRows * 128;  // x: 128 rows x 128 B
@@ -322,29 +242,10 @@ struct Wide {
   }
 };
 
-// The prefill linear with K-major weights (w (N, K), K contiguous: the
-// tied unembedding's tok (V, d)): Wide with the w tile one TMA box of 128
-// of w's rows x one 64-deep k-slice, laid out as the x tile is, so wgmma
-// takes it as B with no transpose bit and the same descriptor as A.
-struct WideK : Wide {
-  static constexpr bool kKMajorW = true;
-
-  __device__ static void mma(float (&acc)[kAcc], const unsigned char* st,
-                             int cw) {
-    const unsigned char* a = st + cw * 64 * 128;
-    const unsigned char* b = st + kXBytes;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_m64n128<0, 0>(acc, smem_desc(a + kk * 32, 16, 1024),
-                          smem_desc(b + kk * 32, 16, 1024));
-  }
-};
-
 // Decode, swap-AB: 64 columns x 16 rows an item, one consumer warpgroup of
 // m64n16k16: A = the w tile (its 64 f columns as wgmma's M, MN-major), B =
 // the x tile (its 16 rows as N, K-major).
 struct Narrow {
-  static constexpr bool kKMajorW = false;
   static constexpr int kRows = 16, kCols = 64, kConsumers = 1;
   static constexpr int kStages = 12;
   static constexpr int kXBytes = kRows * 128;
@@ -413,7 +314,7 @@ grouped_gemm_bf16(const __grid_constant__ CUtensorMap tmx,
   int* row_lo = tile_lo + E + 1;
 
   const int tid = threadIdx.x;
-  if (tid < 32) scan_counts(counts, E, N, Cfg::kRows, tile_lo, row_lo);
+  if (tid < 32) scan_counts(counts, E, Cfg::kRows, tile_lo, row_lo);
   if (tid == 32) {
     for (int s = 0; s < S; ++s) {
       mbar_init(full + s, 1);
@@ -443,14 +344,10 @@ grouped_gemm_bf16(const __grid_constant__ CUtensorMap tmx,
         unsigned char* st = smem + stage * SB;
         mbar_expect_tx(full + stage, SB);
         tma_load_2d(st, &tmx, full + stage, kb * kBK, row0);
-        if constexpr (Cfg::kKMajorW) {
-          tma_load_2d(st + Cfg::kXBytes, &tmw, full + stage, kb * kBK, n0);
-        } else {
 #pragma unroll
-          for (int j = 0; j < Cfg::kCols / 64; ++j)
-            tma_load_3d(st + Cfg::kXBytes + j * kBox, &tmw, full + stage,
-                        n0 + j * 64, kb * kBK, e);
-        }
+        for (int j = 0; j < Cfg::kCols / 64; ++j)
+          tma_load_3d(st + Cfg::kXBytes + j * kBox, &tmw, full + stage,
+                      n0 + j * 64, kb * kBK, e);
         if (++stage == S) {
           stage = 0;
           phase ^= 1;
@@ -494,54 +391,23 @@ grouped_gemm_bf16(const __grid_constant__ CUtensorMap tmx,
 
 // ------------------------------------------------------------- host ----
 // x as a 2-D (d, N) map of (64, rows) boxes; w as a 3-D (f, d, E) map of
-// (64, 64, 1) boxes, or, K-major (one group: w (f, d)), as a 2-D (d, f) map
-// of (64, 128) boxes; all 128B-swizzled, out-of-range elements read as 0.
+// (64, 64, 1) boxes; both 128B-swizzled, out-of-range elements read as 0.
 bool encode_maps(CUtensorMap* mx, CUtensorMap* mw, const void* x,
-                 const void* w, int N, int E, int d, int f, int rows,
-                 bool w_kmajor) {
+                 const void* w, int N, int E, int d, int f, int rows) {
   EncodeFn fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint32_t one[3] = {1, 1, 1};
-  const cuuint64_t xdim[2] = {(cuuint64_t)d, (cuuint64_t)N};
-  const cuuint64_t xstride[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t xbox[2] = {64, (cuuint32_t)rows};
   const cuuint64_t wdim[3] = {(cuuint64_t)f, (cuuint64_t)d, (cuuint64_t)E};
   const cuuint64_t wstride[2] = {(cuuint64_t)f * 2, (cuuint64_t)d * f * 2};
   const cuuint32_t wbox[3] = {64, 64, 1};
-  const cuuint64_t kdim[2] = {(cuuint64_t)d, (cuuint64_t)f};
-  const cuuint64_t kstride[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t kbox[2] = {64, 128};
-  CUresult rx = fn(mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                   const_cast<void*>(x), xdim, xstride, xbox, one,
+  CUresult rw = fn(mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                   const_cast<void*>(w), wdim, wstride, wbox, one,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  CUresult rw =
-      w_kmajor
-          ? fn(mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
-               kdim, kstride, kbox, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
-          : fn(mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w),
-               wdim, wstride, wbox, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rx == CUDA_SUCCESS && rw == CUDA_SUCCESS;
-}
-
-// out as a 2-D (f, N) map of (64, 64) boxes, 128B-swizzled: the wide
-// epilogue's TMA stores, clipped at f and N.
-bool encode_out_map(CUtensorMap* mo, void* out, int N, int f) {
-  EncodeFn fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint32_t one[2] = {1, 1};
-  const cuuint64_t dim[2] = {(cuuint64_t)f, (cuuint64_t)N};
-  const cuuint64_t stride[1] = {(cuuint64_t)f * 2};
-  const cuuint32_t box[2] = {64, 64};
-  return fn(mo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out, dim, stride, box,
-            one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_NONE,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return rw == CUDA_SUCCESS &&
+         encode_bf16_2d(mx, x, d, N, 64, rows,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
 template <class Cfg>
@@ -549,8 +415,10 @@ cudaError_t launch_bf16(const void* x, const int* counts, const void* w,
                         void* out, int N, int E, int d, int f, int grid,
                         cudaStream_t stream) {
   CUtensorMap mx, mw, mo = {};
-  if (!encode_maps(&mx, &mw, x, w, N, E, d, f, Cfg::kRows, Cfg::kKMajorW) ||
-      (Cfg::kStaging && !encode_out_map(&mo, out, N, f)))
+  if (!encode_maps(&mx, &mw, x, w, N, E, d, f, Cfg::kRows) ||
+      (Cfg::kStaging &&  // the wide epilogue's TMA stores, clipped at f, N
+       !encode_bf16_2d(&mo, out, f, N, 64, 64,
+                       CU_TENSOR_MAP_L2_PROMOTION_NONE)))
     return cudaErrorInvalidValue;
   auto kernel = grouped_gemm_bf16<Cfg>;
   const int smem = smem_bytes<Cfg>(E);
@@ -567,12 +435,11 @@ cudaError_t launch_bf16(const void* x, const int* counts, const void* w,
 }
 
 cudaError_t launch_f32(const void* x, const int* counts, const void* w,
-                       void* out, int N, int E, int d, int f, bool w_kmajor,
+                       void* out, int N, int E, int d, int f,
                        cudaStream_t stream) {
   dim3 grid((N + kF32BM - 1) / kF32BM + E, (f + kF32BN - 1) / kF32BN);
   const int smem = 2 * (E + 1) * 4;
-  auto kernel = w_kmajor ? grouped_gemm_f32<true> : grouped_gemm_f32<false>;
-  kernel<<<grid, kF32Threads, smem, stream>>>(
+  grouped_gemm_f32<<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(x), counts, static_cast<const float*>(w),
       static_cast<float*>(out), N, E, d, f);
   return cudaGetLastError();
@@ -609,33 +476,6 @@ extern "C" int grouped_gemm_fwd(const void* x, const int* counts,
   }
   if (dtype == REPRO_F32)
     return static_cast<int>(
-        repro::gemm::launch_f32(x, counts, w, out, N, E, d, f, false, st));
-  return cudaErrorInvalidValue;
-}
-
-// The prefill linear: x (M, K) x w (K, N), or w (N, K) with w_kmajor, ->
-// out (M, N), one accumulator an output summed over K in one order, on
-// one tile shape for every M and N (bf16: the wide tiles on a persistent
-// grid of `grid` blocks; f32: the CUDA-core tiles). K and N multiples of
-// 8, x, w and out 16-byte aligned. Returns the CUDA error code of the
-// launch (0 = success).
-extern "C" int dense_gemm_fwd(const void* x, const void* w, void* out, int M,
-                              int K, int N, int dtype, int w_kmajor,
-                              int grid, void* stream) {
-  if (M == 0 || N == 0) return 0;
-  if (M < 0 || N < 0 || K < 1 || K % 8 != 0 || N % 8 != 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_BF16) {
-    if (grid < 1) return cudaErrorInvalidValue;
-    if (w_kmajor)
-      return static_cast<int>(repro::gemm::launch_bf16<repro::gemm::WideK>(
-          x, nullptr, w, out, M, 1, K, N, grid, st));
-    return static_cast<int>(repro::gemm::launch_bf16<repro::gemm::Wide>(
-        x, nullptr, w, out, M, 1, K, N, grid, st));
-  }
-  if (dtype == REPRO_F32)
-    return static_cast<int>(repro::gemm::launch_f32(
-        x, nullptr, w, out, M, 1, K, N, w_kmajor != 0, st));
+        repro::gemm::launch_f32(x, counts, w, out, N, E, d, f, st));
   return cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (grouped_gemm.cu, flash_attention.cu): mbarriers, TMA loads and stores
+// (grouped_gemm.cu, dense_gemm.cu, flash_attention.cu): mbarriers, TMA loads and stores
 // (cp.async.bulk.tensor), wgmma shared-memory descriptors and the
 // wgmma.mma_async shapes the kernels issue, and the host-side entry of
 // cuTensorMapEncodeTiled (taken from the driver through the runtime, so no
@@ -355,6 +355,24 @@ inline EncodeFn encode_fn() {
     fn = reinterpret_cast<EncodeFn>(p);
   }
   return fn;
+}
+
+// A bf16 2-D map of (inner, outer) elements, rows `inner` elements apart,
+// 128B-swizzled (box_inner, box_outer) boxes; out-of-range elements read as
+// 0 and are not written.
+inline bool encode_bf16_2d(CUtensorMap* map, const void* p, int inner,
+                           int outer, int box_inner, int box_outer,
+                           CUtensorMapL2promotion promo) {
+  EncodeFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint32_t one[2] = {1, 1};
+  const cuuint64_t dim[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t stride[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
+            dim, stride, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, promo,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -32,7 +32,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("flash_attention", "flash_decode", "paged_flash_decode",
-           "paged_mla_decode", "grouped_gemm", "ssd_scan")
+           "paged_mla_decode", "grouped_gemm", "dense_gemm", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

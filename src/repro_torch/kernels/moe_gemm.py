@@ -1,7 +1,7 @@
 """Launch wrappers of the hand-written CUDA grouped expert GEMM.
 
 Port of ``repro.kernels.moe_gemm.grouped_gemm`` (the Pallas
-``_gemm_kernel``). One kernel, ``csrc/grouped_gemm.cu``, behind three
+``_gemm_kernel``). One kernel, ``csrc/grouped_gemm.cu``, behind two
 entry points:
 
 * ``grouped_gemm_segments_cuda(x (N, d), counts (E,), w (E, d, f))``: rows
@@ -10,20 +10,15 @@ entry points:
   launch grid is sized from N and E alone.
 * ``grouped_gemm_cuda(x (E, C, d), w (E, d, f))``: the reference's
   contract, the special case of E uniform segments of C rows.
-* ``dense_gemm_cuda(x (M, K), w (K, N) or (N, K))``: the port's own
-  prefill linear (it replaces no TPU kernel), one group of M rows on the
-  wide tiles whatever M and N, w read in place in either layout: each
-  output one f32 accumulator summed over K in one order, so a row's bits
-  do not depend on how many rows share its call.
 
-All accumulate in f32 and return x's dtype; f32 or bf16; d and f
+(The port's dense prefill linear is ``kernels/dense_gemm.py``.) Both
+accumulate in f32 and return x's dtype; f32 or bf16; d and f
 multiples of 8 (DeepSeek's 2048 and 1408 are), every tensor 16-byte
 aligned, as TMA requires. The bf16 kernel runs on a persistent grid of one
 block an SM, in one of two tile shapes that ``gemm_shape`` picks from (N,
 E) alone, never from the counts on the device: "wide" 128 x 128 tiles for
 prefill waves, "narrow" swap-AB 64-column x 16-row tiles for decode steps,
-where each expert gets a row or two (the dense entry takes the wide tiles
-always).
+where each expert gets a row or two.
 """
 
 from __future__ import annotations
@@ -42,8 +37,6 @@ NARROW_MAX_ROWS = 16
 MAX_EXPERTS = 4096  # kMaxE: the experts whose scan fits in shared memory
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_DENSE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
 _SMS: Dict[int, int] = {}
 
 
@@ -60,8 +53,6 @@ def _lib():
     if lib.grouped_gemm_fwd.argtypes is None:
         lib.grouped_gemm_fwd.argtypes = _ARGTYPES
         lib.grouped_gemm_fwd.restype = ctypes.c_int
-        lib.dense_gemm_fwd.argtypes = _DENSE_ARGTYPES
-        lib.dense_gemm_fwd.restype = ctypes.c_int
     return lib
 
 
@@ -136,45 +127,6 @@ def grouped_gemm_segments_cuda(x: torch.Tensor, counts: torch.Tensor,
                                 _SHAPES[shape or gemm_shape(N, E)],
                                 _sms(x.device), stream)
     build.check(lib, "grouped_gemm", code)
-    return out
-
-
-def dense_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
-                    w_kmajor: bool = False) -> torch.Tensor:
-    """x (M, K) x w (K, N), or x w^T for w (N, K) with ``w_kmajor`` ->
-    (M, N) in x's dtype, f32 accumulation; contiguous, 16-byte aligned CUDA
-    tensors of one dtype (f32 or bf16), K and N multiples of 8. Launches
-    the kernel; raises on a refused launch."""
-    if not (x.is_cuda and w.device == x.device):
-        raise ValueError("dense_gemm kernel: x and w must be on one CUDA "
-                         "device")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"dense_gemm kernel takes f32 or bf16 x and w of "
-                        f"one dtype, got {x.dtype}, {w.dtype}")
-    if x.dim() != 2 or w.dim() != 2:
-        raise ValueError(f"dense_gemm kernel: x (M, K) and w 2-D; got "
-                         f"{tuple(x.shape)}, {tuple(w.shape)}")
-    M, K = x.shape
-    N, Kw = (w.shape if w_kmajor else w.shape[::-1])
-    if Kw != K:
-        raise ValueError(f"dense_gemm kernel: x {tuple(x.shape)} and w "
-                         f"{tuple(w.shape)} (K-major: {w_kmajor}) do not "
-                         f"contract")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("dense_gemm kernel: x and w must be contiguous")
-    if K % 8 or N % 8:
-        raise ValueError(f"dense_gemm kernel: K and N must be multiples of "
-                         f"8, got {K}, {N}")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("dense_gemm kernel: x and w must be 16-byte "
-                         "aligned")
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    lib = _lib()
-    code = lib.dense_gemm_fwd(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N,
-        _DTYPES[x.dtype], int(w_kmajor), _sms(x.device),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, "dense_gemm", code)
     return out
 
 

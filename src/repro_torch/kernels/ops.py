@@ -33,14 +33,15 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (flash_decode_cuda,
                                                   paged_flash_decode_cuda,
                                                   paged_mla_decode_cuda)
+from repro_torch.kernels.dense_gemm import dense_gemm_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.moe_gemm import (dense_gemm_cuda, grouped_gemm_cuda,
+from repro_torch.kernels.moe_gemm import (grouped_gemm_cuda,
                                           grouped_gemm_segments_cuda)
 from repro_torch.kernels.ssm_scan import ssd_scan_cuda
 
 # one key per entry point; grouped_gemm and grouped_gemm_segments launch
-# the same kernel (csrc/grouped_gemm.cu), and prefill_linear its dense
-# entry, counted apart so that the MoE counts stay the MoE's
+# the same kernel (csrc/grouped_gemm.cu), prefill_linear its own
+# (csrc/dense_gemm.cu)
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0,
                             "paged_flash_decode": 0, "paged_mla_decode": 0,
                             "grouped_gemm": 0, "grouped_gemm_segments": 0,
@@ -182,16 +183,16 @@ def prefill_linear(x: torch.Tensor, w: torch.Tensor, *,
     """x (..., K) x w (K, N), or x w^T for w (N, K) with ``w_kmajor`` (the
     tied unembedding's ``tok``) -> (..., N) in x's dtype: the prefill's
     linears (``models.layers.linear`` inside ``row_invariant_linears``).
-    The kernel sums each output over K in one order on one tile shape, so
-    a row's bits depend on that row and w alone, never on how many rows
-    the call has: a shared-prefix tail wave gives the bits of a cold
-    wave. x need not be contiguous (a non-contiguous x is copied first)."""
+    The kernel sums each output over K in a plan fixed by (K, N) alone
+    (``kernels.dense_gemm.dense_gemm_plan``), so a row's bits depend on
+    that row and w alone, never on how many rows the call has: a
+    shared-prefix tail wave gives the bits of a cold wave. x need not be
+    contiguous (a non-contiguous x is copied first)."""
     if _on_cpu("prefill_linear", x, w):
         return ref.prefill_linear_ref(x, w, w_kmajor)
-    out = dense_gemm_cuda(x.reshape(-1, x.shape[-1]).contiguous(), w,
-                          w_kmajor)
+    out = dense_gemm_cuda(x.contiguous(), w, w_kmajor)
     _launched("prefill_linear")
-    return out.reshape(*x.shape[:-1], out.shape[-1])
+    return out
 
 
 def ssm_scan(C_mat: torch.Tensor, B_mat: torch.Tensor, v: torch.Tensor,

@@ -386,6 +386,20 @@ class Transformer(LanguageModel):
             self.decode_paged = None
 
     @property
+    def _row_invariant(self) -> bool:
+        """Whether the prefill's linears take the row-invariant kernel
+        (``kernels.ops.prefill_linear``): with ``cfg.use_kernels``, in a
+        dense decoder. A MoE decoder keeps ``torch.matmul``, as its plain
+        path does: it has no shared-prefix prefill, which is what row
+        invariance is for, and its router's top-k is discrete. On an H100
+        the last bits in which the kernel's K split differs from cuBLAS
+        moved 7.2 % and 10.7 % of DeepSeek-V2-Lite's prefill routing
+        decisions from the plain path's (``chip_smoke.py`` phase 6, mixes
+        (e) and (f)), above the 5 % bound with which that phase tells a
+        fault in the MoE and MLA kernels from rounding."""
+        return self.cfg.use_kernels and not self.cfg.moe.enabled
+
+    @property
     def blocks(self) -> List[Block]:
         """Every block in the order it runs (``dense0`` first); block i
         owns layer i of the cache."""
@@ -468,11 +482,11 @@ class Transformer(LanguageModel):
         expects position p at p % Scache. So a prompt or wave longer than
         the window decodes over another key set than ``forward`` attends,
         in both packages. Returns the logits at position ``lengths - 1``,
-        (B, V_pad). With ``cfg.use_kernels`` its linears run in
-        ``row_invariant_linears``: a row's bits do not depend on its
-        wave's size."""
+        (B, V_pad). With ``cfg.use_kernels`` a dense decoder's linears
+        run in ``row_invariant_linears``: a row's bits do not depend on
+        its wave's size (``_row_invariant``)."""
         S = tokens.shape[1]
-        with row_invariant_linears(self.cfg.use_kernels):
+        with row_invariant_linears(self._row_invariant):
             x = embed(self.embed.tok, tokens, self.cfg)
             positions = torch.arange(S, device=tokens.device)
             for i, blk in enumerate(self.blocks):
@@ -501,7 +515,7 @@ class Transformer(LanguageModel):
         linears run as ``prefill``'s do, so a tail row gets the bits the
         same row gets in a cold wave."""
         Tb = tokens.shape[1]
-        with row_invariant_linears(self.cfg.use_kernels):
+        with row_invariant_linears(self._row_invariant):
             x = embed(self.embed.tok, tokens, self.cfg)
             positions = starts.long()[:, None] + torch.arange(
                 Tb, device=tokens.device)[None, :]

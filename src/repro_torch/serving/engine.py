@@ -617,8 +617,8 @@ class InferenceEngine:
         dense attention (and the audio and vision models' cross-attention
         on the same two); the paged MLA decode for MLA on the paged pool
         (its prefill and slot-cache decode are torch); the grouped GEMM for
-        MoE, and for every ``Transformer`` (dense or MoE) its prefill
-        linear, which is the same library; the SSD scan for Mamba2."""
+        MoE, and for a dense ``Transformer`` the prefill linear's dense
+        GEMM; the SSD scan for Mamba2."""
         cfg = self.cfg
         if not (cfg.use_kernels and self.device.type == "cuda"):
             return ()
@@ -629,8 +629,10 @@ class InferenceEngine:
         elif cfg.family != "ssm":
             names += ["flash_attention", "paged_flash_decode" if self._paged
                       else "flash_decode"]
-        if cfg.family in ("dense", "moe"):
+        if cfg.family == "moe":
             names.append("grouped_gemm")
+        if cfg.family == "dense":
+            names.append("dense_gemm")
         if cfg.family == "hybrid":
             names.append("ssd_scan")
         return tuple(names)

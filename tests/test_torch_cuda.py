@@ -18,8 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import get_reduced_config  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
+from repro_torch.kernels import dense_gemm, ops, ref  # noqa: E402
 from repro_torch.models import build_model, extra_inputs  # noqa: E402
 from repro_torch.serving import InferenceEngine, Request  # noqa: E402
 
@@ -1008,7 +1008,7 @@ def test_cuda_two_node_wire_round_trip(cuda):
         res = [f.result(timeout=300) for f in futs]
         assert all(r[0] == want for r in res)
         on_b = [r[2] for r in res if r[1] == procs["B"].pid]
-        # flash_attention, flash_decode and grouped_gemm (the prefill
+        # flash_attention, flash_decode and dense_gemm (the prefill
         # linear)
         assert on_b and all(s["compiles"] == 0 and s["aot_cache_hits"] == 3
                             for s in on_b)
@@ -1414,23 +1414,53 @@ def test_cuda_live_elastic_sweep_shares_one_model(cuda):
 
 
 # ------------------------------------------------ the prefill linear ------
-# SmolLM2-1.7B's prefill linears: (K, N, w K-major)
+def _dense_linears(arch):
+    """(K, N, w K-major) of every linear a prefill wave of the dense
+    decoder ``arch`` runs at full size: q and o, k and v (narrower under
+    GQA), up and gate, down, the unembedding (tok K-major when tied)."""
+    cfg = get_config(arch)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {(d, cfg.n_heads * hd, False), (d, cfg.n_kv_heads * hd, False),
+            (cfg.n_heads * hd, d, False), (d, cfg.d_ff, False),
+            (cfg.d_ff, d, False),
+            (d, cfg.padded_vocab, bool(cfg.tie_embeddings))}
+
+
+# every prefill linear of the dense decoders: SmolLM2-1.7B's first, under
+# their old names, then Granite's, StableLM's, Nemotron's and Danube's
 LINEAR_SHAPES = {"qkvo": (2048, 2048, False), "up_gate": (2048, 8192, False),
                  "down": (8192, 2048, False), "unembed": (2048, 49152, True)}
+LINEAR_SHAPES.update({
+    f"{name} {K}->{N}{' K-major' if km else ''}": (K, N, km)
+    for name, arch in (("granite", "granite-3-2b"),
+                       ("stablelm", "stablelm-12b"),
+                       ("nemotron", "nemotron-4-15b"),
+                       ("danube", "h2o-danube-1.8b"))
+    for K, N, km in sorted(_dense_linears(arch))
+    if (K, N, km) not in LINEAR_SHAPES.values()})
+
+
+def _crand(seed, shape, dev, dtype):
+    """Standard normals drawn on the card from ``seed`` (a full-size
+    unembedding is too large to draw on the host)."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev).to(TDT[dtype])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N,w_kmajor", [
     (37, 64, 96, False), (37, 64, 96, True), (1, 2048, 2048, False),
     (200, 2048, 256, True), (300, 104, 40, False), (512, 8192, 2048, False),
-    (16, 2048, 49152, True), (129, 2048, 8192, False)])
+    (16, 2048, 49152, True), (129, 2048, 8192, False)] + [
+    (300, K, N, km) for K, N, km in list(LINEAR_SHAPES.values())[4:]])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_prefill_linear_matches_plain(cuda, M, K, N, w_kmajor, dtype):
     """The prefill linear against its plain version (``torch.matmul`` in
     the compute dtype), both weight layouts, ragged row and column counts
-    and SmolLM2's shapes, within the grouped GEMM's tolerance."""
-    x = _rand(0, (M, K), cuda, dtype)
-    w = _rand(1, (N, K) if w_kmajor else (K, N), cuda, dtype) * K ** -0.5
+    and every prefill shape of the dense decoders, within the grouped
+    GEMM's tolerance."""
+    x = _crand(0, (M, K), cuda, dtype)
+    w = _crand(1, (N, K) if w_kmajor else (K, N), cuda, dtype) * K ** -0.5
     before = ops.LAUNCHES["prefill_linear"]
     out = ops.prefill_linear(x, w, w_kmajor=w_kmajor)
     assert ops.LAUNCHES["prefill_linear"] == before + 1
@@ -1438,7 +1468,7 @@ def test_cuda_prefill_linear_matches_plain(cuda, M, K, N, w_kmajor, dtype):
     assert out.shape == (M, N) and out.dtype == x.dtype
     err = float((out.float() - exp.float()).abs().max())
     assert err <= _gemm_tol(dtype, K, exp)
-    x3 = _rand(2, (2, 3, 2 * K), cuda, dtype)[:, :, K:]  # not contiguous
+    x3 = _crand(2, (2, 3, 2 * K), cuda, dtype)[:, :, K:]  # not contiguous
     out3 = ops.prefill_linear(x3, w, w_kmajor=w_kmajor)
     assert torch.equal(out3, ops.prefill_linear(
         x3.reshape(6, K).contiguous(), w, w_kmajor=w_kmajor).reshape(
@@ -1451,18 +1481,29 @@ def test_cuda_prefill_linear_matches_plain(cuda, M, K, N, w_kmajor, dtype):
 def test_cuda_prefill_linear_row_bits_do_not_depend_on_row_count(
         cuda, shape, dtype):
     """One row's output bits, bitwise, whatever the call's row count (1,
-    8, 100, 128, 129, 512, 2048, 8192) and wherever the row sits in it
-    (first, middle, last), at each of SmolLM2's prefill shapes: the
-    property a shared-prefix prefill needs to give a cold prefill's bits
-    (cuBLAS's down projection does not have it)."""
+    8, 16, 100, 127, 128, 129, 512, 2048, 8192, and the plan's switches:
+    the most rows it sums across blocks and one more, the fewest rows
+    whose blocks take 128 columns and one row tile fewer) and
+    wherever the row sits in it (first, middle, last), at each prefill
+    shape of the dense decoders: the property a shared-prefix prefill
+    needs to give a cold prefill's bits (cuBLAS's down projection does not
+    have it). The two forms of the split sum (across blocks, inside one)
+    agree bit for bit, and so do blocks of 64 and 128 columns."""
     K, N, kmaj = LINEAR_SHAPES[shape]
-    w = _rand(1, (N, K) if kmaj else (K, N), cuda, dtype) * K ** -0.5
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    sw = dense_gemm.switch_rows(K, N, sms)
+    two = dense_gemm.wide_block_rows(K, N, sms)
+    counts = sorted({1, 8, 16, 100, 127, 128, 129, 512, 2048, 8192}
+                    | ({sw, sw + 1} if sw else set())
+                    | {M for M in (two - 128, two) if 0 < M <= 8192})
+    w = _crand(1, (N, K) if kmaj else (K, N), cuda, dtype) * K ** -0.5
     gen = torch.Generator(cuda).manual_seed(3)
-    x = torch.randn((8192, K), generator=gen, device=cuda).to(TDT[dtype])
+    x = torch.randn((max(counts), K), generator=gen,
+                    device=cuda).to(TDT[dtype])
     probe = torch.randn((1, K), generator=gen, device=cuda).to(TDT[dtype])
     want = ops.prefill_linear(probe, w, w_kmajor=kmaj)[0]
     differ = []
-    for M in (1, 8, 100, 128, 129, 512, 2048, 8192):
+    for M in counts:
         for at in sorted({0, M // 2, M - 1}):
             xm = x[:M].clone()
             xm[at] = probe[0]

@@ -180,6 +180,44 @@ def test_scheduler_trace_matches_reference():
     assert len(sources) >= 2 and sources & {"PEER", "POOL"}, sources
 
 
+def rejoin_trace(P, events, seed):
+    """``tests/test_property.py``'s liveness loop over ``events`` (worker
+    ids drawn from a numpy RandomState of ``seed``, one-context tasks, a
+    one-second clock), without its invariant check. Returns the running
+    map after each event and the fetch_log."""
+    rng = np.random.RandomState(seed)
+    sched = P.ContextAwareScheduler(mode=P.ContextMode.FULL)
+    recipe = P.ContextRecipe(name="r")
+    running, n_sub = [], 0
+    for i, ev in enumerate(events):
+        t = float(i + 1)
+        if ev == "join":
+            sched.on_worker_join(f"w{rng.randint(100)}", t)
+        elif ev == "submit":
+            sched.submit(P.Task(task_id=f"t{n_sub}", recipe=recipe), t)
+            n_sub += 1
+        running.append(dict(sched.running))
+    return running, [_decision(d) for d in sched.fetch_log]
+
+
+def test_scheduler_rejoin_runs_one_worker_twice_like_reference():
+    """A pin of a reference-side fault, mirrored by the port's copy of the
+    scheduler: ``on_worker_join`` overwrites the record of a worker id
+    that is already registered, so a worker that joins again while it
+    runs a task takes a second one. Hypothesis found this trace against
+    the reference (``test_scheduler_liveness_under_random_events``,
+    events join, submit, submit, join, join at seed 30: ``w37`` joins
+    twice). Both packages give the same running maps and fetch_log, both
+    run ``w37`` twice. The pin goes when the reference is repaired."""
+    events = ["join", "submit", "submit", "join", "join"]
+    t_running, t_log = rejoin_trace(_pkg(tcore), events, 30)
+    j_running, j_log = rejoin_trace(_pkg(jcore), events, 30)
+    assert t_running == j_running
+    assert t_log == j_log
+    assert j_running[-1] == {"t0": ("w37", 2.0), "t1": ("w37", 4.0)}
+    assert [d[:3] for d in j_log] == [("w45", j_log[0][1], "PEER")]
+
+
 # ---------------------------------------------------- store admit refusal --
 def test_store_pinned_blockage_refused_not_overcommitted():
     s = ContextStore(device_bytes=10 * GB)
