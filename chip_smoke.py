@@ -177,10 +177,22 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 the launch counts set to 0 (the paged MLA decode and the
                 grouped GEMM must run), against a use_kernels=False engine
                 over the same weights: greedy agreement, the first-token
-                logits gap and the routing decisions that differed. Its
-                demote/restore (31 GB of pinned host memory) is left to the
-                CPU tests; then torch.profiler over (f) on the kernel
-                engine at 16 new tokens. At 9 of its 27 layers
+                logits gap and the routing decisions that differed; then
+                (f)'s 16 prompts with 8 of (e)'s claims queued behind
+                them, run once to the end and once demoted to pinned host
+                memory after one step (requests decoding and queued),
+                restored and run to the end: the same tokens, the weights
+                and the pool's capacity freed on the card, every live page
+                and per-slot state tensor back bit for bit, the paged MLA
+                decode and the grouped GEMM launched after the restore;
+                torch.profiler over (f) on the kernel engine at 16 new
+                tokens; last the same mid-stream run at 2 layers
+                (DS_DISK_DEPTH: the dense one and a MoE one) through the
+                PCM runtime's disk tier: a Library(streamed=True) demotes
+                it into a SnapshotPool, which spills it to LOCAL_DISK and
+                counts the released weights its model still pins in host
+                RAM, then promotes it streamed (stages disk and h2d) with
+                no builder call and no build. At 9 of its 27 layers
                 (DS_DEPTH; the full model's 15.7 B parameters counted on
                 the meta device);
   7. zamba2   - full-width Zamba2-7B (at 27 of its 81 Mamba2
@@ -200,15 +212,19 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 engine again with its attention rounding P to bf16 before
                 P.V, as the kernel does (a witness of what that rounding
                 adds to the gap); (h) served again with the stop-flag
-                read off and on, as (b); then
-                torch.profiler over (h)'s prompts at 16 new tokens. Its
-                demote/restore (about 19 GB of pinned host memory) is left
-                to the CPU tests;
+                read off and on, as (b); (h)'s 16 prompts with 8 of (g)'s
+                claims queued behind them demoted mid-stream and restored
+                as in phase 6 (the f32 SSM states and the conv states and
+                K/V back bit for bit, the SSD scan launched again in the
+                queued claims' wave, the decode kernel in the steps); then
+                torch.profiler over (h)'s prompts at 16 new tokens; last
+                the disk tier's round trip as in phase 6, at 7 layers
+                (ZAMBA_DISK_DEPTH);
   8. dense    - the dense GQA decoders Granite-3-2B, StableLM-12B (head
                 dim 160) and Nemotron-4-15B (GQA group 6) and the
                 sliding-window decoder H2O-Danube-1.8B (head dim 80, a
-                4096-token window), one at a time, at full width and a
-                quarter of their depth (DENSE_DEPTH), seeded random bf16
+                4096-token window), one at a time, at full width and an
+                eighth of their depth (DENSE_DEPTH), seeded random bf16
                 weights drawn on the card, with the kernels: mixes (a) and
                 (b) on the slot cache; for the three full-attention models
                 (c) on the paged pool, which must give (b)'s tokens, and
@@ -241,7 +257,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 megastep 1, whose tokens must equal megastep 8's; xLSTM
                 and Whisper demoted to host and restored, after which (b)
                 decodes the same; the VLM's patches must move its logits
-                by more than LOGIT_TOL.
+                by more than LOGIT_TOL, then the VLM's (b) with 8 of (a)'s
+                claims queued behind it demoted mid-stream and restored as
+                in phase 6 (its self and cross K/V, the 16 x 4100 patches
+                of extra and the per-slot state back bit for bit, both
+                attention kernels launched after the restore).
  10. sharded  - the sharded path (launch/steps.py) over a one-rank NCCL
                 mesh (1, 1) of ("data", "model"), started from a
                 FileStore: SmolLM2-1.7B's train cell (16 x 128 tokens, 2
@@ -343,13 +363,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.checkpoint import io as ckio  # noqa: E402
 from repro_torch.configs import get_config, get_reduced_config  # noqa
 from repro_torch.configs.shapes import SHAPES, ShapeSuite  # noqa: E402
 from repro_torch.cluster import traces  # noqa: E402
 from repro_torch.cluster.node import spawn_node_process  # noqa: E402
-from repro_torch.core import (ContextMode, PCMClient, PCMManager,  # noqa
-                              SimulatorBackend, Tier, context_app,
-                              load_context, make_recipe)
+from repro_torch.core import (ContextMode, Library, PCMClient,  # noqa
+                              PCMManager, SimulatorBackend, SnapshotPool,
+                              Tier, context_app, load_context, make_recipe)
 from repro_torch.data import (HashTokenizer, PipelineConfig,  # noqa: E402
                               batches, fever)
 from repro_torch.data.tokenizer import BOS, LABEL_TOKENS  # noqa: E402
@@ -369,6 +390,7 @@ from repro_torch.models.layers import row_invariant_linears  # noqa: E402
 from repro_torch.models.registry import abstract_model  # noqa: E402
 from repro_torch.serving import (InferenceEngine, Request,  # noqa: E402
                                  ShedError, SLOClass, TenantQuota)
+from repro_torch.serving import paged as paging  # noqa: E402
 from repro_torch.train import (LoopConfig, OptimizerConfig,  # noqa: E402
                                init_state, make_train_step, train,
                                trainable)
@@ -3889,10 +3911,262 @@ def full_depth_params(arch, want) -> int:
     return n
 
 
+# ------------------------------------- PCM of phases 6, 7 and 9 ----------
+# the disk round trips of phases 6 and 7 at full width and this depth: the
+# spill hashes and writes on the host at about 0.3-0.6 GB/s (the runtime
+# phase's 1.5 GB took 4.8 s), so DeepSeek keeps one dense and one MoE
+# layer and Zamba2 one group of six and the tail, as its f32 check
+DS_DISK_DEPTH = 2
+ZAMBA_DISK_DEPTH = 7
+# the caching host allocator's readings beside MemAvailable
+HOST_STATS = ("allocated_bytes.current", "active_bytes.current",
+              "num_host_alloc", "num_host_free")
+
+
+def host_memory() -> dict:
+    """What the OS has left (MemAvailable, /proc/meminfo) and what
+    PyTorch's caching host allocator holds pinned
+    (``torch.cuda.host_memory_stats``, where this torch has it), bytes."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    stats = getattr(torch.cuda, "host_memory_stats", dict)()
+    return dict(mem_available=avail, **{k: stats.get(k) for k in HOST_STATS})
+
+
+def empty_host_cache() -> dict:
+    """Hand the caching host allocator's free pinned blocks back to the OS
+    (``torch._C._host_emptyCache``, where this torch has it), then read
+    the host's memory again."""
+    fn = getattr(torch._C, "_host_emptyCache", None)
+    if fn is not None:
+        fn()
+    return dict(host_memory(), emptied=fn is not None)
+
+
+def restored_equal(eng, host) -> int:
+    """Every cache leaf (a paged pool's live pages), per-slot state and
+    ``extra`` tensor of the engine's demoted copy ``host`` against the
+    engine's device state after the restore, bit for bit; raises on the
+    first that differs and returns how many were compared."""
+    cache = eng.cache
+    if eng._paged:
+        cache = paging.gather_live(eng.cache, torch.as_tensor(
+            host["_paged_live_ids"], device=eng.device))
+    pairs = [(f"cache {n}", cache[n], t) for n, t in host["cache"].items()]
+    pairs += [(n, getattr(eng, n), host[n]) for n in eng._state_fields]
+    pairs += [(f"extra {n}", eng.extra[n], t)
+              for n, t in host.get("extra", {}).items()]
+    for name, dev, h in pairs:
+        if dev.dtype != h.dtype or not torch.equal(dev, h.to(dev.device)):
+            raise AssertionError(f"{name} did not come back bit for bit")
+    return len(pairs)
+
+
+def midstream(label, eng, first, queued, max_new, demote, restore) -> dict:
+    """A context demoted in the middle of a stream: ``first`` (``max_new``
+    new tokens each) with ``queued`` (one each) behind them, submitted to
+    ``eng`` and run to the end once as the reference; then submitted
+    again, one step taken (a prefill wave and a megastep, the launch
+    counts at 0 before it), ``demote()`` with requests decoding and
+    queued, ``restore()``, and the rest run (the counts at 0 again: the
+    queued requests' wave and the decode steps after the restore must
+    launch the family's kernels). Every token must equal the
+    reference's. Returns the readings of ``demote`` and ``restore`` with
+    the run's."""
+    def submit():
+        return [eng.submit(Request(prompt=list(p), max_new_tokens=n))
+                for ps, n in ((first, max_new), (queued, 1)) for p in ps]
+
+    sync()
+    t0 = time.monotonic()
+    ref = submit()
+    eng.run_to_completion()
+    want = tokens(ref)
+    ref_s = time.monotonic() - t0
+    reqs, before = run_path(eng, f"{label} before the demote",
+                            lambda: (submit(), eng.step())[0])
+    decoding, waiting = len(eng.active), len(eng.queue)
+    if not decoding or not waiting or any(
+            len(r.generated) >= max_new for r in eng.active.values()):
+        raise AssertionError(f"{label}: nothing decoding and queued at the "
+                             f"demote")
+    out = dict(reference_s=ref_s, decoding=decoding, queued=waiting,
+               demote=demote(), restore=restore())
+    st0 = eng.stats.as_dict()
+    _, after = run_path(eng, f"{label} after the restore",
+                        eng.run_to_completion)
+    st = eng.stats.as_dict()
+    waves = st["prefill_batches"] - st0["prefill_batches"]
+    steps = st["decode_steps"] - st0["decode_steps"]
+    same = tokens(reqs) == want
+    out.update(launches_before=before, launches_after=after,
+               waves_after=waves, steps_after=steps, tokens_identical=same)
+    log(f"[pcm] {label}: {decoding} requests decoding and {waiting} queued "
+        f"at the demote; after the restore {waves} waves, {steps} decode "
+        f"steps, launches {after}; tokens identical to the run with no "
+        f"demote: {same}")
+    if not same or not waves or not steps:
+        raise AssertionError(f"{label}: the restored context decodes "
+                             f"differently, or ran no wave or step")
+    return out
+
+
+def engine_demote(label, eng) -> tuple:
+    """``midstream``'s demote and restore of the engine itself: its device
+    state to pinned host memory and back. The demote must free at least
+    the weights and the cache's capacity on the device, and the restore
+    bring every cache, state and ``extra`` leaf back bit for bit."""
+    held = {}
+
+    def demote():
+        weights = sum(p.numel() * p.element_size()
+                      for p in eng.model.parameters())
+        capacity = eng.snapshot()["capacity_bytes"]
+        mem0 = host_memory()
+        sync()
+        dev0 = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        held["host"] = host = eng.offload_device_state()
+        demote_s = time.monotonic() - t0
+        freed = dev0 - torch.cuda.memory_allocated()
+        mem1 = host_memory()
+        out = dict(seconds=demote_s, pinned_bytes=sum(
+            t.numel() * t.element_size() for t in ckio.tree_leaves(host)
+            if isinstance(t, torch.Tensor)),
+                   weight_bytes=weights, capacity_bytes=capacity,
+                   freed_bytes=freed, host_before=mem0, host_demoted=mem1)
+        pinned = mem1["allocated_bytes.current"]
+        if pinned is not None:
+            # what the caching host allocator took for those bytes: each
+            # block rounded up
+            out["allocator_per_counted_byte"] = (
+                pinned - mem0["allocated_bytes.current"]) / out["pinned_bytes"]
+        log(f"[pcm] {label} demote {demote_s:.3f} s: "
+            f"{out['pinned_bytes'] / 1e9:.3f} GB to pinned host "
+            f"({out.get('allocator_per_counted_byte')} allocator bytes a "
+            f"byte); device memory freed {freed / 1e9:.3f} GB (weights "
+            f"{weights / 1e9:.3f} + cache capacity {capacity / 1e9:.3f}); "
+            f"host {json.dumps(mem0)} -> {json.dumps(mem1)}")
+        if freed < weights + capacity:
+            raise AssertionError(f"{label}: the demote did not free the "
+                                 f"weights and the cache")
+        return out
+
+    def restore():
+        host = held.pop("host")
+        t0 = time.monotonic()
+        eng.restore_device_state(host)
+        restore_s = time.monotonic() - t0
+        compared = restored_equal(eng, host)
+        del host
+        gc.collect()
+        mem2 = host_memory()
+        mem3 = empty_host_cache()
+        log(f"[pcm] {label} restore {restore_s:.3f} s; {compared} cache, "
+            f"state and extra leaves bit for bit; host after the copy is "
+            f"dropped {json.dumps(mem2)}, after emptying the host cache "
+            f"{json.dumps(mem3)}")
+        return dict(seconds=restore_s, leaves_equal=compared,
+                    host_dropped=mem2, host_emptied=mem3)
+
+    return demote, restore
+
+
+def disk_trip(label, cfg, first, queued, max_new, kw) -> dict:
+    """One context of ``cfg`` (seeded weights) through the PCM runtime's
+    disk tier, as tests/test_torch_runtime.py's mid-stream case: a
+    ``Library(streamed=True)`` over a ``SnapshotPool`` builds it, then
+    ``midstream`` demotes it into the pool, spills it to LOCAL_DISK and
+    promotes it again (a streamed restore: stages ``disk`` and ``h2d``)
+    with no builder call and no kernel build. The pool must count the
+    released parameters the model keeps on the host while the snapshot is
+    on disk, and nothing once it is restored."""
+    tmp = tempfile.TemporaryDirectory(prefix="pcm_disk_smoke_")
+    pool = SnapshotPool(spill_dir=tmp.name)
+    lib = Library("disk", snapshots=pool, streamed=True)
+    rec = make_recipe(f"{label} disk", lambda: {"engine": InferenceEngine(
+        build_model(cfg, device="cuda", seed=0), device="cuda", **kw)},
+        host_bytes=0)
+    eng = lib.ensure(rec).value["engine"]
+    eng.generate([[2, 5]], max_new_tokens=2)
+    weights = sum(p.numel() * p.element_size()
+                  for p in eng.model.parameters())
+    held = {}
+
+    def demote():
+        mem0 = host_memory()
+        t0 = time.monotonic()
+        snap = lib.demote(rec.key())
+        demote_s = time.monotonic() - t0
+        mem1 = host_memory()
+        t0 = time.monotonic()
+        spilled = pool.spill(rec.key())
+        spill_s = time.monotonic() - t0
+        st = pool.stats()
+        mem2 = host_memory()
+        held.update(calls=lib.builder_calls, compiles=eng.stats.compiles)
+        out = dict(demote_s=demote_s, spill_s=spill_s,
+                   snapshot_bytes=snap.nbytes, weight_bytes=weights,
+                   disk_bytes=st["disk_used_bytes"],
+                   pool_host_bytes=st["host_used_bytes"],
+                   released_param_bytes=st["released_param_bytes"],
+                   host_before=mem0, host_demoted=mem1, host_spilled=mem2)
+        log(f"[pcm] {label} disk: demote {demote_s:.3f} s "
+            f"({snap.nbytes / 1e9:.3f} GB snapshot), spill {spill_s:.3f} s "
+            f"({out['disk_bytes'] / 1e9:.3f} GB on disk); the pool counts "
+            f"{out['pool_host_bytes'] / 1e9:.3f} GB in host RAM, the "
+            f"released weights {weights / 1e9:.3f} GB; host "
+            f"{json.dumps(mem0)} -> demoted {json.dumps(mem1)} -> spilled "
+            f"{json.dumps(mem2)}")
+        if not spilled or pool.tier(rec.key()) != Tier.LOCAL_DISK or \
+                out["disk_bytes"] != snap.nbytes or \
+                out["pool_host_bytes"] != weights:
+            raise AssertionError(f"{label}: the snapshot is not on disk, or "
+                                 f"the pool does not count the released "
+                                 f"weights")
+        return out
+
+    def restore():
+        ctx = lib.ensure(rec)
+        stage = {k: [int(v[0]), float(v[1])]
+                 for k, v in ctx.stage_seconds.items()}
+        calls = lib.builder_calls - held["calls"]
+        builds = eng.stats.compiles - held["compiles"]
+        pool_host = pool.stats()["host_used_bytes"]
+        gc.collect()
+        mem3 = host_memory()
+        mem4 = empty_host_cache()
+        log(f"[pcm] {label} disk: streamed restore {ctx.restore_seconds:.3f}"
+            f" s, stages {stage}; builder calls {calls}, kernel builds "
+            f"{builds}; the pool counts {pool_host} bytes in host RAM; host "
+            f"{json.dumps(mem3)}, after emptying the host cache "
+            f"{json.dumps(mem4)}")
+        if ctx.value["engine"] is not eng or not ctx.restored or calls or \
+                builds or set(stage) != {"disk", "h2d"} or pool_host:
+            raise AssertionError(f"{label}: the disk round trip built, ran "
+                                 f"the builder or did not stream")
+        return dict(seconds=ctx.restore_seconds, stage_seconds=stage,
+                    builder_calls=calls, kernel_builds=builds,
+                    host_restored=mem3, host_emptied=mem4)
+
+    out = midstream(f"{label} disk", eng, first, queued, max_new, demote,
+                    restore)
+    free(eng)
+    del eng
+    lib.evict_all(force=True)
+    tmp.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, depth=cfg.n_layers)
+
+
 def phase_deepseek() -> dict:
     """Full-width DeepSeek-V2-Lite-16B on the paged pool: (e) and (f) with
     the kernels, each path's launches checked, against a use_kernels=False
-    engine over the same weights."""
+    engine over the same weights; (f) with (e)'s claims queued demoted
+    mid-stream and restored (``midstream``, ``engine_demote``); and a
+    2-layer context through the disk tier (``disk_trip``)."""
     cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
                               use_kernels=True, n_layers=DS_DEPTH)
     full_params = full_depth_params("deepseek-v2-lite-16b", DS_PARAMS)
@@ -3948,6 +4222,9 @@ def phase_deepseek() -> dict:
     with RouteLog() as rp_f:
         fp, rates_f_plain = serve(plain, longs, 64, "(f) plain path")
     free(plain)
+    # the plain model holds the weights too: dropped before the demote
+    del plain, plain_model
+    gc.collect()
     out.update(rates_e=rates_e, rates_f=rates_f, rates_e_plain=rates_e_plain,
                rates_f_plain=rates_f_plain,
                compare_e=compare_routed("(e)", ek, ep, rk_e, rp_e, cfg,
@@ -3959,11 +4236,23 @@ def phase_deepseek() -> dict:
         if out[f"compare_{mix}"]["failures"]:
             raise AssertionError(f"deepseek ({mix}) kernels vs plain: "
                                  f"{out[f'compare_{mix}']['failures']}")
+    out["pcm"] = midstream("(f) + 8 of (e) DeepSeek", eng, longs, facts[:8],
+                           64, *engine_demote("DeepSeek", eng))
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     out["profile_f"] = profile_mix(eng, longs, PROFILE_NEW,
                                    f"(f) DeepSeek long prompts, kernel "
                                    f"engine, {PROFILE_NEW} new tokens")
     free(eng)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["disk"] = disk_trip(
+        f"DeepSeek {DS_DISK_DEPTH} layers",
+        dataclasses.replace(cfg, n_layers=DS_DISK_DEPTH), longs, facts[:8],
+        64, PAGED_KW)
+    for part in ("pcm", "disk"):
+        for when in ("before", "after"):
+            out["launches"][f"{part} {when}"] = out[part][f"launches_{when}"]
     return out
 
 
@@ -3998,8 +4287,10 @@ def phase_zamba2() -> dict:
     16 long prompts, 64 new tokens each (one 512-bucket wave, then 63
     decode steps), each with the launch counts set to 0, against a
     use_kernels=False engine over the same weights, and the two engines
-    again in f32 at 7 layers (``zamba2_f32_check``); torch.profiler over
-    (h)'s prompts at 16 new tokens."""
+    again in f32 at 7 layers (``zamba2_f32_check``); (h) with (g)'s claims
+    queued demoted mid-stream and restored (``midstream``); torch.profiler
+    over (h)'s prompts at 16 new tokens; a 7-layer context through the
+    disk tier (``disk_trip``)."""
     cfg = dataclasses.replace(get_config("zamba2-7b"), use_kernels=True,
                               n_layers=ZAMBA_DEPTH)
     full_params = full_depth_params("zamba2-7b", ZAMBA_PARAMS)
@@ -4079,6 +4370,11 @@ def phase_zamba2() -> dict:
         if out[f"compare_{mix}"]["failures"]:
             raise AssertionError(f"zamba2 ({mix}) kernels vs plain: "
                                  f"{out[f'compare_{mix}']['failures']}")
+    # the plain model holds the weights too: dropped before the demote
+    del plain, plain_model
+    gc.collect()
+    out["pcm"] = midstream("(h) + 8 of (g) Zamba2", eng, longs, facts[:8],
+                           64, *engine_demote("Zamba2", eng))
     out["profile_h"] = profile_mix(eng, longs, PROFILE_NEW,
                                    f"(h) Zamba2 kernels, {PROFILE_NEW} new "
                                    f"tokens")
@@ -4086,19 +4382,30 @@ def phase_zamba2() -> dict:
     log(f"[zamba2] peak device memory {out['peak_memory_bytes'] / 1e9:.2f} "
         f"GB")
     free(eng)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["disk"] = disk_trip(
+        f"Zamba2 {ZAMBA_DISK_DEPTH} layers",
+        dataclasses.replace(cfg, n_layers=ZAMBA_DISK_DEPTH), longs,
+        facts[:8], 64, ENGINE_KW)
+    for part in ("pcm", "disk"):
+        for when in ("before", "after"):
+            out["launches"][f"{part} {when}"] = out[part][f"launches_{when}"]
     return out
 
 
 # ------------------------------------------------------------ 8. dense ----
 DENSE_ARCHS = ("granite-3-2b", "h2o-danube-1.8b", "stablelm-12b",
                "nemotron-4-15b")
-# each at full width and a quarter of its depth (40, 24, 40 and 32
+# each at full width and an eighth of its depth (40, 24, 40 and 32
 # layers): the whole script must end inside its 1200 s on a slow host too
 # (a run at full depth took 1247.8 s there, every phase 1.2-1.6x as long
 # as on the hosts of earlier runs), and depth only repeats layers whose
-# shapes the kernels already see
-DENSE_DEPTH = {"granite-3-2b": 10, "h2o-danube-1.8b": 6, "stablelm-12b": 10,
-               "nemotron-4-15b": 8}
+# shapes the kernels already see. A quarter until phases 6, 7 and 9 took
+# on their demotes and disk round trips (63-86 s more)
+DENSE_DEPTH = {"granite-3-2b": 5, "h2o-danube-1.8b": 3, "stablelm-12b": 5,
+               "nemotron-4-15b": 4}
 # H2O-Danube's long mix: 8 prompts of 3 000-6 000 tokens in one wave of
 # the 8192 bucket, past its 4096-token window, so the prefill kernel skips
 # the key tiles below the window and the ring buffer of 4096 wraps
@@ -4364,7 +4671,8 @@ def family_arch(arch) -> dict:
     tokens must equal megastep 8's; the paged request's fallback; for
     xLSTM and Whisper a demote to host and a restore after which (b)
     decodes the same; for the VLM the witness that the patches reach the
-    logits."""
+    logits and (b) with (a)'s claims queued demoted mid-stream and
+    restored (``midstream``)."""
     t_arch = time.monotonic()
     cfg = dataclasses.replace(get_config(arch), use_kernels=True)
     sync()
@@ -4408,6 +4716,7 @@ def family_arch(arch) -> dict:
     one = InferenceEngine(model, device="cuda", **dict(kw, megastep=1))
     b1, _ = serve(one, longs, 64, f"{arch} (b) megastep 1")
     free(one)
+    del one                   # a resident engine over the model no more
     out["megastep1_equals_8"] = tokens(b1) == tokens(bk)
     log(f"[families] {arch} (b) tokens at megastep 1 identical to megastep "
         f"8's: {out['megastep1_equals_8']}")
@@ -4426,6 +4735,11 @@ def family_arch(arch) -> dict:
     if cfg.family == "vlm":
         out["witness"] = vision_witness(model, extra, frontend_extra(
             cfg, ENGINE_KW["slots"], seed=2))
+        out["pcm"] = pcm = midstream(f"{arch} (b) + 8 of (a)", eng, longs,
+                                     facts[:8], 64,
+                                     *engine_demote(arch, eng))
+        for when in ("before", "after"):
+            out["launches"][f"pcm {when}"] = pcm[f"launches_{when}"]
     else:
         t0 = time.monotonic()
         host = eng.offload_device_state()

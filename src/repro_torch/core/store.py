@@ -121,12 +121,15 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Set
+from typing import Dict, List, Optional, Set, Tuple
 
 import enum
 
-from repro_torch.core.context import GB, ContextRecipe, ContextSnapshot
+from repro_torch.checkpoint import io as ckio
+from repro_torch.core.context import (GB, ContextRecipe, ContextSnapshot,
+                                      _offloadable)
 
 
 class Tier(enum.IntEnum):
@@ -335,6 +338,17 @@ class SnapshotPool:
     is exactly why a preempted-then-rejoining worker pays restore cost
     instead of full startup cost (the paper's core claim).
 
+    Host occupancy counts what really stays in host RAM. A serving engine
+    demoted as the last one over its model releases the model's parameters
+    in place, and the model keeps the snapshot's host copies of them
+    (``InferenceEngine.offload_device_state``: ``model._released_params``).
+    Those tensors outlive a spill of the snapshot and a ``take`` of it, so
+    the pool watches the models behind the snapshots it was given and
+    counts their released parameters too, each tensor once: while the
+    snapshot is at HOST_RAM they are its own ``params``. A spill frees
+    only what the snapshot holds beyond them; a restore into the model,
+    an engine built over it, or dropping it frees them.
+
     Thread-safe: worker actor threads demote/restore concurrently.
     """
 
@@ -356,6 +370,9 @@ class SnapshotPool:
         # bookkeeping can invalidate phantom HOST_RAM claims
         self._on_gone = on_gone
         self._snaps: Dict[str, ContextSnapshot] = {}
+        # the models behind the snapshots ``put`` here, weakly: a released
+        # one pins its parameters in host RAM wherever its snapshot went
+        self._models: "weakref.WeakSet" = weakref.WeakSet()
         self._lost_keys: List[str] = []     # dropped under lock, fired after
         self._lock = threading.RLock()
         self.demotions = 0
@@ -378,9 +395,30 @@ class SnapshotPool:
         the pool was constructed before its owner existed."""
         self._on_gone = cb
 
+    def _host_held(self) -> Tuple[int, int]:
+        """(bytes of the snapshots at HOST_RAM, bytes of released
+        parameters beyond them): a tensor a snapshot holds is counted
+        with it, and every other tensor once by its storage."""
+        held = [s for s in self._snaps.values() if s.tier == Tier.HOST_RAM]
+        snap_bytes = sum(s.nbytes for s in held)
+        released = [t for m in list(self._models)
+                    for t in (m.__dict__.get("_released_params")
+                              or {}).values()]
+        if not released:
+            return snap_bytes, 0
+        seen = {t.untyped_storage().data_ptr() for s in held
+                for t in ckio.tree_leaves(s.host_state)
+                if hasattr(t, "untyped_storage")}
+        extra = 0
+        for t in released:
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in seen:
+                seen.add(ptr)
+                extra += t.numel() * t.element_size()
+        return snap_bytes, extra
+
     def _host_used(self) -> int:
-        return sum(s.nbytes for s in self._snaps.values()
-                   if s.tier == Tier.HOST_RAM)
+        return sum(self._host_held())
 
     def _disk_used(self) -> int:
         return sum(s.nbytes for s in self._snaps.values()
@@ -392,7 +430,9 @@ class SnapshotPool:
         npz write can happen outside the lock (a concurrent ``take`` of a
         mid-spill key simply misses and cold-builds); snapshots the disk
         tier cannot hold are dropped outright (rebuild is always
-        possible)."""
+        possible). Released parameters stay counted once their
+        snapshot spills (their model still pins them), so a victim frees
+        only what it holds beyond them, and the walk goes on to the next."""
         victims: List[ContextSnapshot] = []
         disk_planned = self._disk_used()
         while self._host_used() > self.host_bytes:
@@ -447,6 +487,10 @@ class SnapshotPool:
         with self._lock:
             old = self._snaps.pop(snap.key, None)
             self._snaps[snap.key] = snap
+            for comp in _offloadable(snap.value):
+                model = getattr(comp, "model", None)
+                if model is not None and hasattr(model, "__dict__"):
+                    self._models.add(model)
             self.demotions += 1
             victims = self._select_spill_victims()
         if old is not None and old.tier == Tier.LOCAL_DISK:
@@ -511,9 +555,11 @@ class SnapshotPool:
 
     def stats(self) -> Dict:
         with self._lock:
+            snap_bytes, released = self._host_held()
             return {
                 "snapshots": len(self._snaps),
-                "host_used_bytes": self._host_used(),
+                "host_used_bytes": snap_bytes + released,
+                "released_param_bytes": released,
                 "disk_used_bytes": self._disk_used(),
                 "demotions": self.demotions,
                 "spills": self.spills,

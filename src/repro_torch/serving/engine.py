@@ -96,15 +96,18 @@ it is demoted, as the reference's does (its closure keeps the arrays): an
 engine built over a released model copies them back onto the device (one
 host-to-device copy) and joins the model. A demoted engine restored
 while another engine is resident over its model fills a shell of its
-own. The price: while that snapshot is spilled to disk, or after it is
-restored elsewhere, the model still pins the parameters in host RAM
-(3.4 GB for SmolLM2-1.7B in bf16), where the reference keeps its arrays
-on the device; ``core.store.SnapshotPool``'s host budget counts only the
-snapshots it holds at HOST_RAM, so it does not see them. Dropping the
-model frees them. ``export_template`` (or its two halves,
-``export_template_device`` and ``export_template_host``, for a streamed
-export) and ``clone_offloaded`` bootstrap a twin engine from the weights
-alone. ``warm_executables`` loads every kernel library the model launches
+own. While the model keeps them, the parameters stay in pinned host RAM
+wherever the snapshot goes (3.4 GB for SmolLM2-1.7B in bf16), where the
+reference keeps its arrays on the device: a spill of the snapshot to
+disk frees its KV store, per-slot state and ``extra``, not the weights,
+and a snapshot taken from its pool holds them until it is restored.
+``core.store.SnapshotPool`` counts them against its host budget (the
+models behind its snapshots, each tensor once). A restore into the
+model, or an engine built over it, takes them back onto the device and
+drops them; so does dropping the model. ``export_template`` (or its
+two halves, ``export_template_device`` and ``export_template_host``, for
+a streamed export) and ``clone_offloaded`` bootstrap a twin engine from
+the weights alone. ``warm_executables`` loads every kernel library the model launches
 (building it at first use), the warm-up a PCM context runs once when it
 is built.
 

@@ -1283,6 +1283,73 @@ def test_cuda_family_engines_kernels_match_plain(cuda, arch):
             == want
 
 
+# the kernels each family launches after a mid-stream restore: the decode
+# steps of the requests that were decoding, and the prefill wave of those
+# that were queued
+FAMILY_PCM = {
+    "deepseek-v2-lite-16b": (dict(paged=True, page_size=8),
+                             ("paged_mla_decode", "grouped_gemm_segments")),
+    "zamba2-7b": ({}, ("ssm_scan", "flash_attention", "flash_decode")),
+    "llama-3.2-vision-11b": ({}, ("flash_attention", "flash_decode"))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(FAMILY_PCM))
+def test_cuda_family_demote_midstream_continues_bit_for_bit(cuda, arch):
+    """Reduced DeepSeek on the paged pool, Zamba2 and the VLM (gates at
+    1.0, 8 heads over 2) in f32 with the kernels, demoted in the middle of
+    a stream (requests decoding and queued) and restored on the card: the
+    device memory of the weights and the cache is freed, every cache leaf
+    (a paged pool's live pages), per-slot state and ``extra`` tensor comes
+    back bit for bit, the rest decodes as the engine did with no demote,
+    and the family's kernels launch after the restore."""
+    from repro_torch.serving import paged as paging
+
+    kw, kernels = FAMILY_PCM[arch]
+    over = dict(use_kernels=True)
+    if arch == "llama-3.2-vision-11b":
+        over.update(n_heads=8, n_kv_heads=2)
+    cfg = get_reduced_config(arch, **over)
+    model = build_model(cfg, device=cuda, seed=0)
+    for blk in getattr(model, "cross", ()):
+        blk.gate_attn.fill_(1.0)
+        blk.gate_mlp.fill_(1.0)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    extra = {n: torch.randn(t.shape, generator=gen, device=cuda)
+             for n, t in extra_inputs(cfg, 4).items()} or None
+    rng = np.random.RandomState(0)
+    ps = [list(rng.randint(8, cfg.vocab_size, size=rng.randint(3, 30)))
+          for _ in range(9)]
+    eng = InferenceEngine(model, device=cuda, slots=4, cache_len=64,
+                          prefill_buckets=(16, 32), megastep=4, extra=extra,
+                          **kw)
+    want = eng.generate(ps, 12)
+    reqs = [eng.submit(Request(prompt=p, max_new_tokens=12)) for p in ps]
+    eng.step()
+    assert eng.active and eng.queue
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    capacity = eng.snapshot()["capacity_bytes"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    host = eng.offload_device_state()
+    assert before - torch.cuda.memory_allocated() >= weights + capacity
+    eng.restore_device_state(host)
+    cache = eng.cache
+    if eng._paged:
+        cache = paging.gather_live(eng.cache, torch.as_tensor(
+            host["_paged_live_ids"], device=cuda))
+    pairs = [(cache[n], t) for n, t in host["cache"].items()]
+    pairs += [(getattr(eng, n), host[n]) for n in eng._state_fields]
+    pairs += [(eng.extra[n], t) for n, t in host.get("extra", {}).items()]
+    for dev, h in pairs:
+        assert dev.dtype == h.dtype and torch.equal(dev, h.to(cuda))
+    ops.reset_launches()
+    eng.run_to_completion()
+    assert [r.generated for r in reqs] == want
+    assert all(ops.LAUNCHES[k] > 0 for k in kernels), ops.LAUNCHES
+
+
 @pytest.mark.cuda
 def test_cuda_xlstm_matches_cpu(cuda):
     """The reduced xLSTM in f32 on the card against the CPU on the same
