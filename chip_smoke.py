@@ -25,6 +25,13 @@ beside the one kernels/dense_gemm.py picks (phase_dense_gemm_probe): a
 reading of what another plan would gain. It exits 0 when every plan's
 output agrees with torch.matmul, and prints no ok line.
 
+With --demote-timing it runs phase 1 and then demotes and restores the
+contexts of phases 6, 7 and 9 twice each on the plain path, timing every
+demote and restore beside the caching host allocator's and MemAvailable's
+readings (demote_timing), for whichever repro_torch sits beside the
+script: copied into a git archive of another commit, it times that one.
+It exits 0 when every leaf came back bit for bit, and prints no ok line.
+
 Phases (any failure exits non-zero; no phase swallows an exception):
   1. card     - the card's name and power limit, torch and CUDA versions;
   2. build    - nvcc builds the hand-written kernels from csrc/;
@@ -101,7 +108,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 256 tokens, bf16 cache); fact verification, 4 templates x
                 64 claims in batches of 16, two new tokens each, through
                 context_app, with worker 0 preempted after 4 batches and a
-                replacement added; then one context DEVICE -> HOST_RAM ->
+                replacement added before the other 12 are submitted; then
+                one context DEVICE -> HOST_RAM ->
                 LOCAL_DISK -> DEVICE, streamed, and one more batch. Prints
                 claims/s against a bare engine's, each worker's cold build,
                 the fetch_log, builder calls, restore and stage seconds and
@@ -179,20 +187,28 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 over the same weights: greedy agreement, the first-token
                 logits gap and the routing decisions that differed; then
                 (f)'s 16 prompts with 8 of (e)'s claims queued behind
-                them, run once to the end and once demoted to pinned host
-                memory after one step (requests decoding and queued),
-                restored and run to the end: the same tokens, the weights
-                and the pool's capacity freed on the card, every live page
-                and per-slot state tensor back bit for bit, the paged MLA
-                decode and the grouped GEMM launched after the restore;
+                them, run once to the end and once demoted to the port's
+                pinned host arenas after one step (requests decoding and
+                queued), restored, demoted and restored again (a second
+                demote's seconds) and run to the end: the same tokens,
+                the weights and the pool's capacity freed on the card,
+                every live page and per-slot state tensor back bit for
+                bit, the paged MLA decode and the grouped GEMM launched
+                after the restore, and the host
+                budget kept at each demote and drop (the caching host
+                allocator takes nothing, pinned bytes at most 1.01x the
+                counted ones, MemAvailable moves by the counted bytes
+                within 2 % + 256 MiB and gets the arenas back);
                 torch.profiler over (f) on the kernel engine at 16 new
                 tokens; last the same mid-stream run at 2 layers
                 (DS_DISK_DEPTH: the dense one and a MoE one) through the
                 PCM runtime's disk tier: a Library(streamed=True) demotes
-                it into a SnapshotPool, which spills it to LOCAL_DISK and
-                counts the released weights its model still pins in host
-                RAM, then promotes it streamed (stages disk and h2d) with
-                no builder call and no build. At 9 of its 27 layers
+                it into a SnapshotPool, which spills it to LOCAL_DISK
+                (giving back the state's arena) and counts the
+                parameters' arena its model keeps in host RAM until an
+                engine built over the model takes them (giving that one
+                back), then promotes it streamed (stages disk and h2d)
+                with no builder call and no build. At 9 of its 27 layers
                 (DS_DEPTH; the full model's 15.7 B parameters counted on
                 the meta device);
   7. zamba2   - full-width Zamba2-7B (at 27 of its 81 Mamba2
@@ -371,6 +387,7 @@ from repro_torch.cluster.node import spawn_node_process  # noqa: E402
 from repro_torch.core import (ContextMode, Library, PCMClient,  # noqa
                               PCMManager, SimulatorBackend, SnapshotPool,
                               Tier, context_app, load_context, make_recipe)
+from repro_torch.core.context import _tree_nbytes  # noqa: E402
 from repro_torch.data import (HashTokenizer, PipelineConfig,  # noqa: E402
                               batches, fever)
 from repro_torch.data.tokenizer import BOS, LABEL_TOKENS  # noqa: E402
@@ -2707,8 +2724,8 @@ def phase_runtime() -> dict:
         warm_s = time.monotonic() - t0
         first = next(iter(mgr.workers))
         t0 = time.monotonic()
-        futs = [verify_batch(idx, t) for t, idx in batches]
-        for f in futs[:4]:
+        futs = [verify_batch(idx, t) for t, idx in batches[:4]]
+        for f in futs:
             f.result(timeout=600)
         t_four = time.monotonic() - t0
         victim = mgr.workers[first]
@@ -2716,10 +2733,15 @@ def phase_runtime() -> dict:
         victim.join(300)                # its context is in the pool now
         retire_s = time.monotonic() - t0 - t_four
         joiner = mgr.add_worker()
+        # the other 12 batches once the replacement has joined: a
+        # retirement that outlasts them (a demote pins its host arenas
+        # afresh) would otherwise leave the replacement nothing to fetch
+        # the context for
+        futs += [verify_batch(idx, t) for t, idx in batches[4:]]
         log(f"[runtime] both workers built in {warm_s:.3f} s; 4 batches "
             f"done at {t_four:.3f} s; {first} preempted and retired (its "
-            f"context demoted to the pool) in {retire_s:.3f} s while "
-            f"{len(mgr.workers) - 1} worker served; {joiner} added")
+            f"context demoted to the pool) in {retire_s:.3f} s; {joiner} "
+            f"added, then the other {len(batches) - 4} batches submitted")
         got = [f.result(timeout=600) for f in futs]
         sweep_s = time.monotonic() - t0
         claims = len(batches) * RUNTIME_BATCH
@@ -3921,17 +3943,104 @@ ZAMBA_DISK_DEPTH = 7
 # the caching host allocator's readings beside MemAvailable
 HOST_STATS = ("allocated_bytes.current", "active_bytes.current",
               "num_host_alloc", "num_host_free")
+# the host tier's budget (repro_torch.hostmem): a demote takes from the
+# host at most the bytes the pool counts, page-locked in arenas of the
+# port's own, and gives them back once they are dropped, within this
+# slack of MemAvailable (the process's other allocations in the window)
+HOST_SLACK_SHARE = 0.02
+HOST_SLACK_BYTES = 256 << 20
+PINNED_PER_COUNTED_MAX = 1.01
 
 
-def host_memory() -> dict:
-    """What the OS has left (MemAvailable, /proc/meminfo) and what
-    PyTorch's caching host allocator holds pinned
-    (``torch.cuda.host_memory_stats``, where this torch has it), bytes."""
-    with open("/proc/meminfo") as f:
-        avail = next(int(line.split()[1]) * 1024 for line in f
-                     if line.startswith("MemAvailable:"))
-    stats = getattr(torch.cuda, "host_memory_stats", dict)()
-    return dict(mem_available=avail, **{k: stats.get(k) for k in HOST_STATS})
+def descendants_rss() -> int:
+    """VmRSS of this process's descendants, bytes: the dry-run and example
+    subprocesses that may still run beside a phase move MemAvailable too,
+    and a reading takes their change out."""
+    parents = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                parents[int(pid)] = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue            # a process that ended while being read
+    todo, rss = [os.getpid()], 0
+    while todo:
+        parent = todo.pop()
+        for pid in [p for p, pp in parents.items() if pp == parent]:
+            todo.append(pid)
+            try:
+                with open(f"/proc/{pid}/status") as f:
+                    rss += next((int(line.split()[1]) * 1024 for line in f
+                                 if line.startswith("VmRSS:")), 0)
+            except OSError:
+                continue
+    return rss
+
+
+def host_memory(settle: bool = False) -> dict:
+    """What the OS has left (MemAvailable, /proc/meminfo), what PyTorch's
+    caching host allocator holds pinned (``torch.cuda.host_memory_stats``),
+    the port's live arenas (``hostmem.live``) and the descendants' RSS,
+    bytes. With ``settle``, read until two readings 0.2 s apart agree
+    within 32 MiB (at most 10 s): memory freed just before may still be
+    coming back, which the card machine's MemAvailable shows over seconds
+    (``given_back`` logs how many)."""
+    try:
+        from repro_torch import hostmem
+    except ImportError:     # --demote-timing on a commit before the arenas
+        hostmem = None
+
+    def read():
+        with open("/proc/meminfo") as f:
+            avail = next(int(line.split()[1]) * 1024 for line in f
+                         if line.startswith("MemAvailable:"))
+        stats = torch.cuda.host_memory_stats()
+        arenas = hostmem.live() if hostmem else {}
+        return dict(mem_available=avail, **{k: stats.get(k)
+                                            for k in HOST_STATS},
+                    arenas=arenas.get("arenas"),
+                    arena_bytes=arenas.get("bytes"),
+                    arena_pinned_bytes=arenas.get("pinned_bytes"),
+                    descendants_rss=descendants_rss())
+
+    now = read()
+    deadline = time.monotonic() + 10
+    while settle and time.monotonic() < deadline:
+        time.sleep(0.2)
+        last, now = now, read()
+        if abs(now["mem_available"] - last["mem_available"]) < 32 << 20:
+            break
+    return now
+
+
+def host_taken(before: dict, after: dict) -> int:
+    """Host bytes this process took between two readings: MemAvailable's
+    fall less its descendants' growth (negative for bytes given back)."""
+    return (before["mem_available"] - after["mem_available"]) - (
+        after["descendants_rss"] - before["descendants_rss"])
+
+
+def host_slack(nbytes: int) -> float:
+    return nbytes * HOST_SLACK_SHARE + HOST_SLACK_BYTES
+
+
+def given_back(label, before: dict, nbytes: int) -> dict:
+    """Read the host until ``nbytes`` have come back to MemAvailable since
+    ``before`` (within the slack), for at most 5 s and 1 s a GB: the
+    reading, with the seconds it took and the bytes that came back.
+    Raises if they do not."""
+    t0 = time.monotonic()
+    while True:
+        now = host_memory()
+        back = -host_taken(before, now)
+        waited = time.monotonic() - t0
+        if back >= nbytes - host_slack(nbytes):
+            return dict(now, given_back=back, seconds=waited)
+        if waited > 5 + nbytes / 1e9:
+            raise AssertionError(
+                f"{label}: {back / 1e9:.3f} GB came back to the host of the "
+                f"{nbytes / 1e9:.3f} GB freed, in {waited:.1f} s")
+        time.sleep(0.1)
 
 
 def empty_host_cache() -> dict:
@@ -3942,6 +4051,51 @@ def empty_host_cache() -> dict:
     if fn is not None:
         fn()
     return dict(host_memory(), emptied=fn is not None)
+
+
+def arena_bytes(tree) -> int:
+    """The bytes of the storages the tensors of ``tree`` are views of,
+    each once: a demoted copy's two arenas."""
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in ckio.tree_leaves(tree)
+                if isinstance(t, torch.Tensor)}.values())
+
+
+def demote_budget(label, before: dict, after: dict, host) -> dict:
+    """The host tier's budget over one demote of ``host`` (a demoted
+    engine's copy, or a snapshot's ``host_state``), from readings taken
+    before and after it: PyTorch's caching host allocator allocated
+    nothing, every tensor is page-locked, the arenas pinned at most
+    PINNED_PER_COUNTED_MAX of the bytes the pool counts for it
+    (``ContextSnapshot.nbytes``), and MemAvailable fell by at most those
+    and the slack. Raises on the first that fails."""
+    counted = _tree_nbytes(host)
+    out = dict(
+        counted_bytes=counted,
+        allocator_bytes=(after["allocated_bytes.current"]
+                         - before["allocated_bytes.current"]),
+        pinned_bytes=after["arena_pinned_bytes"]
+        - before["arena_pinned_bytes"],
+        host_taken_bytes=host_taken(before, after),
+        all_pinned=all(t.is_pinned() for t in ckio.tree_leaves(host)
+                       if isinstance(t, torch.Tensor)))
+    out["pinned_per_counted"] = out["pinned_bytes"] / counted
+    log(f"[pcm] {label}: {counted / 1e9:.3f} GB counted, "
+        f"{out['pinned_bytes'] / 1e9:.3f} GB pinned in the port's arenas "
+        f"({out['pinned_per_counted']:.5f} a counted byte), every tensor "
+        f"page-locked: {out['all_pinned']}; the caching host allocator "
+        f"took {out['allocator_bytes']} bytes; the host "
+        f"{out['host_taken_bytes'] / 1e9:.3f} GB (MemAvailable "
+        f"{before['mem_available'] / 1e9:.3f} -> "
+        f"{after['mem_available'] / 1e9:.3f} GB, descendants' RSS "
+        f"{before['descendants_rss'] / 1e9:.3f} -> "
+        f"{after['descendants_rss'] / 1e9:.3f} GB)")
+    if out["allocator_bytes"] != 0 or not out["all_pinned"] or \
+            out["pinned_per_counted"] > PINNED_PER_COUNTED_MAX or \
+            out["host_taken_bytes"] > counted + host_slack(counted):
+        raise AssertionError(f"{label}: the demote broke the host budget: "
+                             f"{json.dumps(out)}")
+    return out
 
 
 def restored_equal(eng, host) -> int:
@@ -4012,63 +4166,77 @@ def midstream(label, eng, first, queued, max_new, demote, restore) -> dict:
     return out
 
 
-def engine_demote(label, eng) -> tuple:
+def engine_demote(label, eng, second: bool = False) -> tuple:
     """``midstream``'s demote and restore of the engine itself: its device
-    state to pinned host memory and back. The demote must free at least
-    the weights and the cache's capacity on the device, and the restore
-    bring every cache, state and ``extra`` leaf back bit for bit."""
+    state to the port's page-locked arenas and back (with ``second``, a
+    second demote and restore right after the first: a fresh pin again,
+    where PyTorch's caching allocator reused its blocks). Each demote must
+    free at least the weights and the cache's capacity on the device and
+    keep the host budget (``demote_budget``); each restore must bring
+    every cache, state and ``extra`` leaf back bit for bit and, its host
+    copy dropped, the arenas' bytes back to MemAvailable before the
+    caching allocator's cache is emptied."""
     held = {}
 
-    def demote():
+    def demote_once(which):
         weights = sum(p.numel() * p.element_size()
                       for p in eng.model.parameters())
         capacity = eng.snapshot()["capacity_bytes"]
-        mem0 = host_memory()
+        mem0 = host_memory(settle=True)
         sync()
         dev0 = torch.cuda.memory_allocated()
         t0 = time.monotonic()
-        held["host"] = host = eng.offload_device_state()
+        held["host"] = eng.offload_device_state()
         demote_s = time.monotonic() - t0
         freed = dev0 - torch.cuda.memory_allocated()
         mem1 = host_memory()
-        out = dict(seconds=demote_s, pinned_bytes=sum(
-            t.numel() * t.element_size() for t in ckio.tree_leaves(host)
-            if isinstance(t, torch.Tensor)),
+        out = demote_budget(f"{label} {which} demote", mem0, mem1,
+                            held["host"])
+        out.update(seconds=demote_s,
+                   gb_per_s=out["counted_bytes"] / demote_s / 1e9,
                    weight_bytes=weights, capacity_bytes=capacity,
                    freed_bytes=freed, host_before=mem0, host_demoted=mem1)
-        pinned = mem1["allocated_bytes.current"]
-        if pinned is not None:
-            # what the caching host allocator took for those bytes: each
-            # block rounded up
-            out["allocator_per_counted_byte"] = (
-                pinned - mem0["allocated_bytes.current"]) / out["pinned_bytes"]
-        log(f"[pcm] {label} demote {demote_s:.3f} s: "
-            f"{out['pinned_bytes'] / 1e9:.3f} GB to pinned host "
-            f"({out.get('allocator_per_counted_byte')} allocator bytes a "
-            f"byte); device memory freed {freed / 1e9:.3f} GB (weights "
-            f"{weights / 1e9:.3f} + cache capacity {capacity / 1e9:.3f}); "
-            f"host {json.dumps(mem0)} -> {json.dumps(mem1)}")
+        log(f"[pcm] {label} {which} demote {demote_s:.3f} s "
+            f"({out['gb_per_s']:.2f} GB/s); device memory freed "
+            f"{freed / 1e9:.3f} GB (weights {weights / 1e9:.3f} + cache "
+            f"capacity {capacity / 1e9:.3f}); host {json.dumps(mem0)} -> "
+            f"{json.dumps(mem1)}")
         if freed < weights + capacity:
             raise AssertionError(f"{label}: the demote did not free the "
                                  f"weights and the cache")
         return out
 
-    def restore():
+    def restore_once(which):
         host = held.pop("host")
         t0 = time.monotonic()
         eng.restore_device_state(host)
         restore_s = time.monotonic() - t0
         compared = restored_equal(eng, host)
-        del host
-        gc.collect()
-        mem2 = host_memory()
-        mem3 = empty_host_cache()
-        log(f"[pcm] {label} restore {restore_s:.3f} s; {compared} cache, "
-            f"state and extra leaves bit for bit; host after the copy is "
-            f"dropped {json.dumps(mem2)}, after emptying the host cache "
-            f"{json.dumps(mem3)}")
-        return dict(seconds=restore_s, leaves_equal=compared,
-                    host_dropped=mem2, host_emptied=mem3)
+        nbytes = arena_bytes(host)
+        mem2 = host_memory(settle=True)
+        del host                # the last views: no collection needed
+        mem3 = given_back(f"{label} {which} restore", mem2, nbytes)
+        mem4 = empty_host_cache()
+        log(f"[pcm] {label} {which} restore {restore_s:.3f} s "
+            f"({nbytes / restore_s / 1e9:.2f} GB/s); {compared} cache, "
+            f"state and extra leaves bit for bit; the host copy dropped, "
+            f"{mem3['given_back'] / 1e9:.3f} GB of the arenas' "
+            f"{nbytes / 1e9:.3f} came back in {mem3['seconds']:.2f} s "
+            f"({json.dumps(mem3)}); after emptying the host cache "
+            f"{json.dumps(mem4)}")
+        return dict(seconds=restore_s, gb_per_s=nbytes / restore_s / 1e9,
+                    leaves_equal=compared, arena_bytes=nbytes,
+                    host_held=mem2, host_dropped=mem3, host_emptied=mem4)
+
+    def demote():
+        return demote_once("first")
+
+    def restore():
+        out = restore_once("first")
+        if second:
+            out.update(second_demote=demote_once("second"),
+                       second=restore_once("second"))
+        return out
 
     return demote, restore
 
@@ -4077,11 +4245,14 @@ def disk_trip(label, cfg, first, queued, max_new, kw) -> dict:
     """One context of ``cfg`` (seeded weights) through the PCM runtime's
     disk tier, as tests/test_torch_runtime.py's mid-stream case: a
     ``Library(streamed=True)`` over a ``SnapshotPool`` builds it, then
-    ``midstream`` demotes it into the pool, spills it to LOCAL_DISK and
-    promotes it again (a streamed restore: stages ``disk`` and ``h2d``)
-    with no builder call and no kernel build. The pool must count the
-    released parameters the model keeps on the host while the snapshot is
-    on disk, and nothing once it is restored."""
+    ``midstream`` demotes it into the pool (``demote_budget``), spills it
+    to LOCAL_DISK, builds an engine over its released model, and promotes
+    it again (a streamed restore: stages ``disk`` and ``h2d``) with no
+    builder call and no kernel build. The pool must count the parameters'
+    arena the model keeps on the host while the snapshot is on disk, and
+    nothing once the build over the model took them; the spill must give
+    the other arena's bytes back to MemAvailable, the build the
+    parameters', and the restore leave no arena."""
     tmp = tempfile.TemporaryDirectory(prefix="pcm_disk_smoke_")
     pool = SnapshotPool(spill_dir=tmp.name)
     lib = Library("disk", snapshots=pool, streamed=True)
@@ -4090,41 +4261,66 @@ def disk_trip(label, cfg, first, queued, max_new, kw) -> dict:
         host_bytes=0)
     eng = lib.ensure(rec).value["engine"]
     eng.generate([[2, 5]], max_new_tokens=2)
-    weights = sum(p.numel() * p.element_size()
-                  for p in eng.model.parameters())
     held = {}
 
     def demote():
-        mem0 = host_memory()
+        mem0 = host_memory(settle=True)
         t0 = time.monotonic()
         snap = lib.demote(rec.key())
         demote_s = time.monotonic() - t0
         mem1 = host_memory()
+        out = demote_budget(f"{label} disk demote", mem0, mem1,
+                            snap.host_state)
+        params = arena_bytes(snap.host_state["c0"]["params"])
+        state = arena_bytes(snap.host_state) - params
+        held.update(arenas=mem0["arenas"])
+        mem2 = host_memory(settle=True)
         t0 = time.monotonic()
         spilled = pool.spill(rec.key())
         spill_s = time.monotonic() - t0
         st = pool.stats()
-        mem2 = host_memory()
+        mem3 = given_back(f"{label} spill", mem2, state)
+        mem4 = host_memory(settle=True)
+        t0 = time.monotonic()
+        twin = InferenceEngine(eng.model, device="cuda", **kw)
+        build_s = time.monotonic() - t0
+        pool_built = pool.stats()["host_used_bytes"]
+        mem5 = given_back(f"{label} build over the released model", mem4,
+                          params)
+        free(twin)
+        del twin
         held.update(calls=lib.builder_calls, compiles=eng.stats.compiles)
-        out = dict(demote_s=demote_s, spill_s=spill_s,
-                   snapshot_bytes=snap.nbytes, weight_bytes=weights,
+        out.update(demote_s=demote_s, spill_s=spill_s, build_s=build_s,
+                   snapshot_bytes=snap.nbytes, params_arena_bytes=params,
+                   state_arena_bytes=state,
                    disk_bytes=st["disk_used_bytes"],
                    pool_host_bytes=st["host_used_bytes"],
                    released_param_bytes=st["released_param_bytes"],
-                   host_before=mem0, host_demoted=mem1, host_spilled=mem2)
+                   pool_pinned_bytes=st["pinned_host_bytes"],
+                   pool_host_after_build=pool_built,
+                   host_before=mem0, host_demoted=mem1, host_spilled=mem3,
+                   host_built=mem5)
         log(f"[pcm] {label} disk: demote {demote_s:.3f} s "
             f"({snap.nbytes / 1e9:.3f} GB snapshot), spill {spill_s:.3f} s "
             f"({out['disk_bytes'] / 1e9:.3f} GB on disk); the pool counts "
-            f"{out['pool_host_bytes'] / 1e9:.3f} GB in host RAM, the "
-            f"released weights {weights / 1e9:.3f} GB; host "
+            f"{out['pool_host_bytes'] / 1e9:.3f} GB in host RAM "
+            f"({out['pool_pinned_bytes'] / 1e9:.3f} pinned), the "
+            f"parameters' arena {params / 1e9:.3f} GB; "
+            f"{mem3['given_back'] / 1e9:.3f} GB of the state arena's "
+            f"{state / 1e9:.3f} came back in {mem3['seconds']:.2f} s; a "
+            f"build over the released model {build_s:.3f} s, then the pool "
+            f"counts {pool_built} bytes and {mem5['given_back'] / 1e9:.3f} "
+            f"GB came back in {mem5['seconds']:.2f} s; host "
             f"{json.dumps(mem0)} -> demoted {json.dumps(mem1)} -> spilled "
-            f"{json.dumps(mem2)}")
+            f"{json.dumps(mem3)} -> built {json.dumps(mem5)}")
         if not spilled or pool.tier(rec.key()) != Tier.LOCAL_DISK or \
                 out["disk_bytes"] != snap.nbytes or \
-                out["pool_host_bytes"] != weights:
+                out["pool_host_bytes"] != params or \
+                out["pool_pinned_bytes"] != params or pool_built:
             raise AssertionError(f"{label}: the snapshot is not on disk, or "
-                                 f"the pool does not count the released "
-                                 f"weights")
+                                 f"the pool does not count the parameters' "
+                                 f"arena alone, pinned, or still counts it "
+                                 f"after the build over the model")
         return out
 
     def restore():
@@ -4135,20 +4331,22 @@ def disk_trip(label, cfg, first, queued, max_new, kw) -> dict:
         builds = eng.stats.compiles - held["compiles"]
         pool_host = pool.stats()["host_used_bytes"]
         gc.collect()
-        mem3 = host_memory()
-        mem4 = empty_host_cache()
+        mem6 = host_memory()
+        mem7 = empty_host_cache()
         log(f"[pcm] {label} disk: streamed restore {ctx.restore_seconds:.3f}"
             f" s, stages {stage}; builder calls {calls}, kernel builds "
             f"{builds}; the pool counts {pool_host} bytes in host RAM; host "
-            f"{json.dumps(mem3)}, after emptying the host cache "
-            f"{json.dumps(mem4)}")
+            f"{json.dumps(mem6)}, after emptying the host cache "
+            f"{json.dumps(mem7)}")
         if ctx.value["engine"] is not eng or not ctx.restored or calls or \
-                builds or set(stage) != {"disk", "h2d"} or pool_host:
+                builds or set(stage) != {"disk", "h2d"} or pool_host or \
+                mem6["arenas"] != held["arenas"]:
             raise AssertionError(f"{label}: the disk round trip built, ran "
-                                 f"the builder or did not stream")
+                                 f"the builder, did not stream or left an "
+                                 f"arena")
         return dict(seconds=ctx.restore_seconds, stage_seconds=stage,
                     builder_calls=calls, kernel_builds=builds,
-                    host_restored=mem3, host_emptied=mem4)
+                    host_restored=mem6, host_emptied=mem7)
 
     out = midstream(f"{label} disk", eng, first, queued, max_new, demote,
                     restore)
@@ -4159,6 +4357,87 @@ def disk_trip(label, cfg, first, queued, max_new, kw) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(out, depth=cfg.n_layers)
+
+
+# --demote-timing: the contexts that phases 6, 7 and 9 demote, at their
+# depths (the VLM at full depth), each on the cache its phase uses
+DEMOTE_TIMING = (("deepseek-v2-lite-16b", DS_DEPTH, PAGED_KW),
+                 ("zamba2-7b", ZAMBA_DEPTH, ENGINE_KW),
+                 ("llama-3.2-vision-11b", None, ENGINE_KW))
+
+
+def demote_timing() -> dict:
+    """--demote-timing: each context of DEMOTE_TIMING (seeded weights, the
+    plain path: a demote moves the same tensors with or without the
+    kernels) with (b)'s 16 long prompts decoding and 8 of (a)'s claims
+    queued after one step, demoted and restored twice in a row, the host
+    cache emptied before the first: each demote's and restore's seconds,
+    the bytes the pool would count and their GB/s, the caching host
+    allocator's rise, the host bytes taken and those still held once the
+    copy is dropped; every leaf back bit for bit. It times whichever
+    ``repro_torch`` sits beside this script: run from a ``git archive`` of
+    another commit with this script copied in, and from this checkout, in
+    one call, to set the two side by side."""
+    out = {}
+    for arch, depth, kw in DEMOTE_TIMING:
+        cfg = dataclasses.replace(get_config(arch), use_kernels=False)
+        if depth:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        model = build_model(cfg, device="cuda", seed=0)
+        for blk in getattr(model, "cross", ()):
+            blk.gate_attn.fill_(FAMILY_GATE)
+            blk.gate_mlp.fill_(FAMILY_GATE)
+        extra = frontend_extra(cfg, kw["slots"], seed=1)
+        eng = InferenceEngine(model, device="cuda",
+                              **dict(kw, extra=extra or None))
+        for ps, n in ((long_prompts(cfg.vocab_size), 64),
+                      (fact_prompts(cfg.vocab_size)[:8], 1)):
+            for p in ps:
+                eng.submit(Request(prompt=list(p), max_new_tokens=n))
+        eng.step()
+        empty_host_cache()
+        rows = out[arch] = []
+        for which in ("first", "second"):
+            mem0 = host_memory(settle=True)
+            sync()
+            t0 = time.monotonic()
+            host = eng.offload_device_state()
+            demote_s = time.monotonic() - t0
+            mem1 = host_memory()
+            counted = _tree_nbytes(host)
+            t0 = time.monotonic()
+            eng.restore_device_state(host)
+            restore_s = time.monotonic() - t0
+            compared = restored_equal(eng, host)
+            del host
+            gc.collect()
+            mem2 = host_memory(settle=True)
+            row = dict(
+                demote=which, demote_s=demote_s, restore_s=restore_s,
+                counted_bytes=counted,
+                demote_gb_per_s=counted / demote_s / 1e9,
+                restore_gb_per_s=counted / restore_s / 1e9,
+                allocator_bytes=(mem1["allocated_bytes.current"]
+                                 - mem0["allocated_bytes.current"]),
+                host_taken_bytes=host_taken(mem0, mem1),
+                host_held_after_drop=host_taken(mem0, mem2),
+                leaves_equal=compared)
+            rows.append(row)
+            log(f"[demote-timing] {arch} ({cfg.n_layers} layers) {which} "
+                f"demote {demote_s:.3f} s, restore {restore_s:.3f} s, "
+                f"{counted / 1e9:.3f} GB counted "
+                f"({row['demote_gb_per_s']:.2f} and "
+                f"{row['restore_gb_per_s']:.2f} GB/s); caching allocator "
+                f"+{row['allocator_bytes'] / 1e9:.3f} GB, host taken "
+                f"{row['host_taken_bytes'] / 1e9:.3f} GB, still held after "
+                f"the drop {row['host_held_after_drop'] / 1e9:.3f} GB; "
+                f"{compared} leaves bit for bit")
+        free(eng)
+        del eng, model, extra
+        gc.collect()
+        torch.cuda.empty_cache()
+        empty_host_cache()
+    return out
 
 
 def phase_deepseek() -> dict:
@@ -4237,7 +4516,7 @@ def phase_deepseek() -> dict:
             raise AssertionError(f"deepseek ({mix}) kernels vs plain: "
                                  f"{out[f'compare_{mix}']['failures']}")
     out["pcm"] = midstream("(f) + 8 of (e) DeepSeek", eng, longs, facts[:8],
-                           64, *engine_demote("DeepSeek", eng))
+                           64, *engine_demote("DeepSeek", eng, second=True))
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     out["profile_f"] = profile_mix(eng, longs, PROFILE_NEW,
                                    f"(f) DeepSeek long prompts, kernel "
@@ -6248,6 +6527,11 @@ def main() -> int:
                          "prefill linear's kernel takes at phase 3's "
                          "shapes beside the one it picks "
                          "(phase_dense_gemm_probe)")
+    ap.add_argument("--demote-timing", action="store_true",
+                    help="instead of the smoke run: demote and restore the "
+                         "contexts of phases 6, 7 and 9 twice each, timing "
+                         "each (demote_timing); run from another commit's "
+                         "tree with this script copied in to compare")
     ap.add_argument("--seq-decode", action="store_true",
                     help="instead of the smoke run: the sequence-sharded "
                          "decode on a (2, 2) mesh of four cards against "
@@ -6272,6 +6556,14 @@ def main() -> int:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(report, indent=1))
         print(json.dumps({"seq_decode_ok": True, "seconds":
+                          time.monotonic() - t_start}), flush=True)
+        return 0
+    if args.demote_timing:
+        report = {"card": phase_card(), "demote_timing": demote_timing()}
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(report, indent=1))
+        print(json.dumps({"demote_timing_ok": True, "seconds":
                           time.monotonic() - t_start}), flush=True)
         return 0
     if args.dense_gemm_probe:

@@ -68,39 +68,41 @@ def tree_flatten(tree) -> Tuple[List[Tuple[str, Any]], Any]:
     ``None`` an empty subtree. ``structure`` rebuilds the tree in
     :func:`tree_unflatten`."""
     pairs: List[Tuple[str, Any]] = []
+    return pairs, _walk(tree, (), pairs)
 
-    def walk(node, path):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", keys, [walk(node[k], path + (str(k),))
-                                   for k in keys])
-        if isinstance(node, (list, tuple)):
-            return (type(node), len(node),
-                    [walk(v, path + (f"[{i}]",))
-                     for i, v in enumerate(node)])
-        pairs.append(("/".join(path), node))
-        return ("leaf",)
 
-    return pairs, walk(tree, ())
+# the walks are module functions, not closures: a closure that calls
+# itself is a reference cycle, which would keep every leaf it saw (a
+# demoted context's host arenas) alive until the garbage collector ran
+def _walk(node, path, pairs):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", keys, [_walk(node[k], path + (str(k),), pairs)
+                               for k in keys])
+    if isinstance(node, (list, tuple)):
+        return (type(node), len(node),
+                [_walk(v, path + (f"[{i}]",), pairs)
+                 for i, v in enumerate(node)])
+    pairs.append(("/".join(path), node))
+    return ("leaf",)
 
 
 def tree_unflatten(structure, leaves) -> Any:
     """Inverse of :func:`tree_flatten`: ``leaves`` in flatten order."""
-    it = iter(leaves)
+    return _build(structure, iter(leaves))
 
-    def build(node):
-        if node is None:
-            return None
-        kind = node[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(node[1], node[2])}
-        return kind(build(c) for c in node[2])
 
-    return build(structure)
+def _build(node, leaves):
+    if node is None:
+        return None
+    kind = node[0]
+    if kind == "leaf":
+        return next(leaves)
+    if kind == "dict":
+        return {k: _build(c, leaves) for k, c in zip(node[1], node[2])}
+    return kind(_build(c, leaves) for c in node[2])
 
 
 def tree_map(fn, tree) -> Any:

@@ -9,7 +9,8 @@ worker; the Library holds it across task executions (full-context mode).
 
 A *snapshot* (:class:`ContextSnapshot`) is a demoted context: the device-
 resident state (weights, KV cache, per-slot decode state, RNG) copied to
-(pinned) host tensors, with the built kernels and every host-side
+host memory (the engine's two ``hostmem`` arenas, page-locked on the
+card), with the built kernels and every host-side
 structure retained on the engine object. Snapshots can spill further to
 local disk through ``repro_torch.checkpoint.io`` and are promoted back
 with ``restore_context`` — no builder call, no kernel build,
@@ -205,10 +206,17 @@ def materialize(recipe: ContextRecipe, worker_id: str = "local") -> Context:
 
 # ----------------------------------------------------------- snapshots -----
 def _tree_nbytes(tree: Any) -> int:
+    """The host bytes a tree holds: each tensor storage once, by its size
+    (the views of one ``hostmem`` arena count the arena once, alignment
+    included), and every other leaf with ``nbytes`` by it."""
     total = 0
+    storages = set()
     for leaf in _tree_leaves(tree):
         if isinstance(leaf, torch.Tensor):
-            total += leaf.numel() * leaf.element_size()
+            storage = leaf.untyped_storage()
+            if storage.data_ptr() not in storages:
+                storages.add(storage.data_ptr())
+                total += storage.nbytes()
         elif hasattr(leaf, "nbytes"):
             total += int(leaf.nbytes)
     return total

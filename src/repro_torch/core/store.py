@@ -324,10 +324,11 @@ class SnapshotPool:
     """Node-level pool of demoted :class:`ContextSnapshot` payloads.
 
     The physical half of tier movement: DEVICE->HOST_RAM demotion `put`s a
-    snapshot here (params + engine device state copied to pinned host
-    tensors, the built kernels and host structures retained as metadata);
-    when host occupancy exceeds ``host_bytes``, the LRU snapshot SPILLS its
-    arrays to LOCAL_DISK through ``checkpoint/io`` (atomic npz + manifest).
+    snapshot here (params + engine device state copied to host arenas,
+    page-locked on the card; the built kernels and host structures
+    retained as metadata); when host occupancy exceeds ``host_bytes``, the
+    LRU snapshot SPILLS its arrays to LOCAL_DISK through ``checkpoint/io``
+    (atomic npz + manifest).
     Promotion (`take`) returns the snapshot for restore and removes it from
     the pool — the materialized value is a single mutable object (engine +
     executables), so a restore MOVES it to the requesting worker rather
@@ -338,16 +339,20 @@ class SnapshotPool:
     is exactly why a preempted-then-rejoining worker pays restore cost
     instead of full startup cost (the paper's core claim).
 
-    Host occupancy counts what really stays in host RAM. A serving engine
+    Host occupancy counts what really stays in host RAM: each tensor
+    storage once, by its size. An engine's snapshot holds two
+    ``repro_torch.hostmem`` arenas (its parameters' and the rest's), whose
+    views share their arena's storage, so each arena counts once,
+    alignment included: the bytes the process holds. A serving engine
     demoted as the last one over its model releases the model's parameters
     in place, and the model keeps the snapshot's host copies of them
     (``InferenceEngine.offload_device_state``: ``model._released_params``).
-    Those tensors outlive a spill of the snapshot and a ``take`` of it, so
+    That arena outlives a spill of the snapshot and a ``take`` of it, so
     the pool watches the models behind the snapshots it was given and
-    counts their released parameters too, each tensor once: while the
-    snapshot is at HOST_RAM they are its own ``params``. A spill frees
-    only what the snapshot holds beyond them; a restore into the model,
-    an engine built over it, or dropping it frees them.
+    counts their released parameters too: while the snapshot is at
+    HOST_RAM they are its own ``params``. A spill frees the other arena;
+    a restore into the model, an engine built over it, or dropping it
+    frees the parameters'.
 
     Thread-safe: worker actor threads demote/restore concurrently.
     """
@@ -395,15 +400,22 @@ class SnapshotPool:
         the pool was constructed before its owner existed."""
         self._on_gone = cb
 
-    def _host_held(self) -> Tuple[int, int]:
-        """(bytes of the snapshots at HOST_RAM, bytes of released
-        parameters beyond them): a tensor a snapshot holds is counted
-        with it, and every other tensor once by its storage."""
+    def _held_tensors(self) -> Tuple[List[ContextSnapshot], List]:
+        """The snapshots at HOST_RAM, and the parameters released models
+        keep in host RAM."""
         held = [s for s in self._snaps.values() if s.tier == Tier.HOST_RAM]
-        snap_bytes = sum(s.nbytes for s in held)
         released = [t for m in list(self._models)
                     for t in (m.__dict__.get("_released_params")
                               or {}).values()]
+        return held, released
+
+    def _host_held(self) -> Tuple[int, int]:
+        """(bytes of the snapshots at HOST_RAM, bytes of released
+        parameters beyond them): a storage a snapshot holds is counted
+        with it (``ContextSnapshot.nbytes``), and every other once by its
+        size."""
+        held, released = self._held_tensors()
+        snap_bytes = sum(s.nbytes for s in held)
         if not released:
             return snap_bytes, 0
         seen = {t.untyped_storage().data_ptr() for s in held
@@ -411,11 +423,25 @@ class SnapshotPool:
                 if hasattr(t, "untyped_storage")}
         extra = 0
         for t in released:
-            ptr = t.untyped_storage().data_ptr()
-            if ptr not in seen:
-                seen.add(ptr)
-                extra += t.numel() * t.element_size()
+            storage = t.untyped_storage()
+            if storage.data_ptr() not in seen:
+                seen.add(storage.data_ptr())
+                extra += storage.nbytes()
         return snap_bytes, extra
+
+    def _pinned_host(self) -> int:
+        """Bytes of the counted storages that are page-locked for the card
+        (each once)."""
+        held, released = self._held_tensors()
+        pinned = {}
+        for t in released + [t for s in held
+                             for t in ckio.tree_leaves(s.host_state)]:
+            if hasattr(t, "untyped_storage"):
+                storage = t.untyped_storage()
+                if storage.data_ptr() not in pinned:
+                    pinned[storage.data_ptr()] = (storage.nbytes()
+                                                  if t.is_pinned() else 0)
+        return sum(pinned.values())
 
     def _host_used(self) -> int:
         return sum(self._host_held())
@@ -560,6 +586,7 @@ class SnapshotPool:
                 "snapshots": len(self._snaps),
                 "host_used_bytes": snap_bytes + released,
                 "released_param_bytes": released,
+                "pinned_host_bytes": self._pinned_host(),
                 "disk_used_bytes": self._disk_used(),
                 "demotions": self.demotions,
                 "spills": self.spills,

@@ -76,8 +76,12 @@ engine builds them at construction when they are not on disk yet, and
 
 **Demote and restore (PCM snapshot hooks).** ``offload_device_state()``
 copies the weights, the KV store, the per-slot state and the RNG state
-into (pinned) host tensors and frees the device memory; a paged engine
-ships only its live pages, each once, with their refcounts.
+into host memory and frees the device memory; a paged engine ships only
+its live pages, each once, with their refcounts. The host copies are views
+of two arenas the port owns (``repro_torch.hostmem``: page-locked on the
+card, outside PyTorch's caching host allocator), one for the weights and
+one for the rest, so the bytes a snapshot counts are the bytes it holds,
+and dropping an arena's last view gives its RAM back at once.
 ``restore_device_state()`` copies them back. A restored engine decodes
 bit-identically to one that never left the device, and rebuilds nothing:
 the restore costs the transfer only. A model module may be shared by
@@ -96,15 +100,16 @@ it is demoted, as the reference's does (its closure keeps the arrays): an
 engine built over a released model copies them back onto the device (one
 host-to-device copy) and joins the model. A demoted engine restored
 while another engine is resident over its model fills a shell of its
-own. While the model keeps them, the parameters stay in pinned host RAM
-wherever the snapshot goes (3.4 GB for SmolLM2-1.7B in bf16), where the
-reference keeps its arrays on the device: a spill of the snapshot to
-disk frees its KV store, per-slot state and ``extra``, not the weights,
-and a snapshot taken from its pool holds them until it is restored.
-``core.store.SnapshotPool`` counts them against its host budget (the
-models behind its snapshots, each tensor once). A restore into the
-model, or an engine built over it, takes them back onto the device and
-drops them; so does dropping the model. ``export_template`` (or its
+own. While the model keeps them, the parameters' arena stays in pinned
+host RAM wherever the snapshot goes (3.4 GB for SmolLM2-1.7B in bf16),
+where the reference keeps its arrays on the device: a spill of the
+snapshot to disk frees the other arena (KV store, per-slot state and
+``extra``), not the weights', and a snapshot taken from its pool holds
+them until it is restored. ``core.store.SnapshotPool`` counts them
+against its host budget (the models behind its snapshots, each arena
+once). A restore into the model, or an engine built over it, takes them
+back onto the device and drops them, which frees the arena; so does
+dropping the model. ``export_template`` (or its
 two halves, ``export_template_device`` and ``export_template_host``, for
 a streamed export) and ``clone_offloaded`` bootstrap a twin engine from
 the weights alone. ``warm_executables`` loads every kernel library the model launches
@@ -141,6 +146,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devices
+from repro_torch import hostmem
 from repro_torch.models.layers import cdt
 from repro_torch.serving import kvcache
 from repro_torch.serving import paged as paging
@@ -211,6 +217,10 @@ class InferenceEngine:
                 for n, p in model.named_parameters():
                     p.data = released[n].to(
                         dev, non_blocking=released[n].is_pinned(), copy=True)
+                # the copies land before ``released`` goes, and with it
+                # the arena they read
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
             _holders(model).add(self)
         self.device = model.device
         self.model = model
@@ -380,13 +390,6 @@ class InferenceEngine:
         """True while the engine's device state lives in host memory."""
         return self.cache is None
 
-    def _host_copy(self, t: torch.Tensor) -> torch.Tensor:
-        pin = t.device.type == "cuda"
-        host = torch.empty(t.shape, dtype=t.dtype, device="cpu",
-                           pin_memory=pin)
-        host.copy_(t, non_blocking=pin)
-        return host
-
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -394,10 +397,12 @@ class InferenceEngine:
     def offload_device_state(self) -> Dict:
         """Demote: copy every device-resident tensor (weights, KV store,
         per-slot decode state, ``extra``) and the RNG state to host memory
-        (pinned when the device is the card) and free the device copies.
-        The queue, the host length shadow, the page allocator and prefix
-        cache, the stats and the built kernels stay on this object; a later
-        ``restore_device_state`` needs no rebuild. Offloading twice raises.
+        (two arenas, ``hostmem.host_copy``: the weights' and the rest's,
+        page-locked when the device is the card) and free the device
+        copies. The queue, the host length shadow, the page allocator and
+        prefix cache, the stats and the built kernels stay on this object;
+        a later ``restore_device_state`` needs no rebuild. Offloading twice
+        raises.
 
         A paged engine ships only its live pages, each once
         (``_paged_live_ids`` names them, ``_paged_refcounts`` carries their
@@ -411,16 +416,15 @@ class InferenceEngine:
             live = np.asarray(self._alloc.live_ids(), np.int64)
             cache = paging.gather_live(
                 self.cache, torch.as_tensor(live, device=self.device))
-        host = {
-            "params": {n: self._host_copy(p) for n, p in params.items()},
-            "cache": {n: self._host_copy(t) for n, t in cache.items()},
-            "_rng": self._gen.get_state(),
-        }
-        for name in self._state_fields:
-            host[name] = self._host_copy(getattr(self, name))
+        state = {"cache": cache, "_rng": self._gen.get_state()}
+        state.update((n, getattr(self, n)) for n in self._state_fields)
         if self.extra is not None:
-            host["extra"] = {n: self._host_copy(t)
-                             for n, t in self.extra.items()}
+            state["extra"] = self.extra
+        pinned = self.device.type == "cuda"
+        # two arenas: the parameters outlive the snapshot when the model
+        # keeps them (released below); a spill or a take frees the rest
+        host = {"params": hostmem.host_copy(params, pinned=pinned),
+                **hostmem.host_copy(state, pinned=pinned)}
         if self._paged:
             host["_paged_live_ids"] = live
             host["_paged_refcounts"] = np.array(
@@ -471,7 +475,9 @@ class InferenceEngine:
         d = self.device
 
         def put(t):
-            return t.to(d, non_blocking=t.is_pinned())
+            # on the CPU a copy too: the engine keeps no view of the
+            # snapshot's arenas
+            return t.to(d, non_blocking=t.is_pinned(), copy=d.type == "cpu")
 
         if self._paged:
             live = np.asarray(host_state["_paged_live_ids"], np.int64)
@@ -512,7 +518,9 @@ class InferenceEngine:
             setattr(self, name, put(host_state[name]))
         if self._extra_host is not None:
             self.extra = {n: put(t) for n, t in host_state["extra"].items()}
-        self._gen.set_state(host_state["_rng"])
+        # a copy: ``set_state`` reads the state from the start of its
+        # tensor's storage, not at a view's offset into an arena
+        self._gen.set_state(host_state["_rng"].clone())
         self._sync()
         if self._aot_shared:
             # a wire shell's kernels load with its state
@@ -569,16 +577,19 @@ class InferenceEngine:
         the weights and the RNG state plus the per-slot decode state of a
         pristine engine (all slots free, empty KV store), without detaching
         anything from this engine, which keeps serving. The monolithic form
-        of the two halves above. Restored into ``clone_offloaded()``'s twin
-        it decodes as a freshly built engine does, with no kernel build."""
+        of the two halves above, held as a demote's copy is: the weights in
+        one arena, the rest in another. Restored into
+        ``clone_offloaded()``'s twin it decodes as a freshly built engine
+        does, with no kernel build."""
         host = self.export_template_host()
         device = self.export_template_device()
-        host["params"] = {n: self._host_copy(p)
-                          for n, p in device["params"].items()}
-        host["_rng"] = device["_rng"]
+        state = {n: t for n, t in host.items() if n != "_paged_live_ids"}
+        state["_rng"] = device["_rng"]
         if "extra" in device:
-            host["extra"] = {n: self._host_copy(t)
-                             for n, t in device["extra"].items()}
+            state["extra"] = device["extra"]
+        pinned = self.device.type == "cuda"
+        host.update(hostmem.host_copy(state, pinned=pinned),
+                    params=hostmem.host_copy(device["params"], pinned=pinned))
         self._sync()
         return host
 

@@ -1702,3 +1702,73 @@ def test_cuda_last_demote_frees_the_parameters(cuda):
     a.restore_device_state(host)
     assert a.model is not model
     assert a.generate(ps, max_new_tokens=6) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_demote_pins_arenas_of_its_own(cuda, paged):
+    """Full-width SmolLM2 at 2 layers, demoted with requests decoding and
+    queued: every tensor it ships is page-locked and PyTorch's caching
+    host allocator allocates nothing; a restore whose host copy is dropped
+    right after the call brings every leaf back bit for bit, and so does
+    an engine built over the released model right after an earlier
+    demote; no arena is left once the snapshots are gone."""
+    import gc
+
+    from repro_torch import hostmem
+    from repro_torch.checkpoint.io import tree_leaves
+    from repro_torch.serving import paged as paging
+
+    def image(eng):
+        cache = eng.cache
+        if eng._paged:
+            cache = paging.gather_live(eng.cache, torch.as_tensor(
+                eng._alloc.live_ids(), dtype=torch.int64, device=cuda))
+        return ([p.clone() for p in eng.model.parameters()]
+                + [t.clone() for t in cache.values()]
+                + [getattr(eng, n).clone() for n in eng._state_fields])
+
+    def allocated():
+        return torch.cuda.host_memory_stats()["allocated_bytes.current"]
+
+    model = _smol_full_width(cuda, 2)
+    kw = dict(device=cuda, slots=4, cache_len=512, prefill_buckets=(128,),
+              megastep=4, cache_dtype=torch.bfloat16, paged=paged)
+    rng = np.random.RandomState(0)
+    ps = [list(rng.randint(8, 49152, size=rng.randint(20, 120)))
+          for _ in range(6)]
+    eng = InferenceEngine(model, **kw)
+    want = eng.generate(ps, max_new_tokens=8)
+    reqs = [eng.submit(Request(prompt=p, max_new_tokens=8)) for p in ps]
+    eng.step()
+    assert eng.active and eng.queue
+    gc.collect()
+    live0 = hostmem.live()
+    before = image(eng)
+    torch.cuda.synchronize()
+    alloc0 = allocated()
+    host = eng.offload_device_state()
+    leaves = [t for t in tree_leaves(host) if isinstance(t, torch.Tensor)]
+    assert allocated() == alloc0
+    assert all(t.is_pinned() for t in leaves)
+    assert len({t.untyped_storage().data_ptr() for t in leaves}) == 2
+    assert hostmem.live()["pinned_bytes"] - live0["pinned_bytes"] == sum(
+        {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+         for t in leaves}.values())
+    del leaves
+    eng.restore_device_state(host)
+    del host                    # the last views: the arenas go with them
+    assert hostmem.live() == live0
+    for a, b in zip(image(eng), before):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    eng.run_to_completion()
+    assert [r.generated for r in reqs] == want
+
+    params = [p.clone() for p in model.parameters()]
+    host = eng.offload_device_state()
+    twin = InferenceEngine(model, **kw)
+    for a, b in zip(model.parameters(), params):
+        assert torch.equal(a, b)
+    assert twin.generate(ps, max_new_tokens=8) == want
+    del host
+    assert hostmem.live() == live0

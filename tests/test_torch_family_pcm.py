@@ -12,10 +12,11 @@ and ``extra``.
   (stages ``disk`` and ``h2d``, no builder call). Its cache leaves, per-slot
   state and ``extra`` come back bit for bit, and it continues with the
   JAX engine's greedy tokens, at megastep 1 and 4.
-* The pool's host budget counts the parameters a released model keeps in
-  host RAM (``InferenceEngine.offload_device_state`` releases the last
-  engine's model in place): once with the HOST_RAM snapshot that holds
-  them, still after its spill, and enough to spill the LRU snapshot.
+* The pool's host budget counts the parameters' arena a released model
+  keeps in host RAM (``InferenceEngine.offload_device_state`` releases
+  the last engine's model in place): once with the HOST_RAM snapshot that
+  holds them, still after its spill, and enough to spill the LRU
+  snapshot.
 """
 
 import pytest
@@ -29,6 +30,7 @@ import numpy as np  # noqa: E402
 from repro.configs import get_reduced_config as jax_config  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro.serving import InferenceEngine as JaxEngine  # noqa: E402
+from repro_torch import hostmem  # noqa: E402
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.core import (Library, SnapshotPool, Tier,  # noqa: E402
                               make_recipe)
@@ -181,11 +183,13 @@ def smol_state():
 
 def engine_recipe(smol_state, name):
     """A context of one engine over a model of its own (the last engine
-    over it: its demote releases the parameters in place), and that
-    model's parameter bytes."""
+    over it: its demote releases the parameters in place), and the bytes
+    of the host arena its demote copies the parameters into (each one's
+    bytes rounded up to the arena's alignment)."""
     cfg, state = smol_state
     model = build_model(cfg, device="cpu", params=state)
-    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    weights = sum(-(-p.numel() * p.element_size() // hostmem.ALIGN)
+                  * hostmem.ALIGN for p in model.parameters())
     return make_recipe(name, lambda: {"engine": InferenceEngine(
         model, device="cpu", **ENGINE)}, host_bytes=0), model, weights
 

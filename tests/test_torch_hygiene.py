@@ -42,7 +42,7 @@ def test_port_file_list_is_complete():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "attention.py", "transformer.py", "moe.py",
             "ops.py", "moe_gemm.py", "dense_gemm.py", "build.py",
-            "weights.py", "ssm.py",
+            "weights.py", "ssm.py", "hostmem.py",
             "hybrid.py", "ssm_scan.py", "chip_smoke.py", "io.py",
             "context.py", "scheduler.py", "manager.py", "serve.py",
             "wire.py", "transport.py", "node.py", "devices.py", "events.py",
